@@ -33,3 +33,7 @@ def pytest_configure(config):
         "smoke: fast pre-commit gate (one tiny test per production path); "
         "run `pytest tests -m smoke -q` before every commit",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (hand-written kernels); skips elsewhere",
+    )
