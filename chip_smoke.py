@@ -3,14 +3,22 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``ddp_generator_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, checks a small
-float64 solve lane by lane against the CPU, and drives the main path once:
-the batched CarParking solve of ``bench.py`` (B=2048, T=500, max_iter=200,
-float32) through ``StepwiseSolver`` with both kernels.  Every phase prints
-one line; any failure exits nonzero.  The last two lines are a JSON line
-with each kernel's launches on the main path, error and times, and the
-contract line ``{"ok": true, "device": {...}}``.  Without a CUDA device it
-exits nonzero and prints no result.  Imports no JAX.
+holds each against its plain PyTorch version on the card, checks small
+float64 solves lane by lane against the CPU, and drives each path once at
+full width:
+
+* the main path, the batched CarParking solve of ``bench.py`` (B=2048,
+  T=500, max_iter=200, float32) through ``StepwiseSolver`` with kernels B1
+  (backward pass) and B2 (line-search rollouts);
+* the same solve with ``backpass_method="fused"``: kernel B3 (derivatives
+  and backward pass in one kernel) in place of emission + B1;
+* the Brachistochrone with its moving floor (``brachistochrone_hli``,
+  n=500, B=2048, float64) through B3 and B2, the path of the AL families.
+
+Every phase prints one line; any failure exits nonzero.  The last two
+lines are a JSON line with each kernel's launches on its path, error and
+times, and the contract line ``{"ok": true, "device": {...}}``.  Without a
+CUDA device it exits nonzero and prints no result.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -31,7 +39,16 @@ B_MAIN, T_MAIN, MAX_ITER_MAIN = 2048, 500, 200
 # in float32, 1.1e-16 in float64; the rollouts: exactly 0 in both).
 TOL_B1 = {"float32": 1e-5, "float64": 1e-14}
 TOL_ROLLOUT = {"float32": 1e-6, "float64": 1e-14}
+# B3 against its plain version (emission + B1's plain version): the two
+# sides differ in how they round the derivatives (forward-mode hyper-duals
+# against reverse-mode autograd), so the gap is not 0; the 500-step
+# recursion at small lambda amplifies it.  Each limit sits about 100x above
+# the largest gap of the first sound run on an H100 (CarParking 9.4e-4 in
+# float32, 4.6e-14 in float64; brachistochrone_hli 2.9e-15 in float64).
+TOL_B3 = {"car_parking float32": 1e-1, "car_parking float64": 5e-12,
+          "brachistochrone_hli float64": 3e-13}
 SOLVED_MIN = 0.90
+N_BRACHI = 500
 
 
 def line(phase: str, **kw) -> None:
@@ -147,7 +164,95 @@ def check_backpass(problem, B, T, dtype, tol, reps, rng, device="cuda"):
     return dict(B=B, N=T, dtype=str(dtype).replace("torch.", ""),
                 failed_lanes=n_failed, max_abs_err=worst_abs,
                 max_rel_err=worst_rel, tol=tol, ms=ms, plain_ms=plain_ms,
-                derivs_ok=int(ok.sum())), (p, r, m, w, out)
+                derivs_ok=int(ok.sum())), (p, r, m, w, out, lam[0])
+
+
+def compare_fused(name, args, tol, reps):
+    """Kernel B3 against its plain version on the same operands: equal
+    failed and derivs_ok flags, values within ``tol`` of the largest
+    reference value, both timed."""
+    import torch
+
+    from ddp_generator_tpu_torch.ops import cuda_fused as cf
+
+    bp, ok = cf.fused_derivs_back_pass(*args)
+    torch.cuda.synchronize()
+    ref, ref_ok = cf.fused_derivs_back_pass_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(ok, ref_ok):
+        fail(f"fused {name}: derivs_ok differs in "
+             f"{int((ok != ref_ok).sum())} lanes")
+    if not torch.equal(bp.failed, ref.failed):
+        fail(f"fused {name}: failed flags differ in "
+             f"{int((bp.failed != ref.failed).sum())} lanes")
+    B = ok.shape[0]
+    n_failed = int(ref.failed.sum())
+    if not 0 < n_failed < B:
+        fail(f"fused {name}: {n_failed} of {B} lanes failed; the check "
+             "needs both kinds")
+    worst_abs, worst_rel = 0.0, 0.0
+    for field in ("l", "L", "dV", "g_norm"):
+        e_abs, e_rel = max_rel_err(getattr(bp, field), getattr(ref, field))
+        worst_abs, worst_rel = max(worst_abs, e_abs), max(worst_rel, e_rel)
+        if not e_rel <= tol:
+            fail(f"fused {name}: {field} differs, rel err {e_rel:.3g} > "
+                 f"{tol}")
+    ms = time_ms(lambda: cf.fused_derivs_back_pass(*args), reps)
+    plain_ms = time_ms(lambda: cf.fused_derivs_back_pass_plain(*args), 1)
+    return dict(B=B, failed_lanes=n_failed, derivs_ok=int(ok.sum()),
+                max_abs_err=worst_abs, max_rel_err=worst_rel, tol=tol,
+                ms=ms, plain_ms=plain_ms)
+
+
+def check_fused_car(problem, p, r, m, w, lam, reps):
+    """Phase 4b: B3 on CarParking at the operands of phase 3 (the initial
+    rollout of bench's inputs, phase 3's lambdas), regType 1, FULL_DDP."""
+    name = "car_parking " + str(r.us.dtype).replace("torch.", "")
+    args = (problem, r.xs, r.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, w, w,
+            lam, p, 1, True)
+    return compare_fused(name, args, TOL_B3[name], reps)
+
+
+def brachi_inputs(B, n, seed):
+    """testBrachi_hli.m's setup with u0 = -|uniform(0.5, 1.5)| per lane."""
+    from ddp_generator_tpu_torch.models import brachistochrone
+
+    p, x0, _ = brachistochrone.default_setup_hli(n)
+    rng = np.random.default_rng(seed)
+    x0s = np.tile(x0, (B, 1))
+    u0s = -np.abs(rng.uniform(0.5, 1.5, (B, n, 1)))
+    return p, x0s, u0s
+
+
+def check_fused_brachi(reps):
+    """Phase 4c: B3 on brachistochrone_hli, B=2048, n=500, float64, with
+    random multipliers and penalty weights (every AL term live) and a
+    quarter of the lanes failing."""
+    import torch
+
+    import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch.models import brachistochrone
+    from ddp_generator_tpu_torch.ops.forward import forward_pass
+
+    problem = brachistochrone.brachistochrone_hli()
+    dev, dt = torch.device("cuda"), torch.float64
+    p_np, x0s, u0s = brachi_inputs(B_MAIN, N_BRACHI, seed=11)
+    p = ddp.params_from_jax(p_np, dt, dev)
+    t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
+    m = ddp.init_multipliers(problem, B_MAIN, N_BRACHI, dt, dev)
+    ones = torch.ones(B_MAIN, dtype=dt, device=dev)
+    r = forward_pass(problem, t(x0s), None, t(u0s), None, None, 0.0, p,
+                     m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, ones, ones)
+    rng = np.random.default_rng(12)
+    lam = 10.0 ** rng.uniform(-6, 0, B_MAIN)
+    lam[::4] = -1.0  # Quu - 1 is indefinite: these lanes fail
+    args = (problem, r.xs, r.us, m.mu_le,
+            t(rng.uniform(0.2, 2.0, (B_MAIN, N_BRACHI, 1))),
+            t(rng.standard_normal((B_MAIN, 1))), m.mu_fi,
+            t(rng.uniform(1.0, 40.0, B_MAIN)),
+            t(rng.uniform(1e-3, 1.0, B_MAIN)), t(lam), p, 1, False)
+    name = "brachistochrone_hli float64"
+    return compare_fused(name, args, TOL_B3[name], reps)
 
 
 def check_rollout(problem, alphas, p, r, m, w, bp, tol, reps):
@@ -207,18 +312,53 @@ def check_rollout(problem, alphas, p, r, m, w, bp, tol, reps):
     return res
 
 
-def per_lane_check(problem):
-    """Phase 5: a small float64 solve through the kernels on the GPU equals
-    the same solve through the plain versions on the CPU, lane by lane."""
-    import torch
+def brachi_options(**kw):
+    """tests/test_solver_brachi.py:64-71, max_iter=200."""
+    import ddp_generator_tpu_torch as ddp
 
+    return ddp.SolverOptions(max_iter=200, w_pen_init_l=40.0,
+                             w_pen_init_f=1e-5, w_pen_max_f=1.0,
+                             w_pen_fact2=1.0, full_ddp=False, debug_level=0,
+                             linesearch_method="kernel", **kw)
+
+
+def per_lane_check(problem, backpass="kernel"):
+    """Phase 5: a small float64 CarParking solve (16 lanes, T=100) through
+    the kernels of a path on the GPU equals the same solve through the
+    plain versions on the CPU, lane by lane."""
     import ddp_generator_tpu_torch as ddp
 
     p, x0s, u0s = bench_inputs(16, 100, np.float64, seed=3)
     x0s = x0s + 0.05 * np.random.default_rng(4).standard_normal(x0s.shape)
     opts = ddp.SolverOptions(max_iter=100, dtype="float64", debug_level=0,
-                             backpass_method="kernel",
+                             backpass_method=backpass,
                              linesearch_method="kernel")
+    return same_on_cpu(problem, opts, x0s, u0s, p)
+
+
+def per_lane_brachi():
+    """Phase 5c: the same for brachistochrone_hli (16 lanes, n=100) through
+    B3 and B2.  This AL solve amplifies last-bit differences between B3's
+    forward-mode derivatives and the plain version's reverse-mode ones: a
+    lane whose backward pass sits on the positive-definiteness boundary can
+    fail on one side only and then take another path (PERF.md traces seed
+    13's lane 10 doing so).  Seed 14's lanes stay clear of such ties."""
+    from ddp_generator_tpu_torch.models import brachistochrone
+
+    p, x0s, u0s = brachi_inputs(16, 100, seed=14)
+    return same_on_cpu(brachistochrone.brachistochrone_hli(),
+                       brachi_options(dtype="float64",
+                                      backpass_method="fused"),
+                       x0s, u0s, p)
+
+
+def same_on_cpu(problem, opts, x0s, u0s, p):
+    """The solve on the GPU and on the CPU: equal status, iterations, body
+    and stale calls per lane, cost to a relative 1e-8."""
+    import torch
+
+    import ddp_generator_tpu_torch as ddp
+
     out = {}
     for dev in ("cuda", "cpu"):
         t0 = time.time()
@@ -235,50 +375,82 @@ def per_lane_check(problem):
     cost_rel = float(np.max(np.abs(g.cost - c.cost) / np.abs(c.cost)))
     if not cost_rel <= 1e-8:
         fail(f"per-lane check: cost rel err {cost_rel:.3g} > 1e-8")
-    return dict(lanes=16, T=100, status=np.bincount(g.status).tolist(),
+    return dict(lanes=x0s.shape[0], T=u0s.shape[1],
+                status=np.bincount(g.status).tolist(),
                 cost_rel_err=cost_rel, gpu_s=round(out["cuda"][1], 2),
                 cpu_s=round(out["cpu"][1], 2))
 
 
-def main_path(problem):
-    """Phase 6: bench.py's batched CarParking solve through both kernels."""
+def reset_launches():
+    from ddp_generator_tpu_torch.ops import cuda_backpass as cb
+    from ddp_generator_tpu_torch.ops import cuda_fused as cf
+    from ddp_generator_tpu_torch.ops import cuda_rollout as cr
+
+    cb.back_pass_cm.launches = 0
+    cf.fused_derivs_back_pass.launches = 0
+    cr.rollout_call.launches = {"multi": 0, "selected": 0}
+
+
+def read_launches():
+    from ddp_generator_tpu_torch.ops import cuda_backpass as cb
+    from ddp_generator_tpu_torch.ops import cuda_fused as cf
+    from ddp_generator_tpu_torch.ops import cuda_rollout as cr
+
+    return {"backpass": cb.back_pass_cm.launches,
+            "fused": cf.fused_derivs_back_pass.launches,
+            "rollout_multi": cr.rollout_call.launches["multi"],
+            "rollout_selected": cr.rollout_call.launches["selected"]}
+
+
+def timed_solve(solver, x0s, u0s, p):
+    """One solve with the launch counts set to 0 just before it; returns
+    (solution as numpy, wall seconds, launches)."""
     import torch
 
     import ddp_generator_tpu_torch as ddp
-    from ddp_generator_tpu_torch.ops import cuda_backpass as cb
-    from ddp_generator_tpu_torch.ops import cuda_rollout as cr
 
-    p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float32)
-    opts = ddp.SolverOptions(max_iter=MAX_ITER_MAIN, dtype="float32",
-                             tolFun=1e-5, debug_level=0,
-                             backpass_method="kernel",
-                             linesearch_method="kernel")
-    solver = ddp.StepwiseSolver(problem, opts, chunk=10, compact_levels=4,
-                                min_compact_batch=128, device="cuda")
-    cb.back_pass_cm.launches = 0
-    cr.rollout_call.launches = {"multi": 0, "selected": 0}
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
     sol = solver(x0s, u0s, p)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"backpass": cb.back_pass_cm.launches,
-                "rollout_multi": cr.rollout_call.launches["multi"],
-                "rollout_selected": cr.rollout_call.launches["selected"]}
-    s = ddp.to_numpy(sol)
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"main path: kernel {name} was never launched")
+    return ddp.to_numpy(sol), wall, read_launches()
+
+
+def main_path(problem, backpass="kernel"):
+    """Phase 6 (and 7 with ``backpass="fused"``): bench.py's batched
+    CarParking solve through the kernels of that path."""
+    import ddp_generator_tpu_torch as ddp
+
+    what = "main path" if backpass == "kernel" else "fused path"
+    p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float32)
+    opts = ddp.SolverOptions(max_iter=MAX_ITER_MAIN, dtype="float32",
+                             tolFun=1e-5, debug_level=0,
+                             backpass_method=backpass,
+                             linesearch_method="kernel")
+    solver = ddp.StepwiseSolver(problem, opts, chunk=10, compact_levels=4,
+                                min_compact_batch=128, device="cuda")
+    s, wall, launches = timed_solve(solver, x0s, u0s, p)
+    used = ("backpass" if backpass == "kernel" else "fused",
+            "rollout_multi", "rollout_selected")
+    for name in used:
+        if launches[name] <= 0:
+            fail(f"{what}: kernel {name} was never launched")
+    unused = "fused" if backpass == "kernel" else "backpass"
+    if launches[unused] != 0:
+        fail(f"{what}: kernel {unused} was launched {launches[unused]} "
+             "times; this path must not run it")
     if s.xs.shape != (B_MAIN, T_MAIN + 1, 4) or s.us.shape != (
             B_MAIN, T_MAIN, 2):
-        fail(f"main path: shapes {s.xs.shape} {s.us.shape}")
+        fail(f"{what}: shapes {s.xs.shape} {s.us.shape}")
     if not np.all(np.isfinite(s.cost)):
-        fail(f"main path: {int((~np.isfinite(s.cost)).sum())} costs are "
+        fail(f"{what}: {int((~np.isfinite(s.cost)).sum())} costs are "
              "not finite")
     solved = float(np.isin(s.status, (1, 2)).mean())
     exhausted = float((s.status == 7).mean())
     if solved < SOLVED_MIN:
-        fail(f"main path: solved share {solved:.4f} < {SOLVED_MIN}")
+        fail(f"{what}: solved share {solved:.4f} < {SOLVED_MIN}")
     stats = dict(B=B_MAIN, T=T_MAIN, max_iter=MAX_ITER_MAIN, wall_s=wall,
                  solves_per_s=B_MAIN / wall, solved_pct=100 * solved,
                  exhausted_pct=100 * exhausted,
@@ -290,6 +462,47 @@ def main_path(problem):
                  mean_cost=float(s.cost.mean()),
                  launches=launches)
     return stats
+
+
+def brachi_path():
+    """Phase 8: brachistochrone_hli at full width (testBrachi_hli.m, n=500,
+    B=2048, float64) through B3 and B2.  Solved lanes must meet the floor
+    (hli) and the terminal equality (hfe) as the JAX package's own test
+    holds a solve to them (tests/test_solver_brachi.py:58-78)."""
+    import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch.models import brachistochrone
+
+    p, x0s, u0s = brachi_inputs(B_MAIN, N_BRACHI, seed=7)
+    solver = ddp.StepwiseSolver(
+        brachistochrone.brachistochrone_hli(),
+        brachi_options(dtype="float64", backpass_method="fused"),
+        device="cuda")
+    s, wall, launches = timed_solve(solver, x0s, u0s, p)
+    for name in ("fused", "rollout_multi", "rollout_selected"):
+        if launches[name] <= 0:
+            fail(f"brachistochrone: kernel {name} was never launched")
+    if launches["backpass"] != 0:
+        fail("brachistochrone: kernel backpass ran on the fused path")
+    if s.xs.shape != (B_MAIN, N_BRACHI + 1, 1) or not np.all(
+            np.isfinite(s.cost)):
+        fail(f"brachistochrone: shape {s.xs.shape} or non-finite costs")
+    ok = np.isin(s.status, (1, 2))
+    if not ok.any():
+        fail("brachistochrone: no lane solved")
+    ymin = np.asarray(p["ymin"])
+    y = s.xs[ok, :, 0]
+    terminal = float(np.abs(y[:, -1] - ymin[-1]).max())
+    floor = float((ymin[None, :N_BRACHI] - y[:, :N_BRACHI]).max())
+    if not (terminal < 1e-3 and floor < 5e-2):
+        fail(f"brachistochrone: solved lanes miss the constraints: "
+             f"|y_N - ymin[N]| {terminal:.3g}, floor {floor:.3g}")
+    return dict(B=B_MAIN, n=N_BRACHI, wall_s=wall,
+                solves_per_s=B_MAIN / wall, solved_pct=100 * float(ok.mean()),
+                exhausted_pct=100 * float((s.status == 7).mean()),
+                mean_iters=float(s.iterations.mean()),
+                mean_body_calls=float(s.body_calls.mean()),
+                max_terminal_err=terminal, max_floor_violation=floor,
+                mean_cost=float(s.cost[ok].mean()), launches=launches)
 
 
 def main() -> int:
@@ -348,10 +561,10 @@ def main() -> int:
     rng = np.random.default_rng(0)
 
     # 3. B1 against its plain version
-    bp32, (p32, r32, m32, w32, out32) = check_backpass(
+    bp32, (p32, r32, m32, w32, out32, lam32) = check_backpass(
         problem, B_MAIN, T_MAIN, torch.float32, TOL_B1["float32"], 20, rng)
     line("backpass_f32", **bp32)
-    bp64, (p64, r64, m64, w64, out64) = check_backpass(
+    bp64, (p64, r64, m64, w64, out64, lam64) = check_backpass(
         problem, 256, T_MAIN, torch.float64, TOL_B1["float64"], 5, rng)
     line("backpass_f64", **bp64)
 
@@ -364,16 +577,38 @@ def main() -> int:
                          TOL_ROLLOUT["float64"], 5)
     for mode, d in ro64.items():
         line(f"rollout_{mode}_f64", B=256, N=T_MAIN, **d)
+
+    # 4b/4c. B3 against its plain version: CarParking on phase 3's
+    # operands, brachistochrone_hli with every AL term live
+    fu32 = check_fused_car(problem, p32, r32, m32, w32, lam32, 10)
+    line("fused_f32", N=T_MAIN, **fu32)
+    fu64 = check_fused_car(problem, p64, r64, m64, w64, lam64, 3)
+    line("fused_f64", N=T_MAIN, **fu64)
+    line("fused_brachi_f64", N=N_BRACHI, **check_fused_brachi(5))
     del out32, out64, r32, r64
 
-    # 5. per-lane check, kernels on the GPU vs plain on the CPU
+    # 5. per-lane checks, kernels on the GPU vs plain on the CPU
     line("per_lane", **per_lane_check(problem))
+    line("per_lane_fused", **per_lane_check(problem, "fused"))
+    line("per_lane_fused_brachi", **per_lane_brachi())
 
-    # 6. the main path
+    # 6. the main path: emission + B1, B2
     stats = main_path(problem)
     launches = stats.pop("launches")
     line("main_path", **stats, **{f"launches_{k}": v
                                   for k, v in launches.items()})
+
+    # 7. the fused path at full width: B3, B2
+    fstats = main_path(problem, "fused")
+    flaunches = fstats.pop("launches")
+    line("fused_path", **fstats, **{f"launches_{k}": v
+                                    for k, v in flaunches.items()})
+
+    # 8. brachistochrone_hli at full width: B3, B2 with the AL families
+    bstats = brachi_path()
+    blaunches = bstats.pop("launches")
+    line("brachi_path", **bstats, **{f"launches_{k}": v
+                                     for k, v in blaunches.items()})
 
     kernels = [
         dict(name="backpass", route="cuda",
@@ -391,6 +626,12 @@ def main() -> int:
             launches=launches[f"rollout_{mode}"],
             max_abs_err=ro32[mode]["max_abs_err"], ms=ro32[mode]["ms"],
             plain_ms=ro32[mode]["plain_ms"]))
+    kernels.append(dict(
+        name="fused", route="cuda",
+        source="ddp_generator_tpu_torch/csrc/fused.cu",
+        replaces="ddp_generator_tpu/ops/pallas_fused.py:715",
+        launches=flaunches["fused"], max_abs_err=fu32["max_abs_err"],
+        ms=fu32["ms"], plain_ms=fu32["plain_ms"]))
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

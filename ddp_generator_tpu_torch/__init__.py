@@ -1,9 +1,12 @@
 """ddp_generator_tpu_torch: the batched DDP/iLQG solver in PyTorch and CUDA.
 
 The port of ``ddp_generator_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA
-H100.  It imports no JAX.  The solver's two hot kernels are hand-written
-CUDA for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use on a CUDA
+H100.  It imports no JAX.  The solver's kernels are hand-written CUDA for
+``sm_90a`` (``csrc/``): the backward pass (B1), the line-search rollouts
+(B2) and the fused derivatives + backward pass (B3,
+``backpass_method="fused"``), built with ``nvcc`` at first use on a CUDA
 device; on the CPU the same entry points run their plain PyTorch versions.
+Models: ``models.car_parking`` and ``models.brachistochrone``.
 
 Quick start::
 
@@ -22,8 +25,11 @@ Quick start::
 from .al import Multipliers, init_multipliers, update_multipliers
 from .convert import params_from_jax, to_numpy, to_torch
 from .derivs import DerivBundle, batched_calc_derivs, calc_derivs
+from .models import brachistochrone, car_parking
+from .ops.cuda_fused import fused_derivs_back_pass
 from .options import DEFAULT_ALPHA, OptionError, SolverOptions, options_from_dict
 from .problem import (
+    PER_STEP,
     BoxConstraint,
     CudaModel,
     Problem,
@@ -59,6 +65,7 @@ __all__ = [
     "DerivBundle",
     "Multipliers",
     "OptionError",
+    "PER_STEP",
     "Problem",
     "ProblemValidationError",
     "STATUS_DERIVS_FAILED",
@@ -73,8 +80,11 @@ __all__ = [
     "SolverOptions",
     "StepwiseSolver",
     "batched_calc_derivs",
+    "brachistochrone",
     "calc_derivs",
+    "car_parking",
     "clamp_u",
+    "fused_derivs_back_pass",
     "init_multipliers",
     "limits_u",
     "make_batched_solver",

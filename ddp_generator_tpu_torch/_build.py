@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels at first use.
 
 ``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, bound with ``ctypes``.  The output lives in
+interface, bound with ``ctypes``: one ``nvcc -c`` per source, all started
+together, then one link.  The output lives in
 ``build/torch_kernels/<hash>/`` at the repository root, keyed on a hash of
 the sources and flags, so an edit rebuilds and an unchanged tree reuses the
 library.  A file lock keeps concurrent first uses from racing.  Nothing
@@ -26,7 +27,7 @@ LIB_NAME = "libddp_kernels.so"
 # the plain PyTorch version, which runs one operation per kernel.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
 
@@ -78,15 +79,33 @@ def build() -> Path:
                 return lib
             out_dir.mkdir(parents=True, exist_ok=True)
             tmp = out_dir / (LIB_NAME + f".tmp{os.getpid()}")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   *(str(p) for p in _sources() if p.suffix == ".cu")]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            nvcc = nvcc_path()
+            objs, procs = [], []
+            for src in (p for p in _sources() if p.suffix == ".cu"):
+                obj = out_dir / (src.stem + ".o")
+                cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+                       str(obj), str(src)]
+                procs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+                objs.append(str(obj))
+            report, failed = [], []
+            for cmd, proc in procs:
+                out = proc.communicate()[0]
+                report.append(out)
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed (rc={proc.returncode}):\n"
+                                  f"{' '.join(cmd)}\n{out}")
+            if failed:
+                raise KernelCompileError("\n".join(failed))
+            link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-shared", "-o", str(tmp), *objs]
+            proc = subprocess.run(link, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise KernelCompileError(
-                    f"nvcc failed (rc={proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{proc.stderr}"
-                )
-            (out_dir / "ptxas.txt").write_text(proc.stdout + proc.stderr)
+                    f"nvcc link failed (rc={proc.returncode}):\n"
+                    f"{' '.join(link)}\n{proc.stderr}")
+            (out_dir / "ptxas.txt").write_text("".join(report))
             os.replace(tmp, lib)
             return lib
         finally:
@@ -105,6 +124,9 @@ def load_library() -> ctypes.CDLL:
     lib.ddp_rollout.argtypes = [i, ctypes.c_char_p, i, i, i, i, i, i,
                                 ctypes.POINTER(p), p]
     lib.ddp_rollout.restype = i
+    lib.ddp_fused.argtypes = [i, ctypes.c_char_p, i, i, i, i, i,
+                              ctypes.POINTER(p), p]
+    lib.ddp_fused.restype = i
     lib.ddp_error_string.argtypes = [i]
     lib.ddp_error_string.restype = ctypes.c_char_p
     return lib

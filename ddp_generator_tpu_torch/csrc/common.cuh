@@ -1,15 +1,23 @@
-// Helpers shared by the hand-written kernels (backpass.cu, rollout.cu).
+// Helpers shared by the hand-written kernels (backpass.cu, rollout.cu,
+// fused.cu).
 //
 // The per-lane functions are __host__ __device__ so that their arithmetic
-// can also be compiled by a host C++ compiler; the kernels only map a
-// thread to a lane and call them.
+// can also be compiled by a host C++ compiler (tests/test_torch_dual_host.py
+// does so with g++); the kernels only map a thread to a lane and call them.
+// Without nvcc the CUDA qualifiers expand to nothing (or `inline`).
 #pragma once
 
-#include <cuda_runtime.h>
 #include <stddef.h>
 
-#ifndef __CUDACC__
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#else
+#include <math.h>
+
 #include <cmath>
+#define __host__
+#define __device__
+#define __forceinline__ inline
 #endif
 
 namespace ddp {
@@ -22,6 +30,9 @@ enum ErrorCode {
   kBadVariant = -3,    // (n_x, n_u) / reg_type / model not instantiated
   kNullPointer = -4,   // a required operand pointer is NULL
 };
+
+// Length of a per-lane array of n entries (C++ has no zero-length arrays).
+__host__ __device__ constexpr int arr(int n) { return n > 0 ? n : 1; }
 
 template <typename T>
 __host__ __device__ __forceinline__ bool is_finite(T v) {
@@ -45,17 +56,52 @@ __host__ __device__ __forceinline__ T nan_max(T a, T b) {
 }
 
 // AL penalties (ddp_generator_tpu/al.py: _eq_penalty, _ineq_penalty), in
-// the same operation order as the plain PyTorch version.
-template <typename T>
-__host__ __device__ __forceinline__ T eq_penalty(T mu, T h, T w) {
+// the same operation order as the plain PyTorch version.  The multiplier
+// and weight are plain numbers T; the constraint value H is T or a
+// forward-mode number (dual.cuh), whose branch is chosen by its value.
+template <typename T, typename H>
+__host__ __device__ __forceinline__ H eq_penalty(T mu, H h, T w) {
   return mu * h + T(0.5) * w * h * h;
 }
 
-template <typename T>
-__host__ __device__ __forceinline__ T ineq_penalty(T mu, T h, T w) {
-  const T active = mu * h * (T(1) + w * h);
-  const T inactive = mu * h / (T(1) - w * h);
+template <typename T, typename H>
+__host__ __device__ __forceinline__ H ineq_penalty(T mu, H h, T w) {
+  const H active = mu * h * (T(1) + w * h);
+  const H inactive = mu * h / (T(1) - w * h);
   return h >= T(0) ? active : inactive;
+}
+
+// Running cost with the hle/hli penalties (al.py: augmented_L) of a CUDA
+// model M at (x, u) of type S (T or a forward-mode number); params p,
+// multipliers mu_le/mu_li and the weight w are plain T.
+template <class M, typename S, typename T>
+__host__ __device__ __forceinline__ S aug_L(const S* x, const S* u,
+                                            const T* p, int k,
+                                            const T* mu_le, const T* mu_li,
+                                            T w) {
+  S c = M::L(x, u, p, k);
+#pragma unroll
+  for (int i = 0; i < M::NHLE; ++i)
+    c = c + eq_penalty(mu_le[i], M::hle(i, x, u, p, k), w);
+#pragma unroll
+  for (int i = 0; i < M::NHLI; ++i)
+    c = c + ineq_penalty(mu_li[i], M::hli(i, x, u, p, k), w);
+  return c;
+}
+
+// Final cost with the hfe/hfi penalties (al.py: augmented_F), k = N.
+template <class M, typename S, typename T>
+__host__ __device__ __forceinline__ S aug_F(const S* x, const T* p, int N,
+                                            const T* mu_fe, const T* mu_fi,
+                                            T w) {
+  S c = M::F(x, p, N);
+#pragma unroll
+  for (int i = 0; i < M::NHFE; ++i)
+    c = c + eq_penalty(mu_fe[i], M::hfe(i, x, p, N), w);
+#pragma unroll
+  for (int i = 0; i < M::NHFI; ++i)
+    c = c + ineq_penalty(mu_fi[i], M::hfi(i, x, p, N), w);
+  return c;
 }
 
 inline unsigned grid_for(long long threads, int block) {

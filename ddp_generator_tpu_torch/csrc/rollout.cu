@@ -26,6 +26,7 @@
 // step while the cost keeps accumulating; the final cost F(x_N, p, N) with
 // the hfe/hfi penalties.
 #include "common.cuh"
+#include "models/brachistochrone.cuh"
 #include "models/car_parking.cuh"
 
 #include <string.h>
@@ -47,7 +48,7 @@ struct RolloutArgs {
   const T* mu_fe;  // (NHFE, B)
   const T* mu_fi;  // (NHFI, B)
   const T* alpha;  // MULTI: the (A,) schedule; selected: (1, B) per lane
-  const T* params; // (NP,) flat, model order
+  const T* params; // flat, model order (models/*.cuh)
   T* cost;         // MULTI: (A, B); selected + WANT_COST: (1, B)
   bool* ok;        // same shape as cost
   T* xs;           // (N, NX, B)   selected only
@@ -56,8 +57,11 @@ struct RolloutArgs {
   int N, B, A;
 };
 
+// Trajectory idx, parameters at p (a register copy, or A.params for a
+// model whose [k]-indexed tail stays in device memory).
 template <typename M, typename T, bool MULTI, bool WANT_COST>
-__host__ __device__ void rollout_lane(const RolloutArgs<T>& A, int idx) {
+__host__ __device__ void rollout_lane(const RolloutArgs<T>& A, const T* p,
+                                      int idx) {
   constexpr int NX = M::NX, NU = M::NU;
   const int N = A.N, B = A.B;
   int b, ai;
@@ -71,9 +75,6 @@ __host__ __device__ void rollout_lane(const RolloutArgs<T>& A, int idx) {
     b = idx;
     alpha = A.alpha[b];
   }
-  T p[M::NP];
-#pragma unroll
-  for (int i = 0; i < M::NP; ++i) p[i] = A.params[i];
   T x[NX];
 #pragma unroll
   for (int a = 0; a < NX; ++a) x[a] = A.x0[a * B + b];
@@ -107,15 +108,14 @@ __host__ __device__ void rollout_lane(const RolloutArgs<T>& A, int idx) {
       const T lim = -s * (M::h(i, x, u0, p, k) - s * u0[j]);
       u[j] = M::box_sign(i) > 0 ? nan_min(u[j], lim) : nan_max(u[j], lim);
     }
-    T c = M::L(x, u, p, k);
+    T mu_le[arr(M::NHLE)] = {}, mu_li[arr(M::NHLI)] = {};
 #pragma unroll
     for (int i = 0; i < M::NHLE; ++i)
-      c = c + eq_penalty(A.mu_le[(kb * M::NHLE + i) * B + b],
-                         M::hle(i, x, u, p, k), wpl);
+      mu_le[i] = A.mu_le[(kb * M::NHLE + i) * B + b];
 #pragma unroll
     for (int i = 0; i < M::NHLI; ++i)
-      c = c + ineq_penalty(A.mu_li[(kb * M::NHLI + i) * B + b],
-                           M::hli(i, x, u, p, k), wpl);
+      mu_li[i] = A.mu_li[(kb * M::NHLI + i) * B + b];
+    const T c = aug_L<M>(x, u, p, k, mu_le, mu_li, wpl);
     T xn[NX];
     M::f(x, u, p, k, xn);
     bool ok_k = is_finite(c);
@@ -133,13 +133,12 @@ __host__ __device__ void rollout_lane(const RolloutArgs<T>& A, int idx) {
     for (int a = 0; a < NX; ++a) x[a] = xn[a];
   }
   if (MULTI || WANT_COST) {
-    T cf = M::F(x, p, N);
+    T mu_fe[arr(M::NHFE)] = {}, mu_fi[arr(M::NHFI)] = {};
 #pragma unroll
-    for (int i = 0; i < M::NHFE; ++i)
-      cf = cf + eq_penalty(A.mu_fe[i * B + b], M::hfe(i, x, p, N), wpf);
+    for (int i = 0; i < M::NHFE; ++i) mu_fe[i] = A.mu_fe[i * B + b];
 #pragma unroll
-    for (int i = 0; i < M::NHFI; ++i)
-      cf = cf + ineq_penalty(A.mu_fi[i * B + b], M::hfi(i, x, p, N), wpf);
+    for (int i = 0; i < M::NHFI; ++i) mu_fi[i] = A.mu_fi[i * B + b];
+    const T cf = aug_F<M>(x, p, N, mu_fe, mu_fi, wpf);
     A.cost[ai * B + b] = c_acc + cf;
     A.ok[ai * B + b] = ok && is_finite(cf);
   }
@@ -153,7 +152,15 @@ template <typename M, typename T, bool MULTI, bool WANT_COST>
 __global__ void rollout_kernel(const RolloutArgs<T> args) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   const int total = MULTI ? args.A * args.B : args.B;
-  if (idx < total) rollout_lane<M, T, MULTI, WANT_COST>(args, idx);
+  if (idx >= total) return;
+  if (M::TAIL) {
+    rollout_lane<M, T, MULTI, WANT_COST>(args, args.params, idx);
+  } else {
+    T p[M::NP];
+#pragma unroll
+    for (int i = 0; i < M::NP; ++i) p[i] = args.params[i];
+    rollout_lane<M, T, MULTI, WANT_COST>(args, p, idx);
+  }
 }
 
 template <typename M, typename T>
@@ -199,6 +206,12 @@ int launch(const char* model, bool multi, bool want_cost, int N, int B,
     if (p[i] == nullptr) return kNullPointer;
   if (strcmp(model, "car_parking") == 0)
     return launch_model<CarParking, T>(multi, want_cost, a, block, stream);
+  if (strcmp(model, "brachistochrone") == 0)
+    return launch_model<Brachistochrone, T>(multi, want_cost, a, block,
+                                            stream);
+  if (strcmp(model, "brachistochrone_hli") == 0)
+    return launch_model<BrachistochroneHli, T>(multi, want_cost, a, block,
+                                               stream);
   return kBadVariant;
 }
 
@@ -210,8 +223,9 @@ int launch(const char* model, bool multi, bool want_cost, int N, int B,
 // ptrs: xnom, unom, l, L, mu_le, mu_li, x0, w_pen_l, w_pen_f, mu_fe, mu_fi,
 // alpha, params, then the outputs cost, ok, xs, xf, us (NULL where a mode
 // or an empty AL family has none).  model: a CUDA model name
-// ("car_parking").  dtype: 0 float32, 1 float64.  Launches on `stream`,
-// does not synchronize, returns cudaGetLastError() or a negative ddp code.
+// ("car_parking", "brachistochrone", "brachistochrone_hli").  dtype: 0
+// float32, 1 float64.  Launches on `stream`, does not synchronize, returns
+// cudaGetLastError() or a negative ddp code.
 extern "C" int ddp_rollout(int dtype, const char* model, int multi,
                            int want_cost, int N, int B, int A, int block,
                            void* const* ptrs, void* stream) {

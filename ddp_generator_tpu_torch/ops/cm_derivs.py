@@ -29,7 +29,7 @@ import torch
 
 from ..al import _eq_penalty, _ineq_penalty
 from ..problem import Problem
-from .cuda_backpass import BackPassResult, back_pass_cm
+from .cuda_backpass import BackPassResult, back_pass_cm, result_from_cm
 
 Tensor = torch.Tensor
 
@@ -222,14 +222,6 @@ def cm_back_pass_from_bundle(sd_cm: dict, final_cx, final_cxx, us_cm, lam,
                              full_ddp: bool) -> BackPassResult:
     """Run the backward pass (kernel B1, or its plain version on the CPU)
     on an emitted bundle; returns the batch-major result."""
-    n_u, N, B = us_cm.shape
-    l_cm, L_cm, dV, g_norm, failed = back_pass_cm(
+    return result_from_cm(*back_pass_cm(
         sd_cm, final_cx, final_cxx, us_cm, lam[None, :], n_x,
-        reg_type=reg_type, full_ddp=full_ddp)
-    return BackPassResult(
-        l=l_cm.permute(2, 0, 1),
-        L=L_cm.permute(2, 0, 1).reshape(B, N, n_u, n_x),
-        dV=dV.T,
-        g_norm=g_norm[0],
-        failed=failed[0],
-    )
+        reg_type=reg_type, full_ddp=full_ddp))

@@ -364,6 +364,20 @@ def back_pass_cm_plain(sd_cm: dict, final_cx, final_cxx, us_cm, lam, n_x: int,
     return l_out, L_out, dV, g_norm, (fail > 0.0)[None]
 
 
+def result_from_cm(l_cm, L_cm, dV, g_norm, failed) -> BackPassResult:
+    """The kernel-layout outputs ``l (N, n_u, B)``, ``L (N, n_u*n_x, B)``,
+    ``dV (2, B)``, ``g_norm (1, B)``, ``failed (1, B)`` as the batch-major
+    :class:`BackPassResult`."""
+    N, n_u, B = l_cm.shape
+    return BackPassResult(
+        l=l_cm.permute(2, 0, 1),
+        L=L_cm.permute(2, 0, 1).reshape(B, N, n_u, L_cm.shape[1] // n_u),
+        dV=dV.T,
+        g_norm=g_norm[0],
+        failed=failed[0],
+    )
+
+
 _BUNDLE_KEYS = ("fx", "fu", "cx", "cu", "cxx", "cuu", "cxu", "fxx", "fuu",
                 "fxu", "lower", "upper", "lower_hx", "upper_hx", "lower_sign",
                 "upper_sign")

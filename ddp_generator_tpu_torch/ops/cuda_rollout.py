@@ -186,7 +186,7 @@ def rollout_call(problem: Problem, alphas: Sequence[float], xnom_cm, unom_cm,
             raise ValueError(f"{name} must be contiguous")
     if (n_x, n_u) != (problem.n_x, problem.n_u):
         raise ValueError("operand widths do not match the problem")
-    p_flat = model.flat_params(params, dtype, dev)
+    p_flat = model.flat_params(params, dtype, dev, N)
 
     def opt_t(t, n):
         return t if n else None

@@ -52,29 +52,50 @@ class BoxConstraint:
     sign: float  # +1.0 => upper bound on u[u_index]; -1.0 => lower bound
 
 
+#: Length of a ``[k]``-indexed parameter in :attr:`CudaModel.param_order`:
+#: one entry per time step and the final one, ``N + 1``, known at call time.
+PER_STEP = "N+1"
+
+
 @dataclasses.dataclass(frozen=True)
 class CudaModel:
     """The CUDA model a problem binds to (``csrc/models/<name>.cuh``).
 
     ``param_order`` lists ``(params key, length)`` in the order of the flat
-    parameter array the model's ``__device__`` functions read."""
+    parameter array the model's ``__device__`` functions read.  The last
+    entry may have length :data:`PER_STEP`: the model reads it at a fixed
+    offset plus the step ``k``."""
 
     name: str
-    param_order: tuple[tuple[str, int], ...]
+    param_order: tuple[tuple[str, int | str], ...]
+
+    def __post_init__(self):
+        lengths = [n for _, n in self.param_order]
+        if PER_STEP in lengths[:-1]:
+            raise ProblemValidationError(
+                f"CUDA model {self.name}: only the last parameter may have "
+                f"length {PER_STEP!r}")
 
     @property
     def n_params(self) -> int:
-        return sum(n for _, n in self.param_order)
+        """Entries before a :data:`PER_STEP` tail."""
+        return sum(n for _, n in self.param_order if n != PER_STEP)
 
     def flat_params(self, p: dict, dtype: torch.dtype,
-                    device: torch.device) -> Tensor:
+                    device: torch.device, N: Optional[int] = None) -> Tensor:
+        """The flat parameter array for a horizon of ``N`` steps (``N`` is
+        needed only by a :data:`PER_STEP` entry)."""
         parts = []
         for key, n in self.param_order:
+            if n == PER_STEP and N is None:
+                raise ValueError(f"CUDA model {self.name}: param {key!r} "
+                                 "has one entry per step; pass N")
+            want = N + 1 if n == PER_STEP else n
             v = torch.as_tensor(p[key], dtype=dtype, device=device).reshape(-1)
-            if v.numel() != n:
+            if v.numel() != want:
                 raise ProblemValidationError(
                     f"CUDA model {self.name}: param {key!r} has {v.numel()} "
-                    f"entries, the model reads {n}"
+                    f"entries, the model reads {want}"
                 )
             parts.append(v)
         return torch.cat(parts).contiguous()

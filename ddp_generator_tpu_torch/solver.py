@@ -1,13 +1,16 @@
 """The outer iLQG loop (``ddp_generator_tpu.solver``), batched, in PyTorch.
 
 One body call is one masked outer iteration of every lane of the batch
-(``iLQG.c:239-361``): derivative emission into the packed component-major
-bundle (``ops/cm_derivs.py``), the backward pass (kernel B1), the
-gradient-tolerance exit, the staged line search (kernel B2), then the
-accept/reject updates.  The JAX package writes one lane and ``vmap``s it,
-with ``custom_vmap`` rules that hand the batch to its kernels; here the
-batch dimension is written out, every masked update is a ``torch.where``
-per lane, and a lane whose loop condition is false keeps its carry.
+(``iLQG.c:239-361``): the derivatives and the backward pass -- with
+``backpass_method="kernel"`` derivative emission into the packed
+component-major bundle (``ops/cm_derivs.py``) then kernel B1, with
+``"fused"`` kernel B3, which computes the derivatives inside the backward
+pass (``ops/cuda_fused.py``) -- the gradient-tolerance exit, the staged line
+search (kernel B2), then the accept/reject updates.  The JAX package writes
+one lane and ``vmap``s it, with ``custom_vmap`` rules that hand the batch
+to its kernels; here the batch dimension is written out, every masked
+update is a ``torch.where`` per lane, and a lane whose loop condition is
+false keeps its carry.
 
 Two loops share the body: :func:`make_batched_solver` loops until no lane
 is active; :class:`StepwiseSolver` runs chunks of iterations with active-
@@ -28,6 +31,7 @@ from . import solution as sol
 from .al import Multipliers, init_multipliers, update_multipliers
 from .convert import to_torch
 from .ops.cm_derivs import cm_back_pass_from_bundle, cm_emit
+from .ops.cuda_fused import fused_derivs_back_pass
 from .ops.cuda_rollout import kernel_line_search, kernel_line_search_staged
 from .ops.forward import cost_only, forward_pass
 from .options import SolverOptions
@@ -94,11 +98,11 @@ def _lane_where(mask: Tensor, a, b):
 def _check_ported(problem: Problem, o: SolverOptions) -> None:
     """Raise for options that validate but whose code is not ported yet,
     naming the ROADMAP item that ports it."""
-    if o.backpass_method != "kernel":
+    if o.backpass_method not in ("kernel", "fused"):
         raise NotImplementedError(
             f"backpass_method={o.backpass_method!r} is not ported yet "
             "(ROADMAP.md queue A: the serial path backpass/boxqp/chol, "
-            "parallel_riccati, fused_derivs_back_pass B3); use 'kernel'")
+            "parallel_riccati); use 'kernel' or 'fused'")
     if o.linesearch_method != "kernel":
         raise NotImplementedError(
             f"linesearch_method={o.linesearch_method!r} is not ported yet "
@@ -107,14 +111,16 @@ def _check_ported(problem: Problem, o: SolverOptions) -> None:
         raise NotImplementedError(
             "lam_retry='inline' is not ported yet (ROADMAP.md queue A: "
             "inline retries and inline_below)")
-    if o.derivs_emitter != "per-family":
+    # the fused path computes its derivatives itself: no emitter to choose
+    if o.backpass_method == "kernel" and o.derivs_emitter != "per-family":
         raise NotImplementedError(
             "derivs_emitter='shared' is not ported (the port emits per "
             "family only)")
     if o.dtype not in _DTYPES:
         raise ValueError(f"dtype must be float32|float64, got {o.dtype!r}")
     if problem.n_u > 3:
-        raise ValueError("backpass_method='kernel' supports n_u <= 3")
+        raise ValueError(f"backpass_method={o.backpass_method!r} supports "
+                         "n_u <= 3")
 
 
 def _same_device(t: Tensor, device: torch.device) -> bool:
@@ -160,6 +166,21 @@ def _make_parts(problem: Problem, options: SolverOptions, device):
 
     def full(B, v, dt=dtype):
         return torch.full((B,), v, dtype=dt, device=device)
+
+    def derivs_back_pass(c: _Carry, w_pen_l_d, w_pen_f_d, params):
+        """Derivatives at the nominal trajectory and one backward-pass
+        attempt: ``(BackPassResult, derivs_ok (B,))``."""
+        m = c.mult
+        if o.backpass_method == "fused":
+            return fused_derivs_back_pass(
+                problem, c.xs, c.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi,
+                w_pen_l_d, w_pen_f_d, c.lam, params, o.regType, o.full_ddp)
+        sd_cm, fcx, fcxx, us_cm, d_ok = cm_emit(
+            problem, c.xs, c.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi,
+            w_pen_l_d, w_pen_f_d, params, o.full_ddp)
+        return cm_back_pass_from_bundle(sd_cm, fcx, fcxx, us_cm, c.lam,
+                                        problem.n_x, o.regType,
+                                        o.full_ddp), d_ok
 
     def init_fn(x0s, u0s, params) -> _Carry:
         _check_device(x0s, device, "x0s")
@@ -221,12 +242,7 @@ def _make_parts(problem: Problem, options: SolverOptions, device):
         w_pen_l_d = where(c.new_deriv, c.w_pen_l, c.w_pen_l_d)
         w_pen_f_d = where(c.new_deriv, c.w_pen_f, c.w_pen_f_d)
         # ===== STEP 2: backward pass, one attempt per body call =====
-        sd_cm, fcx, fcxx, us_cm, d_ok = cm_emit(
-            problem, c.xs, c.us, c.mult.mu_le, c.mult.mu_li, c.mult.mu_fe,
-            c.mult.mu_fi, w_pen_l_d, w_pen_f_d, params, o.full_ddp)
-        bp = cm_back_pass_from_bundle(sd_cm, fcx, fcxx, us_cm, c.lam,
-                                      problem.n_x, o.regType, o.full_ddp)
-        del sd_cm
+        bp, d_ok = derivs_back_pass(c, w_pen_l_d, w_pen_f_d, params)
         derivs_failed = c.new_deriv & ~d_ok
         status = where(derivs_failed, sol.STATUS_DERIVS_FAILED, status)
         alive = ~derivs_failed
@@ -388,8 +404,8 @@ def make_batched_solver(problem: Problem,
     tensor inputs on another device raise."""
     if batch_params:
         raise NotImplementedError(
-            "batch_params=True is not ported yet (ROADMAP.md queue A); the "
-            "kernels take shared params")
+            "batch_params=True is not ported yet (ROADMAP.md queue A item "
+            "6); the kernels take shared params")
     init_fn, body_fn, finalize_fn, cast_params = _make_parts(
         problem, options, device)
 
@@ -464,7 +480,7 @@ class StepwiseSolver:
             (pipeline_depth > 1, "pipeline_depth > 1 (ROADMAP.md queue A)"),
             (inline_below > 0, "inline_below (ROADMAP.md queue A: inline "
              "retries and inline_below)"),
-            (batch_params, "batch_params=True (ROADMAP.md queue A)"),
+            (batch_params, "batch_params=True (ROADMAP.md queue A item 6)"),
         ]
         for cond, what in not_ported:
             if cond:

@@ -1,10 +1,12 @@
-"""Kernels B1 and B2 on a CUDA card against their plain PyTorch versions.
+"""Kernels B1, B2 and B3 on a CUDA card against their plain PyTorch versions.
 
 Covers every instantiation the solve at full width does not reach: B1 at
 each (n_x, n_u) pair of ``KERNEL_SHAPES`` with regType 1/2 and FULL_DDP
 on/off in float32 and float64, B2 in both modes with alpha 0 lanes and a
-lane whose rollout turns NaN.  ``B`` is not a multiple of the block size,
-so the ragged last block is exercised.  Needs a CUDA device and ``nvcc``;
+lane whose rollout turns NaN, and B3 for every CUDA model of
+``KERNEL_MODELS`` with regType 1/2 and FULL_DDP on/off in both dtypes, with
+a lane that fails and a lane whose derivatives are not finite.  ``B`` is
+not a multiple of the block size, so the ragged last block is exercised.  Needs a CUDA device and ``nvcc``;
 skips elsewhere.  The file imports no JAX, so on a machine without it run
 it past ``tests/conftest.py``::
 
@@ -20,8 +22,9 @@ import pytest
 import torch
 
 import ddp_generator_tpu_torch as ddp
-from ddp_generator_tpu_torch.models import car_parking
+from ddp_generator_tpu_torch.models import brachistochrone, car_parking
 from ddp_generator_tpu_torch.ops import cuda_backpass as cb
+from ddp_generator_tpu_torch.ops import cuda_fused as cf
 from ddp_generator_tpu_torch.ops import cuda_rollout as cr
 from ddp_generator_tpu_torch.ops.forward import forward_pass
 
@@ -37,7 +40,7 @@ TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 @pytest.fixture(scope="module")
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: kernels B1/B2 have no CPU mode")
+        pytest.skip("needs a CUDA device: kernels B1/B2/B3 have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -166,3 +169,70 @@ def test_wrappers_raise_where_no_kernel_exists(cuda):
     no_model = dataclasses.replace(ops[0], cuda_model=None)
     with pytest.raises(NotImplementedError, match="CUDA model"):
         cr.rollout_call(no_model, *ops[1:], alpha_vec, p, multi=False)
+
+
+def _fused_operands(model, dtype, dev):
+    """A nominal rollout of B lanes over N steps with random AL inputs.
+    Lane 3 fails (lambda far below zero makes Quu indefinite); lane 5's
+    derivatives are not finite."""
+    rng = np.random.default_rng(21)
+    t = lambda v: torch.as_tensor(v, dtype=dtype, device=dev)
+    if model == "car_parking":
+        problem = car_parking.car_parking()
+        p_np, x0, _ = car_parking.default_setup(T=N, seed=0)
+        x0s = np.tile(x0, (B, 1)) + 0.05 * rng.standard_normal((B, 4))
+        x0s[:, 3] += rng.uniform(0.5, 2.0, B)
+        u0s = 0.3 * rng.standard_normal((B, N, 2))
+        x0s[5, 3], u0s[5, :, 0] = 1e4, 0.3  # NaN rollout
+    else:
+        problem = getattr(brachistochrone, model)()
+        setup = (brachistochrone.default_setup if model == "brachistochrone"
+                 else brachistochrone.default_setup_hli)
+        p_np, x0, _ = setup(N)
+        x0s = np.tile(x0, (B, 1)) - rng.uniform(0.0, 0.5, (B, 1))
+        u0s = -np.abs(rng.uniform(0.5, 1.5, (B, N, 1)))
+        x0s[5, 0] = 0.5  # y > 0: sqrt(-y) is NaN in L
+    p = ddp.params_from_jax(p_np, dtype, dev)
+    m = ddp.init_multipliers(problem, B, N, dtype, dev)
+    w = torch.ones(B, dtype=dtype, device=dev)
+    nom = forward_pass(problem, t(x0s), None, t(u0s), None, None, 0.0, p,
+                       m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, w, w)
+    mu = lambda *s: t(rng.uniform(0.2, 2.0, s))
+    lam = np.abs(rng.standard_normal(B)) * 0.1
+    lam[3] = -1e3
+    return (problem, nom.xs, nom.us, mu(B, N, problem.n_hle),
+            mu(B, N, problem.n_hli), t(rng.standard_normal((B, problem.n_hfe))),
+            mu(B, problem.n_hfi), t(rng.uniform(1.0, 40.0, B)),
+            t(rng.uniform(1e-3, 1.0, B)), t(lam), p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("full_ddp", [True, False], ids=["full", "gn"])
+@pytest.mark.parametrize("reg_type", [1, 2])
+@pytest.mark.parametrize("model", cf.KERNEL_MODELS)
+def test_fused_kernel_matches_plain(cuda, model, reg_type, full_ddp, dtype):
+    args = _fused_operands(model, dtype, cuda) + (reg_type, full_ddp)
+    before = cf.fused_derivs_back_pass.launches
+    bp, ok = cf.fused_derivs_back_pass(*args)
+    torch.cuda.synchronize()
+    assert cf.fused_derivs_back_pass.launches == before + 1
+    ref, ref_ok = cf.fused_derivs_back_pass_plain(*args)
+    assert torch.equal(ok, ref_ok)
+    assert not bool(ok[5]) and int(ok.sum()) == B - 1
+    assert torch.equal(bp.failed, ref.failed)
+    assert bool(ref.failed[3])
+    live = ok  # the solver reads no other output of a lane whose
+    #            derivatives are not finite
+    for name in ("l", "L", "dV", "g_norm"):
+        _close(getattr(bp, name)[live], getattr(ref, name)[live],
+               TOL[dtype], name)
+
+
+def test_fused_wrapper_raises_where_no_kernel_exists(cuda):
+    args = list(_fused_operands("car_parking", torch.float64, cuda))
+    no_model = dataclasses.replace(args[0], cuda_model=None)
+    with pytest.raises(NotImplementedError, match="CUDA model"):
+        cf.fused_derivs_back_pass(no_model, *args[1:], 1, True)
+    with pytest.raises(ValueError, match="reg_type"):
+        cf.fused_derivs_back_pass(*args, 3, True)

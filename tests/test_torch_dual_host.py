@@ -1,0 +1,353 @@
+"""Kernel B3's arithmetic compiled for the host and held against the plain
+PyTorch versions, float64.
+
+``csrc/common.cuh`` compiles without CUDA, so the very headers kernel B3
+runs -- ``dual.cuh`` (forward-mode numbers), ``derivs.cuh`` (per-step and
+final derivatives, box limits), ``riccati.cuh`` (the backward step shared
+with B1), ``fused.cuh`` (one lane) and the CUDA models
+``models/car_parking.cuh`` and ``models/brachistochrone.cuh`` -- are built
+here with ``g++`` into a small shared library in a temporary directory and
+called through ``ctypes``:
+
+* the derivative objects (``fx``, ``fu``, ``cx``, ``cu``, ``cxx``, ``cuu``,
+  ``cxu``, ``fxx``/``fxu``/``fuu`` through their contraction with unit
+  ``Vx``, the final ``Fx``/``Fxx`` and the box limits with ``hx``) against
+  ``ops/cm_derivs.py`` to 1e-12;
+* whole lanes of B3 against ``fused_derivs_back_pass_plain`` (emission and
+  B1's plain version) to 1e-10 of the largest value.
+
+This is tier-1 coverage of B3's arithmetic without a card.  Skips when no
+C++ compiler is found.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import ddp_generator_tpu_torch as td
+from ddp_generator_tpu_torch import _build
+from ddp_generator_tpu_torch.models import brachistochrone as tbr
+from ddp_generator_tpu_torch.models import car_parking as tcar
+from ddp_generator_tpu_torch.ops.cm_derivs import (
+    final_derivative_components,
+    step_derivative_components,
+)
+from ddp_generator_tpu_torch.ops.cuda_fused import fused_derivs_back_pass_plain
+
+SHIM = r"""
+#include "fused.cuh"
+#include "models/brachistochrone.cuh"
+#include "models/car_parking.cuh"
+
+using namespace ddp;
+
+template <class M, bool FULL>
+int step(const double* x, const double* u, const double* p, int k,
+         const double* mu_le, const double* mu_li, double wpl,
+         const double* Vx, double* out) {
+  StepTerms<double, M::NX, M::NU> d;
+  const bool ok = step_derivs<M, FULL>(x, u, p, k, mu_le, mu_li, wpl, Vx, d);
+  const double* q = reinterpret_cast<const double*>(&d);
+  for (size_t i = 0; i < sizeof(d) / sizeof(double); ++i) out[i] = q[i];
+  return ok;
+}
+
+template <class M>
+int fin(const double* xf, const double* p, int N, const double* mu_fe,
+        const double* mu_fi, double wpf, double* Fx, double* Fxx) {
+  double fx[M::NX], fxx[M::NX][M::NX];
+  const bool ok = final_derivs<M>(xf, p, N, mu_fe, mu_fi, wpf, fx, fxx);
+  for (int a = 0; a < M::NX; ++a) {
+    Fx[a] = fx[a];
+    for (int b = 0; b < M::NX; ++b) Fxx[a * M::NX + b] = fxx[a][b];
+  }
+  return ok;
+}
+
+template <class M>
+void lanes(int reg, int full, const FusedArgs<double>& a) {
+  for (int b = 0; b < a.B; ++b) {
+    if (reg == 1 && full) fused_lane<M, double, 1, true>(a, b);
+    else if (reg == 1) fused_lane<M, double, 1, false>(a, b);
+    else if (full) fused_lane<M, double, 2, true>(a, b);
+    else fused_lane<M, double, 2, false>(a, b);
+  }
+}
+
+#define DISPATCH(model, ...)                                \
+  switch (model) {                                          \
+    case 0: { using M = CarParking; __VA_ARGS__; }          \
+    case 1: { using M = Brachistochrone; __VA_ARGS__; }     \
+    default: { using M = BrachistochroneHli; __VA_ARGS__; } \
+  }
+
+extern "C" int host_step(int model, int full, const double* x,
+                         const double* u, const double* p, int k,
+                         const double* mu_le, const double* mu_li,
+                         double wpl, const double* Vx, double* out) {
+  DISPATCH(model, return full ? step<M, true>(x, u, p, k, mu_le, mu_li, wpl,
+                                              Vx, out)
+                              : step<M, false>(x, u, p, k, mu_le, mu_li,
+                                               wpl, Vx, out))
+}
+
+extern "C" int host_final(int model, const double* xf, const double* p,
+                          int N, const double* mu_fe, const double* mu_fi,
+                          double wpf, double* Fx, double* Fxx) {
+  DISPATCH(model, return fin<M>(xf, p, N, mu_fe, mu_fi, wpf, Fx, Fxx))
+}
+
+extern "C" void host_lanes(int model, int reg, int full, int N, int B,
+                           void* const* q) {
+  FusedArgs<double> a;
+  auto in = [&](int i) { return static_cast<const double*>(q[i]); };
+  auto out = [&](int i) { return static_cast<double*>(q[i]); };
+  a.x = in(0); a.u = in(1); a.mu_le = in(2); a.mu_li = in(3);
+  a.xf = in(4); a.wpl = in(5); a.wpf = in(6); a.lam = in(7);
+  a.mu_fe = in(8); a.mu_fi = in(9); a.params = in(10);
+  a.l = out(11); a.L = out(12); a.dV = out(13); a.g_norm = out(14);
+  a.failed = static_cast<bool*>(q[15]);
+  a.derivs_ok = static_cast<bool*>(q[16]);
+  a.N = N;
+  a.B = B;
+  DISPATCH(model, lanes<M>(reg, full, a); return)
+}
+"""
+
+MODELS = {"car_parking": 0, "brachistochrone": 1, "brachistochrone_hli": 2}
+TOL = dict(rtol=1e-12, atol=1e-12)
+N, B = 12, 6
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no C++ compiler: B3's host build needs g++")
+    out = tmp_path_factory.mktemp("dual_host")
+    src = out / "shim.cpp"
+    src.write_text(SHIM)
+    so = out / "shim.so"
+    # no FMA contraction, as the kernels are built (--fmad=false)
+    proc = subprocess.run(
+        [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+         "-Wno-unknown-pragmas", "-I", str(_build.CSRC), "-o", str(so),
+         str(src)], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    lib = ctypes.CDLL(str(so))
+    P = ctypes.POINTER(ctypes.c_double)
+    i, d = ctypes.c_int, ctypes.c_double
+    lib.host_step.argtypes = [i, i, P, P, P, i, P, P, d, P, P]
+    lib.host_final.argtypes = [i, P, P, i, P, P, d, P, P]
+    lib.host_lanes.argtypes = [i, i, i, i, i,
+                               ctypes.POINTER(ctypes.c_void_p)]
+    return lib
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+
+def _problem(name):
+    return {"car_parking": tcar.car_parking,
+            "brachistochrone": tbr.brachistochrone,
+            "brachistochrone_hli": tbr.brachistochrone_hli}[name]()
+
+
+def _case(name, seed):
+    """A nominal trajectory of B lanes over N steps, params and AL inputs
+    with every term live; float64 numpy."""
+    rng = np.random.default_rng(seed)
+    if name == "car_parking":
+        p, x0, _ = tcar.default_setup(T=N, seed=0)
+        xs = np.tile(x0, (B, N + 1, 1)) + 0.3 * rng.standard_normal(
+            (B, N + 1, 4))
+        xs[..., 3] += rng.uniform(0.5, 2.0, (B, 1))  # nonzero speed
+        us = 0.4 * rng.standard_normal((B, N, 2))  # some beyond the limits
+    else:
+        p, _, _ = (tbr.default_setup if name == "brachistochrone"
+                   else tbr.default_setup_hli)(N)
+        xs = -rng.uniform(0.2, 4.0, (B, N + 1, 1))
+        us = -rng.uniform(0.5, 1.5, (B, N, 1))
+    prob = _problem(name)
+    mu = lambda *s: rng.uniform(0.2, 2.0, s)
+    return dict(
+        prob=prob, p=p, xs=xs, us=us,
+        mu_le=mu(B, N, prob.n_hle), mu_li=mu(B, N, prob.n_hli),
+        mu_fe=rng.standard_normal((B, prob.n_hfe)), mu_fi=mu(B, prob.n_hfi),
+        wpl=rng.uniform(0.5, 40.0, B), wpf=rng.uniform(0.5, 40.0, B),
+        lam=np.abs(rng.standard_normal(B)) * 0.1)
+
+
+def _t(a):
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64)
+
+
+def _flat_params(c):
+    return c["prob"].cuda_model.flat_params(
+        td.params_from_jax(c["p"], torch.float64, "cpu"), torch.float64,
+        "cpu", N).numpy()
+
+
+def _step_fields(n_x, n_u):
+    """riccati.cuh:StepTerms, field by field."""
+    return [("fx", (n_x, n_x)), ("fu", (n_x, n_u)), ("cx", (n_x,)),
+            ("cu", (n_u,)), ("cxx", (n_x, n_x)), ("cuu", (n_u, n_u)),
+            ("cxu", (n_x, n_u)), ("vfxx", (n_x, n_x)), ("vfxu", (n_x, n_u)),
+            ("vfuu", (n_u, n_u)), ("lower", (n_u,)), ("upper", (n_u,)),
+            ("lower_hx", (n_u, n_x)), ("upper_hx", (n_u, n_x)),
+            ("lower_sign", (n_u,)), ("upper_sign", (n_u,))]
+
+
+def _unpack_step(out, n_x, n_u):
+    res, o = {}, 0
+    for key, shape in _step_fields(n_x, n_u):
+        n = int(np.prod(shape))
+        res[key] = out[o:o + n].reshape(shape)
+        o += n
+    return res
+
+
+def _host_step(lib, c, b, k, full, Vx):
+    prob = c["prob"]
+    n_x, n_u = prob.n_x, prob.n_u
+    out = np.zeros(sum(int(np.prod(s)) for _, s in _step_fields(n_x, n_u)))
+    arrs = [np.ascontiguousarray(v, dtype=np.float64) for v in (
+        c["xs"][b, k], c["us"][b, k], _flat_params(c),
+        np.append(c["mu_le"][b, k], 0.0), np.append(c["mu_li"][b, k], 0.0),
+        Vx)]
+    ok = lib.host_step(MODELS[prob.cuda_model.name], int(full),
+                       *map(_ptr, arrs[:3]), k, _ptr(arrs[3]), _ptr(arrs[4]),
+                       float(c["wpl"][b]), _ptr(arrs[5]), _ptr(out))
+    return _unpack_step(out, n_x, n_u), bool(ok)
+
+
+def _plain_step(c, b, k, full):
+    """cm_derivs.step_derivative_components at lane b, step k, unpacked."""
+    prob = c["prob"]
+    n_x, n_u = prob.n_x, prob.n_u
+    col = lambda a: _t(a[b, k])[:, None, None]  # (c,) -> (c, 1, 1)
+    sd = step_derivative_components(
+        prob, col(c["xs"]), col(c["us"]),
+        td.params_from_jax(c["p"], torch.float64, "cpu"),
+        torch.tensor([[k]]), col(c["mu_le"]), col(c["mu_li"]),
+        _t(c["wpl"][b:b + 1]), full)
+    v = {key: t[:, 0, 0].numpy() for key, t in sd.items()}
+
+    def sym(packed, n):
+        return np.array([[packed[a * n - a * (a - 1) // 2 + (e - a)]
+                          if a <= e else packed[e * n - e * (e - 1) // 2
+                                                + (a - e)]
+                          for e in range(n)] for a in range(n)])
+
+    res = dict(fx=v["fx"].reshape(n_x, n_x), fu=v["fu"].reshape(n_x, n_u),
+               cx=v["cx"], cu=v["cu"], cxx=sym(v["cxx"], n_x),
+               cuu=sym(v["cuu"], n_u), cxu=v["cxu"].reshape(n_x, n_u),
+               lower=v["lower"], upper=v["upper"],
+               lower_hx=v["lower_hx"].reshape(n_u, n_x),
+               upper_hx=v["upper_hx"].reshape(n_u, n_x),
+               lower_sign=v["lower_sign"], upper_sign=v["upper_sign"])
+    if full:
+        tx, tu = n_x * (n_x + 1) // 2, n_u * (n_u + 1) // 2
+        res["fxx"] = np.stack([sym(r, n_x)
+                               for r in v["fxx"].reshape(n_x, tx)])
+        res["fuu"] = np.stack([sym(r, n_u)
+                               for r in v["fuu"].reshape(n_x, tu)])
+        res["fxu"] = v["fxu"].reshape(n_x, n_x, n_u)
+    return res
+
+
+@pytest.mark.parametrize("full", [True, False], ids=["full", "gn"])
+@pytest.mark.parametrize("name", list(MODELS))
+def test_step_derivatives_match_cm_derivs(lib, name, full):
+    c = _case(name, 3)
+    n_x = c["prob"].n_x
+    for b, k in ((0, 0), (2, 5), (5, N - 1)):
+        ref = _plain_step(c, b, k, full)
+        out, ok = _host_step(lib, c, b, k, full, np.zeros(n_x))
+        assert ok
+        for key in ("fx", "fu", "cx", "cu", "cxx", "cuu", "cxu", "lower",
+                    "upper", "lower_hx", "upper_hx", "lower_sign",
+                    "upper_sign"):
+            np.testing.assert_allclose(out[key], ref[key], err_msg=key,
+                                       **TOL)
+        if full:
+            # f** of output i: the contraction with Vx = e_i
+            for i in range(n_x):
+                e_i, _ = _host_step(lib, c, b, k, full, np.eye(n_x)[i])
+                for key, t in (("vfxx", "fxx"), ("vfxu", "fxu"),
+                               ("vfuu", "fuu")):
+                    np.testing.assert_allclose(e_i[key], ref[t][i],
+                                               err_msg=f"{t}[{i}]", **TOL)
+    if name == "car_parking":
+        # hx is zero for CarParking's input-only bounds; some bind
+        assert np.isfinite(out["lower"]).all() and (out["lower_sign"] < 0).all()
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_final_derivatives_match_cm_derivs(lib, name):
+    c = _case(name, 4)
+    prob = c["prob"]
+    n_x = prob.n_x
+    p_t = td.params_from_jax(c["p"], torch.float64, "cpu")
+    ref_x, ref_xx = final_derivative_components(
+        prob, _t(c["xs"][:, N].T), p_t, N, _t(c["mu_fe"].T),
+        _t(c["mu_fi"].T), _t(c["wpf"]))
+    for b in range(B):
+        Fx, Fxx = np.zeros(n_x), np.zeros(n_x * n_x)
+        arrs = [np.ascontiguousarray(c["xs"][b, N]), _flat_params(c),
+                np.append(c["mu_fe"][b], 0.0), np.append(c["mu_fi"][b], 0.0)]
+        ok = lib.host_final(MODELS[prob.cuda_model.name], _ptr(arrs[0]),
+                            _ptr(arrs[1]), N, _ptr(arrs[2]), _ptr(arrs[3]),
+                            float(c["wpf"][b]), _ptr(Fx), _ptr(Fxx))
+        assert ok
+        np.testing.assert_allclose(Fx, ref_x[:, b].numpy(), **TOL)
+        np.testing.assert_allclose(Fxx, ref_xx[:, b].numpy(), **TOL)
+
+
+def _host_lanes(lib, c, reg, full):
+    prob = c["prob"]
+    n_x, n_u = prob.n_x, prob.n_u
+    cm = lambda a: np.ascontiguousarray(np.transpose(a, (1, 2, 0)))
+    row = lambda a: np.ascontiguousarray(a[None])
+    ins = [cm(c["xs"][:, :N]), cm(c["us"]), cm(c["mu_le"]), cm(c["mu_li"]),
+           np.ascontiguousarray(c["xs"][:, N].T), row(c["wpl"]),
+           row(c["wpf"]), row(c["lam"]), np.ascontiguousarray(c["mu_fe"].T),
+           np.ascontiguousarray(c["mu_fi"].T), _flat_params(c)]
+    outs = [np.zeros((N, n_u, B)), np.zeros((N, n_u * n_x, B)),
+            np.zeros((2, B)), np.zeros((1, B)), np.zeros((1, B), bool),
+            np.zeros((1, B), bool)]
+    q = (ctypes.c_void_p * 17)(*[a.ctypes.data for a in ins + outs])
+    lib.host_lanes(MODELS[prob.cuda_model.name], reg, int(full), N, B, q)
+    return outs
+
+
+@pytest.mark.parametrize("name,reg,full", [
+    ("car_parking", 1, True), ("car_parking", 1, False),
+    ("car_parking", 2, True), ("car_parking", 2, False),
+    ("brachistochrone", 1, False), ("brachistochrone_hli", 2, True),
+])
+def test_fused_lane_matches_plain(lib, name, reg, full):
+    c = _case(name, 5)
+    if name == "car_parking":
+        c["lam"][1] = -1.0  # Quu - I indefinite: this lane fails
+    bp, ok = fused_derivs_back_pass_plain(
+        c["prob"], _t(c["xs"]), _t(c["us"]), _t(c["mu_le"]),
+        _t(c["mu_li"]), _t(c["mu_fe"]), _t(c["mu_fi"]), _t(c["wpl"]),
+        _t(c["wpf"]), _t(c["lam"]),
+        td.params_from_jax(c["p"], torch.float64, "cpu"), reg, full)
+    l, L, dV, g, failed, dok = _host_lanes(lib, c, reg, full)
+    np.testing.assert_array_equal(dok[0], ok.numpy())
+    np.testing.assert_array_equal(failed[0], bp.failed.numpy())
+    if name == "car_parking":
+        assert failed[0, 1] and not failed[0].all()
+    for out, ref in ((np.transpose(l, (2, 0, 1)), bp.l),
+                     (np.transpose(L, (2, 0, 1)).reshape(bp.L.shape), bp.L),
+                     (dV.T, bp.dV), (g[0], bp.g_norm)):
+        ref = ref.numpy()
+        scale = max(1.0, np.abs(ref).max())
+        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-10 * scale)

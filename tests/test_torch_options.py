@@ -104,7 +104,7 @@ def test_invalid_options_raise(bad):
 @pytest.mark.parametrize("kw", [
     dict(backpass_method="serial", linesearch_method="kernel"),
     dict(backpass_method="parallel", linesearch_method="kernel"),
-    dict(backpass_method="fused", linesearch_method="kernel"),
+    dict(backpass_method="fused", linesearch_method="serial"),
     dict(backpass_method="kernel", linesearch_method="serial"),
     dict(backpass_method="kernel", linesearch_method="kernel",
          lam_retry="inline"),
@@ -113,6 +113,20 @@ def test_unported_paths_validate_then_raise(kw):
     opts = td.SolverOptions(**kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         td.StepwiseSolver(tcar.car_parking(), opts, device="cpu")
+
+
+def test_fused_path_is_ported_and_ignores_the_emitter():
+    # as in JAX, the fused path computes its own derivatives
+    opts = td.SolverOptions(backpass_method="fused",
+                            linesearch_method="kernel",
+                            derivs_emitter="shared")
+    td.StepwiseSolver(tcar.car_parking(), opts, device="cpu")
+    with pytest.raises(NotImplementedError, match="shared"):
+        td.StepwiseSolver(tcar.car_parking(), dataclasses.replace(
+            opts, backpass_method="kernel"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        td.StepwiseSolver(tcar.car_parking(), opts, batch_params=True,
+                          device="cpu")
 
 
 @pytest.mark.parametrize("kw", [

@@ -4,8 +4,11 @@ The port's ``StepwiseSolver`` (kernel methods, which run their plain
 PyTorch versions on the CPU) against JAX's ``make_batched_solver`` with the
 serial methods, float64, T=50, B=8, max_iter=50: per lane the same status,
 iterations, body calls and stale calls, cost to rtol 1e-8 and trajectories
-to atol 1e-7.  Lane 7 starts so fast that its initial rollout is NaN
-(STATUS_INIT_FAILED).  Compaction on and off must be bit-identical.
+to atol 1e-7, with ``backpass_method="kernel"`` (emission + B1) and
+``"fused"`` (B3).  Lane 7 starts so fast that its initial rollout is NaN
+(STATUS_INIT_FAILED).  Compaction on and off must be bit-identical.  The
+fused path's AL families: ``brachistochrone_hli`` against JAX's own fused
+solve, cost to rtol 1e-6 as ``tests/test_pallas_fused.py:85-103`` holds it.
 """
 
 import jax
@@ -14,8 +17,10 @@ import pytest
 import torch
 
 import ddp_generator_tpu as jd
+from ddp_generator_tpu.models import brachistochrone as jbr
 from ddp_generator_tpu.models import car_parking as jcar
 import ddp_generator_tpu_torch as td
+from ddp_generator_tpu_torch.models import brachistochrone as tbr
 from ddp_generator_tpu_torch.models import car_parking as tcar
 
 T, B, MAX_ITER = 50, 8, 50
@@ -34,8 +39,8 @@ def _inputs():
 
 
 def _port_opts(**kw):
+    kw = {"backpass_method": "kernel", **kw}
     return td.SolverOptions(max_iter=MAX_ITER, debug_level=0,
-                            backpass_method="kernel",
                             linesearch_method="kernel", **kw)
 
 
@@ -58,7 +63,38 @@ def compacted():
 
 
 def test_stepwise_matches_jax_per_lane(reference, compacted):
-    ref, out = reference, compacted
+    _assert_matches_jax(compacted, reference)
+
+
+def test_fused_stepwise_matches_jax_per_lane(reference):
+    p, x0s, u0s = _inputs()
+    solver = td.StepwiseSolver(tcar.car_parking(),
+                               _port_opts(backpass_method="fused"), chunk=3,
+                               compact_levels=4, min_compact_batch=2,
+                               device="cpu")
+    _assert_matches_jax(td.to_numpy(solver(x0s, u0s, p)), reference)
+
+
+def test_fused_brachistochrone_hli_matches_jax_fused():
+    B, n = 4, 30
+    p, x0, _ = jbr.default_setup_hli(n)
+    rng = np.random.default_rng(2)
+    x0s = np.tile(x0, (B, 1))
+    u0s = -np.abs(rng.uniform(0.5, 1.5, (B, n, 1)))
+    opts = dict(max_iter=25, w_pen_init_l=40.0, w_pen_init_f=1e-5,
+                w_pen_max_f=1.0, full_ddp=False, debug_level=0,
+                backpass_method="fused")
+    ref = jd.make_batched_solver(jbr.brachistochrone_hli(),
+                                 jd.SolverOptions(**opts))(x0s, u0s, p)
+    out = td.to_numpy(td.StepwiseSolver(
+        tbr.brachistochrone_hli(),
+        td.SolverOptions(linesearch_method="kernel", **opts),
+        min_compact_batch=2, device="cpu")(x0s, u0s, p))
+    assert np.isfinite(out.cost).all()
+    np.testing.assert_allclose(out.cost, np.asarray(ref.cost), rtol=1e-6)
+
+
+def _assert_matches_jax(out, ref):
     for f in COUNTS:
         np.testing.assert_array_equal(getattr(out, f), getattr(ref, f),
                                       err_msg=f)
