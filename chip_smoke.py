@@ -15,10 +15,18 @@ full width:
 * the Brachistochrone with its moving floor (``brachistochrone_hli``,
   n=500, B=2048, float64) through B3 and B2, the path of the AL families.
 
+Beside the checks it times B1 and B3 at the widths the solver's compaction
+reaches (2048 down to 128 lanes), and puts each kernel's time beside its
+lower bound: the larger of its bytes (each input read once, each output
+written once, from this run's tensors) over the card's memory rate and
+its operations (per (step, lane), counted by ``scripts/count_ops.py``)
+over its rate for the type.
+
 Every phase prints one line; any failure exits nonzero.  The last two
-lines are a JSON line with each kernel's launches on its path, error and
-times, and the contract line ``{"ok": true, "device": {...}}``.  Without a
-CUDA device it exits nonzero and prints no result.  Imports no JAX.
+lines are a JSON line with each kernel's launches on its path, error,
+times and bound, and the contract line ``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits nonzero and prints no result.  Imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -49,6 +57,17 @@ TOL_B3 = {"car_parking float32": 1e-1, "car_parking float64": 5e-12,
           "brachistochrone_hli float64": 3e-13}
 SOLVED_MIN = 0.90
 N_BRACHI = 500
+# Operations per (step, lane) and per lane of each kernel on CarParking
+# (FULL_DDP, regType 1), counted by scripts/count_ops.py on the kernels'
+# own headers (tests/test_torch_count_ops.py holds these to that count).
+OPS = {"backpass_per_step": 1470, "backpass_per_lane": 1,
+       "fused_per_step": 7756, "fused_per_lane": 2065,
+       "rollout_per_step": 84}
+# NVIDIA H100 SXM data sheet: HBM3 rate and the float32/float64 rates
+# outside the tensor cores, all at the full 700 W power limit.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
+WIDTHS = (2048, 1024, 512, 256, 128)
 
 
 def line(phase: str, **kw) -> None:
@@ -73,6 +92,28 @@ def max_rel_err(a, ref) -> tuple[float, float]:
     err = float((a[fin].double() - ref[fin].double()).abs().max())
     scale = max(1.0, float(ref[fin].double().abs().max()))
     return err, err / scale
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors (None, dicts and non-tensors skipped)."""
+    import torch
+
+    total = 0
+    for t in tensors:
+        if isinstance(t, dict):
+            total += nbytes(*t.values())
+        elif isinstance(t, (tuple, list)):
+            total += nbytes(*t)
+        elif isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+    return total
+
+
+def bound(n_bytes: int, n_ops: int, dtype) -> tuple[float, str]:
+    """The least time the card could take (ms) and what sets it."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[str(dtype).replace("torch.", "")] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def time_ms(fn, reps: int) -> float:
@@ -161,10 +202,17 @@ def check_backpass(problem, B, T, dtype, tol, reps, rng, device="cuda"):
                  f"{tol}")
     ms = time_ms(lambda: cb.back_pass_cm(*args), reps)
     plain_ms = time_ms(lambda: cb.back_pass_cm_plain(*args), 1)
+    bound_ms, bound_by = bound(
+        nbytes(args, out),
+        OPS["backpass_per_step"] * T * B + OPS["backpass_per_lane"] * B,
+        dtype)
     return dict(B=B, N=T, dtype=str(dtype).replace("torch.", ""),
                 failed_lanes=n_failed, max_abs_err=worst_abs,
                 max_rel_err=worst_rel, tol=tol, ms=ms, plain_ms=plain_ms,
-                derivs_ok=int(ok.sum())), (p, r, m, w, out, lam[0])
+                bound_ms=bound_ms, bound_by=bound_by,
+                derivs_ok=int(ok.sum()),
+                **cb.kernel_info(problem.n_x, problem.n_u, 1, True, dtype)), (
+                    p, r, m, w, out, lam[0], args)
 
 
 def compare_fused(name, args, tol, reps):
@@ -199,9 +247,18 @@ def compare_fused(name, args, tol, reps):
                  f"{tol}")
     ms = time_ms(lambda: cf.fused_derivs_back_pass(*args), reps)
     plain_ms = time_ms(lambda: cf.fused_derivs_back_pass_plain(*args), 1)
-    return dict(B=B, failed_lanes=n_failed, derivs_ok=int(ok.sum()),
-                max_abs_err=worst_abs, max_rel_err=worst_rel, tol=tol,
-                ms=ms, plain_ms=plain_ms)
+    problem, us, reg_type, full_ddp = args[0], args[2], args[11], args[12]
+    res = dict(B=B, failed_lanes=n_failed, derivs_ok=int(ok.sum()),
+               max_abs_err=worst_abs, max_rel_err=worst_rel, tol=tol,
+               ms=ms, plain_ms=plain_ms)
+    if problem.cuda_model.name == "car_parking":
+        N = us.shape[1]
+        res["bound_ms"], res["bound_by"] = bound(
+            nbytes(args, bp, ok),
+            OPS["fused_per_step"] * N * B + OPS["fused_per_lane"] * B,
+            us.dtype)
+    return dict(res, **cf.kernel_info(problem.cuda_model.name, reg_type,
+                                      full_ddp, us.dtype))
 
 
 def check_fused_car(problem, p, r, m, w, lam, reps):
@@ -210,7 +267,35 @@ def check_fused_car(problem, p, r, m, w, lam, reps):
     name = "car_parking " + str(r.us.dtype).replace("torch.", "")
     args = (problem, r.xs, r.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, w, w,
             lam, p, 1, True)
-    return compare_fused(name, args, TOL_B3[name], reps)
+    return compare_fused(name, args, TOL_B3[name], reps), args
+
+
+def widths_phase(b1_args, b3_args, reps):
+    """Phase 4d: B1 and B3 at each compaction width (the first w lanes of
+    phases 3 and 4b's operands), CUDA events.  Per-lane work is a
+    dependent chain over N, so below ~132 SMs' worth of blocks the time
+    should stay flat: the chain's latency is the floor."""
+    from ddp_generator_tpu_torch.ops import cuda_backpass as cb
+    from ddp_generator_tpu_torch.ops import cuda_fused as cf
+
+    def lanes(a, w):  # the first w lanes of a B1 (..., B) operand
+        if isinstance(a, dict):
+            return {k: lanes(v, w) for k, v in a.items()}
+        if hasattr(a, "shape"):
+            return a[..., :w].contiguous()
+        return a
+
+    def rows(a, w):  # the first w lanes of a B3 (B, ...) operand
+        return a[:w].contiguous() if hasattr(a, "shape") else a
+
+    out = {}
+    for w in WIDTHS:
+        a1 = tuple(lanes(a, w) for a in b1_args)
+        a3 = tuple(rows(a, w) for a in b3_args)
+        out[w] = dict(backpass_ms=time_ms(lambda: cb.back_pass_cm(*a1), reps),
+                      fused_ms=time_ms(
+                          lambda: cf.fused_derivs_back_pass(*a3), reps))
+    return out
 
 
 def brachi_inputs(B, n, seed):
@@ -299,8 +384,13 @@ def check_rollout(problem, alphas, p, r, m, w, bp, tol, reps):
             fail(f"rollout {mode}: rel err {worst_rel:.3g} > {tol}")
         ms = time_ms(lambda: cr.rollout_call(*operands(av), **kw), reps)
         plain_ms = time_ms(lambda: cr.rollout_plain(*operands(av), **kw), 1)
+        trajectories = len(alphas) * B if mode == "multi" else B
+        bound_ms, bound_by = bound(
+            nbytes(operands(av), out),
+            OPS["rollout_per_step"] * N * trajectories, dtype)
         res[mode] = dict(max_abs_err=worst_abs, max_rel_err=worst_rel,
                          tol=tol, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
                          not_ok=int((~oks[0][1]).sum()))
     # the selected rollout without cost (main path: after the sweep)
     out = cr.rollout_call(*operands(alpha_vec), multi=False)
@@ -555,16 +645,19 @@ def main() -> int:
     line("build", seconds=round(time.time() - t0, 1), lib=lib_path.name,
          kernels=len(regs), max_registers=max(regs, default=0),
          spill_store_bytes=spills)
+    if spills:
+        fail(f"the kernels spill {spills} bytes of registers ({lib_path.parent}"
+             "/ptxas.txt)")
 
     problem = car_parking.car_parking()
     alphas = tuple(ddp.SolverOptions().alpha)
     rng = np.random.default_rng(0)
 
     # 3. B1 against its plain version
-    bp32, (p32, r32, m32, w32, out32, lam32) = check_backpass(
+    bp32, (p32, r32, m32, w32, out32, lam32, b1_args) = check_backpass(
         problem, B_MAIN, T_MAIN, torch.float32, TOL_B1["float32"], 20, rng)
     line("backpass_f32", **bp32)
-    bp64, (p64, r64, m64, w64, out64, lam64) = check_backpass(
+    bp64, (p64, r64, m64, w64, out64, lam64, _) = check_backpass(
         problem, 256, T_MAIN, torch.float64, TOL_B1["float64"], 5, rng)
     line("backpass_f64", **bp64)
 
@@ -580,12 +673,16 @@ def main() -> int:
 
     # 4b/4c. B3 against its plain version: CarParking on phase 3's
     # operands, brachistochrone_hli with every AL term live
-    fu32 = check_fused_car(problem, p32, r32, m32, w32, lam32, 10)
+    fu32, b3_args = check_fused_car(problem, p32, r32, m32, w32, lam32, 10)
     line("fused_f32", N=T_MAIN, **fu32)
-    fu64 = check_fused_car(problem, p64, r64, m64, w64, lam64, 3)
+    fu64, _ = check_fused_car(problem, p64, r64, m64, w64, lam64, 3)
     line("fused_f64", N=T_MAIN, **fu64)
     line("fused_brachi_f64", N=N_BRACHI, **check_fused_brachi(5))
-    del out32, out64, r32, r64
+
+    # 4d. B1 and B3 at the compaction widths: the latency floor
+    for w, d in widths_phase(b1_args, b3_args, 10).items():
+        line("widths_f32", B=w, N=T_MAIN, **d)
+    del out32, out64, r32, r64, b1_args, b3_args
 
     # 5. per-lane checks, kernels on the GPU vs plain on the CPU
     line("per_lane", **per_lane_check(problem))
@@ -610,28 +707,23 @@ def main() -> int:
     line("brachi_path", **bstats, **{f"launches_{k}": v
                                      for k, v in blaunches.items()})
 
-    kernels = [
-        dict(name="backpass", route="cuda",
-             source="ddp_generator_tpu_torch/csrc/backpass.cu",
-             replaces="ddp_generator_tpu/ops/pallas_backpass.py:682",
-             launches=launches["backpass"],
-             max_abs_err=bp32["max_abs_err"], ms=bp32["ms"],
-             plain_ms=bp32["plain_ms"]),
-    ]
+    def entry(name, source, replaces, n, d):
+        # no single PyTorch call computes any of these: library_ms is null
+        return dict(name=name, route="cuda",
+                    source=f"ddp_generator_tpu_torch/csrc/{source}",
+                    replaces=f"ddp_generator_tpu/ops/{replaces}", launches=n,
+                    max_abs_err=d["max_abs_err"], ms=d["ms"],
+                    plain_ms=d["plain_ms"], bound_ms=d["bound_ms"],
+                    bound_by=d["bound_by"], library_ms=None)
+
+    kernels = [entry("backpass", "backpass.cu", "pallas_backpass.py:682",
+                     launches["backpass"], bp32)]
     for mode in ("multi", "selected"):
-        kernels.append(dict(
-            name=f"rollout_{mode}", route="cuda",
-            source="ddp_generator_tpu_torch/csrc/rollout.cu",
-            replaces="ddp_generator_tpu/ops/pallas_rollout.py:424",
-            launches=launches[f"rollout_{mode}"],
-            max_abs_err=ro32[mode]["max_abs_err"], ms=ro32[mode]["ms"],
-            plain_ms=ro32[mode]["plain_ms"]))
-    kernels.append(dict(
-        name="fused", route="cuda",
-        source="ddp_generator_tpu_torch/csrc/fused.cu",
-        replaces="ddp_generator_tpu/ops/pallas_fused.py:715",
-        launches=flaunches["fused"], max_abs_err=fu32["max_abs_err"],
-        ms=fu32["ms"], plain_ms=fu32["plain_ms"]))
+        kernels.append(entry(f"rollout_{mode}", "rollout.cu",
+                             "pallas_rollout.py:424",
+                             launches[f"rollout_{mode}"], ro32[mode]))
+    kernels.append(entry("fused", "fused.cu", "pallas_fused.py:715",
+                         flaunches["fused"], fu32))
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

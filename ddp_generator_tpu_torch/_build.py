@@ -35,14 +35,14 @@ class KernelCompileError(RuntimeError):
     """nvcc failed or is missing; the message carries its stderr."""
 
 
-def _sources() -> list[Path]:
-    return sorted(p for p in CSRC.rglob("*") if p.suffix in (".cu", ".cuh"))
+def _sources(csrc: Path = CSRC) -> list[Path]:
+    return sorted(p for p in csrc.rglob("*") if p.suffix in (".cu", ".cuh"))
 
 
-def source_hash() -> str:
+def source_hash(csrc: Path = CSRC) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _sources():
-        h.update(str(p.relative_to(CSRC)).encode())
+    for p in _sources(csrc):
+        h.update(str(p.relative_to(csrc)).encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
@@ -63,16 +63,18 @@ def nvcc_path() -> str:
     )
 
 
-def build() -> Path:
-    """Compile the library if this tree's sources were not built yet;
-    return its path.  ``ptxas.txt`` beside it keeps ``-Xptxas -v``'s
-    per-kernel register and spill report."""
-    out_dir = BUILD_ROOT / source_hash()
+def build(csrc: Path = CSRC) -> Path:
+    """Compile the library if the sources under ``csrc`` (this package's,
+    or another tree's, as ``scripts/tile_sweep.py`` builds them) were not
+    built yet; return its path.  ``ptxas.txt`` beside it keeps ``-Xptxas
+    -v``'s per-kernel register and spill report."""
+    key = source_hash(csrc)
+    out_dir = BUILD_ROOT / key
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_ROOT / "build.lock", "w") as lock:
+    with open(BUILD_ROOT / f"{key}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if lib.exists():  # built by another process while we waited
@@ -81,9 +83,9 @@ def build() -> Path:
             tmp = out_dir / (LIB_NAME + f".tmp{os.getpid()}")
             nvcc = nvcc_path()
             objs, procs = [], []
-            for src in (p for p in _sources() if p.suffix == ".cu"):
+            for src in (p for p in _sources(csrc) if p.suffix == ".cu"):
                 obj = out_dir / (src.stem + ".o")
-                cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+                cmd = [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", "-o",
                        str(obj), str(src)]
                 procs.append((cmd, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -114,17 +116,26 @@ def build() -> Path:
 
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, with every C entry
-    point's ``argtypes``/``restype`` declared."""
-    lib = ctypes.CDLL(str(build()))
+    """Build (if needed) and load this package's kernel library."""
+    return open_library(build())
+
+
+def open_library(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library with every C entry point's
+    ``argtypes``/``restype`` declared."""
+    lib = ctypes.CDLL(str(path))
     i, p = ctypes.c_int, ctypes.c_void_p
-    lib.ddp_backpass.argtypes = [i, i, i, i, i, i, i, i,
-                                 ctypes.POINTER(p), p]
+    lib.ddp_backpass.argtypes = [i, i, i, i, i, i, i, ctypes.POINTER(p), p]
     lib.ddp_backpass.restype = i
+    ip = ctypes.POINTER(i)
+    lib.ddp_backpass_info.argtypes = [i, i, i, i, i, ip]
+    lib.ddp_backpass_info.restype = i
+    lib.ddp_fused_info.argtypes = [i, ctypes.c_char_p, i, i, ip]
+    lib.ddp_fused_info.restype = i
     lib.ddp_rollout.argtypes = [i, ctypes.c_char_p, i, i, i, i, i, i,
                                 ctypes.POINTER(p), p]
     lib.ddp_rollout.restype = i
-    lib.ddp_fused.argtypes = [i, ctypes.c_char_p, i, i, i, i, i,
+    lib.ddp_fused.argtypes = [i, ctypes.c_char_p, i, i, i, i,
                               ctypes.POINTER(p), p]
     lib.ddp_fused.restype = i
     lib.ddp_error_string.argtypes = [i]
@@ -136,6 +147,12 @@ def pointer_array(tensors) -> "ctypes.Array":
     """``void*`` array of the tensors' device pointers (None -> NULL)."""
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def info_dict(out) -> dict:
+    """The six ints of ``ddp_backpass_info``/``ddp_fused_info``."""
+    return dict(zip(("G", "S", "W", "smem_bytes", "registers",
+                     "local_bytes"), list(out)))
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

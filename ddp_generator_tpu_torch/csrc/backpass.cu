@@ -1,180 +1,145 @@
-// Kernel B1: the whole DDP backward pass, one thread per batch lane.
+// Kernel B1: the whole DDP backward pass on a packed derivative bundle.
 //
 // Replaces ddp_generator_tpu/ops/pallas_backpass.py:pallas_back_pass_cm
 // (pl.pallas_call at line 682; math in riccati_step, _sym_solve_small and
 // _patterns).  The TPU kernel walked time as a sequential grid and carried
-// Vx/Vxx in VMEM scratch; here each thread loops t = N-1 .. 0 and keeps
-// Vx/Vxx, dV, g and the failure flag in registers.
+// Vx/Vxx in VMEM scratch; here a block owns kLanes lanes and its consumer
+// thread of each lane loops t = N-1 .. 0 with Vx/Vxx, dV, g and the
+// failure flag in registers (staged.cuh).
 //
-// What bounds it on an H100: latency, not bandwidth.  Each step needs the
-// previous step's value function, so a lane is one long dependent chain of
-// ~2k flops per step, and B=2048 lanes are only 64 warps.  The bundle
-// (~160 components per step) is read once, coalesced: component c of step
-// t for lane b sits at c*N*B + t*B + b, so a warp reads 32 consecutive
-// values.  Small blocks (32 threads, chosen by the wrapper) spread those
-// warps over as many SMs as possible.
+// What bounds it on an H100: the bundle (~160 components per step, ~650 MB
+// in float32 at B=2048, N=500) sets a bound of ~0.2 ms, but each lane is
+// one long dependent chain of ~1.5k operations per step, so the chain's
+// latency times N sets the pace.  One producer warp per block copies each
+// time tile of the bundle into shared memory with cp.async (16-byte copies
+// of consecutive lanes, each component of (C, N, B) read once, coalesced)
+// while the consumer warp runs the recursion on the tile before, so the
+// consumer reads shared memory only and never waits on device memory.
 //
 // Semantics (back_pass.c:38-257, as pallas_backpass.py): each step is
 // riccati.cuh:riccati_step on the step's bundle entries; once a step fails
 // the lane writes zeros and its carry, dV and g freeze (riccati.cuh:
 // advance); g_norm is divided by N-1.
+#include <stdint.h>
+
+#include "backpass.cuh"
 #include "common.cuh"
 #include "riccati.cuh"
+#include "staged.cuh"
 
 namespace ddp {
 namespace {
 
-template <typename T>
-struct BackpassArgs {
-  // inputs, component-outer (C, N, B); cxx, cuu and the last two axes of
-  // fxx/fuu packed as row-major upper triangles
-  const T *fx, *fu, *cx, *cu, *cxx, *cuu, *cxu, *fxx, *fuu, *fxu;
-  const T *lower, *upper, *lo_hx, *up_hx, *lo_s, *up_s;
-  const T* us;         // (n_u, N, B)
-  const T* lam;        // (1, B)
-  const T* final_cx;   // (n_x, B)
-  const T* final_cxx;  // (n_x*n_x, B)
-  // outputs, (N, C, B)
-  T* l;                // (N, n_u, B)
-  T* L;                // (N, n_u*n_x, B)
-  T* dV;               // (2, B)
-  T* g_norm;           // (1, B)
-  bool* failed;        // (1, B)
-  int N, B;
+constexpr int kProducerWarps = 1;
+constexpr int kThreads = 32 * (1 + kProducerWarps);
+
+// copy(dst, src, n) for bundle_fill: one 16-byte cp.async where the source
+// is aligned and the chunk whole, else one per value.
+struct AsyncCopy {
+  template <typename T>
+  __device__ __forceinline__ void operator()(T* dst, const T* src,
+                                             int n) const {
+    const unsigned d =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    if (n * static_cast<int>(sizeof(T)) == 16 &&
+        (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                   "l"(src)
+                   : "memory");
+    } else {
+      for (int e = 0; e < n; ++e)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                         d + e * static_cast<unsigned>(sizeof(T))),
+                     "l"(src + e), "n"(sizeof(T))
+                     : "memory");
+    }
+  }
 };
 
 template <typename T, int NX, int NU, int REG, bool FULL>
-__host__ __device__ void backpass_lane(const BackpassArgs<T>& A, int b) {
-  constexpr int TX = NX * (NX + 1) / 2, TU = NU * (NU + 1) / 2;
-  const int N = A.N, B = A.B;
-  const size_t NB = static_cast<size_t>(N) * B;
-
-  Carry<T, NX> c;
-#pragma unroll
-  for (int a = 0; a < NX; ++a) {
-    c.Vx[a] = A.final_cx[a * B + b];
-#pragma unroll
-    for (int e = 0; e < NX; ++e) c.Vxx[a][e] = A.final_cxx[(a * NX + e) * B + b];
+__global__ void __launch_bounds__(kThreads, 1)
+    backpass_kernel(const BackpassArgs<T> A) {
+  using K = Terms<NX, NU, FULL>;
+  constexpr int S = tile_steps<T, K::NT>();
+  constexpr int SLOT = K::NT * S * kLanes;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* slots = reinterpret_cast<T*>(smem);
+  const int b0 = blockIdx.x * kLanes;
+  const int ntiles = num_tiles(A.N, S);
+  if (threadIdx.x < 32) {
+    const int g = threadIdx.x, b = b0 + g;
+    const bool mine = g < kLanes && b < A.B;
+    Carry<T, NX> c;
+    T lam = T(0);
+    if (mine) {
+      backpass_start(A, b, c);
+      lam = A.lam[b];
+    }
+    consumer_loop<kThreads>(ntiles, [&](int j, int r) {
+      if (mine)
+        consume_tile<T, NX, NU, REG, FULL, S>(slots + r * SLOT,
+                                              tile_t0(A.N, S, j), g, b, A.B,
+                                              lam, c, A.l, A.L);
+    });
+    if (mine) finish_lane(c, A.N, A.B, b, A.dV, A.g_norm, A.failed);
+  } else {
+    producer_loop<kThreads>(ntiles, [&](int j, int r) {
+      bundle_fill<T, NX, NU, FULL, S>(A, tile_t0(A.N, S, j), b0,
+                                      slots + r * SLOT, threadIdx.x - 32,
+                                      32 * kProducerWarps, AsyncCopy());
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+    });
   }
-  c.dv0 = c.dv1 = c.g = c.fail = T(0);
-  const T lam = A.lam[b];
-
-  for (int t = N - 1; t >= 0; --t) {
-    const size_t o = static_cast<size_t>(t) * B + b;
-    auto ld = [&](const T* p, int comp) -> T {
-      return p[static_cast<size_t>(comp) * NB + o];
-    };
-    // ---- loads (one coalesced read per component) ----
-    StepTerms<T, NX, NU> d;
-    T u[NU];
-#pragma unroll
-    for (int a = 0; a < NX; ++a) {
-      d.cx[a] = ld(A.cx, a);
-#pragma unroll
-      for (int e = 0; e < NX; ++e) {
-        d.fx[a][e] = ld(A.fx, a * NX + e);
-        d.cxx[a][e] = ld(A.cxx, tri(a, e, NX));
-      }
-#pragma unroll
-      for (int e = 0; e < NU; ++e) {
-        d.fu[a][e] = ld(A.fu, a * NU + e);
-        d.cxu[a][e] = ld(A.cxu, a * NU + e);
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < NU; ++a) {
-      d.cu[a] = ld(A.cu, a);
-#pragma unroll
-      for (int e = 0; e < NU; ++e) d.cuu[a][e] = ld(A.cuu, tri(a, e, NU));
-      d.lower[a] = ld(A.lower, a);
-      d.upper[a] = ld(A.upper, a);
-      d.lo_s[a] = ld(A.lo_s, a);
-      d.up_s[a] = ld(A.up_s, a);
-      u[a] = ld(A.us, a);
-#pragma unroll
-      for (int e = 0; e < NX; ++e) {
-        d.lo_hx[a][e] = ld(A.lo_hx, a * NX + e);
-        d.up_hx[a][e] = ld(A.up_hx, a * NX + e);
-      }
-    }
-    if (FULL) {
-      // Vx . f**: contraction over the dynamics output index i
-#pragma unroll
-      for (int a = 0; a < NX; ++a) {
-#pragma unroll
-        for (int e = 0; e < NU; ++e) {
-          T s = c.Vx[0] * ld(A.fxu, (0 * NX + a) * NU + e);
-#pragma unroll
-          for (int i = 1; i < NX; ++i)
-            s = s + c.Vx[i] * ld(A.fxu, (i * NX + a) * NU + e);
-          d.vfxu[a][e] = s;
-        }
-#pragma unroll
-        for (int e = 0; e < NX; ++e) {
-          T s = c.Vx[0] * ld(A.fxx, 0 * TX + tri(a, e, NX));
-#pragma unroll
-          for (int i = 1; i < NX; ++i)
-            s = s + c.Vx[i] * ld(A.fxx, i * TX + tri(a, e, NX));
-          d.vfxx[a][e] = s;
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < NU; ++a) {
-#pragma unroll
-        for (int e = 0; e < NU; ++e) {
-          T s = c.Vx[0] * ld(A.fuu, 0 * TU + tri(a, e, NU));
-#pragma unroll
-          for (int i = 1; i < NX; ++i)
-            s = s + c.Vx[i] * ld(A.fuu, i * TU + tri(a, e, NU));
-          d.vfuu[a][e] = s;
-        }
-      }
-    }
-
-    StepOut<T, NX, NU> so;
-    riccati_step<T, NX, NU, REG, FULL>(d, u, lam, c.Vx, c.Vxx, so);
-    const T live = advance(c, so);
-#pragma unroll
-    for (int a = 0; a < NU; ++a) {
-      A.l[(static_cast<size_t>(t) * NU + a) * B + b] = live * so.l[a];
-#pragma unroll
-      for (int e = 0; e < NX; ++e)
-        A.L[(static_cast<size_t>(t) * NU * NX + a * NX + e) * B + b] =
-            live * so.L[a][e];
-    }
-  }
-  A.dV[b] = c.dv0;
-  A.dV[B + b] = c.dv1;
-  A.g_norm[b] = c.g / static_cast<T>(N - 1);
-  A.failed[b] = c.fail > T(0);
 }
 
+// One instantiation: its launch and its attributes.
 template <typename T, int NX, int NU, int REG, bool FULL>
-__global__ void backpass_kernel(const BackpassArgs<T> args) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b < args.B) backpass_lane<T, NX, NU, REG, FULL>(args, b);
-}
+struct Variant {
+  static constexpr int S = tile_steps<T, Terms<NX, NU, FULL>::NT>();
+  static constexpr int kSmem =
+      kSlots * Terms<NX, NU, FULL>::NT * S * kLanes * sizeof(T);
 
-template <typename T, int NX, int NU>
-int launch_shape(int reg_type, bool full_ddp, const BackpassArgs<T>& args,
-                 int block, cudaStream_t stream) {
-  const unsigned grid = grid_for(args.B, block);
-  if (reg_type == 1 && full_ddp)
-    backpass_kernel<T, NX, NU, 1, true><<<grid, block, 0, stream>>>(args);
-  else if (reg_type == 1)
-    backpass_kernel<T, NX, NU, 1, false><<<grid, block, 0, stream>>>(args);
-  else if (reg_type == 2 && full_ddp)
-    backpass_kernel<T, NX, NU, 2, true><<<grid, block, 0, stream>>>(args);
-  else if (reg_type == 2)
-    backpass_kernel<T, NX, NU, 2, false><<<grid, block, 0, stream>>>(args);
-  else
+  static int launch(const BackpassArgs<T>& a, cudaStream_t stream) {
+    const auto kernel = backpass_kernel<T, NX, NU, REG, FULL>;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<grid_for(a.B, kLanes), kThreads, kSmem, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  static int info(int* out) {
+    cudaFuncAttributes fa;
+    const cudaError_t e =
+        cudaFuncGetAttributes(&fa, backpass_kernel<T, NX, NU, REG, FULL>);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int v[6] = {kLanes, S, kProducerWarps, kSmem, fa.numRegs,
+                      static_cast<int>(fa.localSizeBytes)};
+    for (int i = 0; i < 6; ++i) out[i] = v[i];
+    return 0;
+  }
+};
+
+// f(Variant<...>()) for the instantiated (n_x, n_u, regType, FULL_DDP).
+template <typename T, class F>
+int visit(int n_x, int n_u, int reg_type, bool full_ddp, F f) {
+  auto shape = [&](auto nx, auto nu) -> int {
+    constexpr int NX = decltype(nx)::value, NU = decltype(nu)::value;
+    if (reg_type == 1 && full_ddp) return f(Variant<T, NX, NU, 1, true>());
+    if (reg_type == 1) return f(Variant<T, NX, NU, 1, false>());
+    if (reg_type == 2 && full_ddp) return f(Variant<T, NX, NU, 2, true>());
+    if (reg_type == 2) return f(Variant<T, NX, NU, 2, false>());
     return kBadVariant;
-  return static_cast<int>(cudaGetLastError());
+  };
+  if (n_x == 4 && n_u == 2) return shape(IntC<4>(), IntC<2>());
+  if (n_x == 4 && n_u == 1) return shape(IntC<4>(), IntC<1>());
+  if (n_x == 1 && n_u == 1) return shape(IntC<1>(), IntC<1>());
+  return kBadVariant;
 }
 
 template <typename T>
 int launch(int n_x, int n_u, int reg_type, bool full_ddp, int N, int B,
-           int block, void* const* p, cudaStream_t stream) {
+           void* const* p, cudaStream_t stream) {
   BackpassArgs<T> a;
   auto in = [&](int i) { return static_cast<const T*>(p[i]); };
   auto out = [&](int i) { return static_cast<T*>(p[i]); };
@@ -192,13 +157,8 @@ int launch(int n_x, int n_u, int reg_type, bool full_ddp, int N, int B,
     const bool full_only = i >= 7 && i <= 9;
     if (p[i] == nullptr && !(full_only && !full_ddp)) return kNullPointer;
   }
-  if (n_x == 4 && n_u == 2)
-    return launch_shape<T, 4, 2>(reg_type, full_ddp, a, block, stream);
-  if (n_x == 4 && n_u == 1)
-    return launch_shape<T, 4, 1>(reg_type, full_ddp, a, block, stream);
-  if (n_x == 1 && n_u == 1)
-    return launch_shape<T, 1, 1>(reg_type, full_ddp, a, block, stream);
-  return kBadVariant;
+  return visit<T>(n_x, n_u, reg_type, full_ddp,
+                  [&](auto v) { return decltype(v)::launch(a, stream); });
 }
 
 }  // namespace
@@ -212,16 +172,30 @@ int launch(int n_x, int n_u, int reg_type, bool full_ddp, int N, int B,
 // full_ddp == 0).  dtype: 0 float32, 1 float64.  Launches on `stream`,
 // does not synchronize, returns cudaGetLastError() or a negative ddp code.
 extern "C" int ddp_backpass(int dtype, int n_x, int n_u, int reg_type,
-                            int full_ddp, int N, int B, int block,
-                            void* const* ptrs, void* stream) {
-  if (N < 1 || B < 1 || block < 1 || block > 1024) return ddp::kBadShape;
+                            int full_ddp, int N, int B, void* const* ptrs,
+                            void* stream) {
+  if (N < 1 || B < 1) return ddp::kBadShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return ddp::launch<float>(n_x, n_u, reg_type, full_ddp != 0, N, B, block,
-                              ptrs, s);
+    return ddp::launch<float>(n_x, n_u, reg_type, full_ddp != 0, N, B, ptrs,
+                              s);
   if (dtype == 1)
-    return ddp::launch<double>(n_x, n_u, reg_type, full_ddp != 0, N, B, block,
+    return ddp::launch<double>(n_x, n_u, reg_type, full_ddp != 0, N, B,
                                ptrs, s);
+  return ddp::kBadDtype;
+}
+
+// The tile shape and resources of one instantiation: out[0..5] = lanes per
+// block, steps per tile, producer warps, dynamic shared memory per block
+// (bytes), registers per thread, local memory per thread (bytes; stack
+// frame and spill).
+extern "C" int ddp_backpass_info(int dtype, int n_x, int n_u, int reg_type,
+                                 int full_ddp, int* out) {
+  auto info = [&](auto v) { return decltype(v)::info(out); };
+  if (dtype == 0)
+    return ddp::visit<float>(n_x, n_u, reg_type, full_ddp != 0, info);
+  if (dtype == 1)
+    return ddp::visit<double>(n_x, n_u, reg_type, full_ddp != 0, info);
   return ddp::kBadDtype;
 }
 

@@ -34,6 +34,12 @@ enum ErrorCode {
 // Length of a per-lane array of n entries (C++ has no zero-length arrays).
 __host__ __device__ constexpr int arr(int n) { return n > 0 ? n : 1; }
 
+// An int as a type, to pick a template instantiation in a generic lambda.
+template <int N>
+struct IntC {
+  static constexpr int value = N;
+};
+
 template <typename T>
 __host__ __device__ __forceinline__ bool is_finite(T v) {
 #ifdef __CUDACC__

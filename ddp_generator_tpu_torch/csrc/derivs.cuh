@@ -1,7 +1,9 @@
 // Per-lane derivatives of a CUDA model by forward mode: the work of
 // ddp_generator_tpu/ops/pallas_fused.py:step_derivative_components (line
 // 132), final_derivative_components (:416) and _box_limit_components (:82)
-// inside kernel B3 (fused.cu).  __host__ __device__, so the host test
+// inside kernel B3 (fused.cu): step_derivs (all of a step, the reference)
+// and the work items pair_item, dyn_item and box_item that B3's producer
+// warps run.  __host__ __device__, so the host test
 // tests/test_torch_dual_host.py runs this very code.
 //
 // Directions j = 0 .. n_x+n_u-1 are x_j, then u_{j-n_x}.  One Dual2
@@ -15,6 +17,7 @@
 #include "common.cuh"
 #include "dual.cuh"
 #include "riccati.cuh"
+#include "staged.cuh"
 
 namespace ddp {
 
@@ -169,6 +172,111 @@ __host__ __device__ __forceinline__ bool step_derivs(
   }
   box_limits<M>(x, u, p, k, d);
   return ok;
+}
+
+// ---- step_derivs cut into the work items of B3's producers ----
+//
+// Each writes its own terms of step k into a slot column q (staged.cuh:
+// Terms order; term j at q[j * ts]) and returns whether those it checks
+// are finite.  Same arithmetic as step_derivs, with the direction pair
+// (a, b) or direction a a runtime value: the seeds are exactly 0 or 1
+// either way, so every value is bit for bit step_derivs'.  Where
+// step_derivs folds f** into Vx . f**, pair_item writes the raw components;
+// the consumer contracts them with its carried Vx in the same order.
+
+// Pair a <= b of the D = NX+NU directions: d2/da db of the augmented L
+// (cxx, cxu or cuu), d/da on the diagonal (cx or cu); with FULL, the same
+// of every output of f (f**, and fx or fu on the diagonal).
+template <class M, bool FULL, typename T, typename P>
+__host__ __device__ __forceinline__ bool pair_item(
+    const T* x, const T* u, const P* p, int k, const T* mu_le,
+    const T* mu_li, T wpl, int a, int b, T* q, int ts) {
+  constexpr int NX = M::NX, NU = M::NU;
+  using K = Terms<NX, NU, FULL>;
+  Dual2<T> xd[NX], ud[NU];
+#pragma unroll
+  for (int e = 0; e < NX; ++e)
+    xd[e] = Dual2<T>(x[e], seed<T>(e, a), seed<T>(e, b), T(0));
+#pragma unroll
+  for (int e = 0; e < NU; ++e)
+    ud[e] = Dual2<T>(u[e], seed<T>(NX + e, a), seed<T>(NX + e, b), T(0));
+  const Dual2<T> c = aug_L<M>(xd, ud, p, k, mu_le, mu_li, wpl);
+  bool ok = is_finite(c.d12);
+  const int cterm = b < NX ? K::CXX + tri(a, b, NX)
+                           : (a < NX ? K::CXU + a * NU + (b - NX)
+                                     : K::CUU + tri(a - NX, b - NX, NU));
+  q[cterm * ts] = c.d12;
+  if (a == b) {
+    ok = ok && is_finite(c.d1);
+    q[(a < NX ? K::CX + a : K::CU + a - NX) * ts] = c.d1;
+  }
+  if (FULL) {
+    Dual2<T> fn[NX];
+    M::f(xd, ud, p, k, fn);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      ok = ok && is_finite(fn[i].d12);
+      const int term =
+          b < NX ? K::FXX + i * K::TX + tri(a, b, NX)
+                 : (a < NX ? K::FXU + (i * NX + a) * NU + (b - NX)
+                           : K::FUU + i * K::TU + tri(a - NX, b - NX, NU));
+      q[term * ts] = fn[i].d12;
+      if (a == b) {
+        ok = ok && is_finite(fn[i].d1);
+        q[(a < NX ? K::FX + i * NX + a : K::FU + i * NU + a - NX) * ts] =
+            fn[i].d1;
+      }
+    }
+  }
+  return ok;
+}
+
+// Without FULL: direction a of f on Dual, the column a of fx or fu.
+template <class M, bool FULL, typename T, typename P>
+__host__ __device__ __forceinline__ bool dyn_item(const T* x, const T* u,
+                                                  const P* p, int k, int a,
+                                                  T* q, int ts) {
+  constexpr int NX = M::NX, NU = M::NU;
+  using K = Terms<NX, NU, FULL>;
+  Dual<T> xd[NX], ud[NU], fn[NX];
+#pragma unroll
+  for (int e = 0; e < NX; ++e) xd[e] = Dual<T>(x[e], seed<T>(e, a));
+#pragma unroll
+  for (int e = 0; e < NU; ++e) ud[e] = Dual<T>(u[e], seed<T>(NX + e, a));
+  M::f(xd, ud, p, k, fn);
+  bool ok = true;
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    ok = ok && is_finite(fn[i].d);
+    q[(a < NX ? K::FX + i * NX + a : K::FU + i * NU + a - NX) * ts] =
+        fn[i].d;
+  }
+  return ok;
+}
+
+// The box limits of step k (not checked for finiteness, as in
+// step_derivs), and u itself.
+template <class M, bool FULL, typename T, typename P>
+__host__ __device__ __forceinline__ void box_item(const T* x, const T* u,
+                                                  const P* p, int k, T* q,
+                                                  int ts) {
+  constexpr int NX = M::NX, NU = M::NU;
+  using K = Terms<NX, NU, FULL>;
+  StepTerms<T, NX, NU> d;
+  box_limits<M>(x, u, p, k, d);
+#pragma unroll
+  for (int a = 0; a < NU; ++a) {
+    q[(K::LOWER + a) * ts] = d.lower[a];
+    q[(K::UPPER + a) * ts] = d.upper[a];
+    q[(K::LO_S + a) * ts] = d.lo_s[a];
+    q[(K::UP_S + a) * ts] = d.up_s[a];
+    q[(K::U + a) * ts] = u[a];
+#pragma unroll
+    for (int c = 0; c < NX; ++c) {
+      q[(K::LO_HX + a * NX + c) * ts] = d.lo_hx[a][c];
+      q[(K::UP_HX + a * NX + c) * ts] = d.up_hx[a][c];
+    }
+  }
 }
 
 // Fx and Fxx of the AL-augmented final cost at xf (k = N), hfe/hfi with

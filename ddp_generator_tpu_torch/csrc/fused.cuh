@@ -1,11 +1,14 @@
-// One lane of kernel B3 (fused.cu): the backward pass with every derivative
-// computed in place.  __host__ __device__, so the host test
-// tests/test_torch_dual_host.py runs the whole lane on the CPU.
+// Kernel B3's operands, its per-lane reference and its producers' tile
+// work.  __host__ __device__, so tests/test_torch_dual_host.py runs them on
+// the CPU: fused_lane is the one-thread-per-lane backward pass B3 ran
+// before it was staged (kept as the reference the staged kernel must equal
+// bit for bit), fused_fill the work items B3's producer warps share.
 #pragma once
 
 #include "common.cuh"
 #include "derivs.cuh"
 #include "riccati.cuh"
+#include "staged.cuh"
 
 namespace ddp {
 
@@ -31,17 +34,13 @@ struct FusedArgs {
   int N, B;
 };
 
-// Lane b, parameters at p (a register copy, or A.params for a model whose
-// [k]-indexed tail stays in device memory).
-template <class M, typename T, int REG, bool FULL>
-__host__ __device__ __forceinline__ void fused_lane(const FusedArgs<T>& A,
-                                                    const T* p, int b) {
-  constexpr int NX = M::NX, NU = M::NU;
-  const int N = A.N, B = A.B;
-  const T wpl = A.wpl[b], wpf = A.wpf[b], lam = A.lam[b];
-
-  // final stage: Fx/Fxx of the AL-augmented F (bp_derivsF role)
-  Carry<T, NX> c;
+// The carry at t = N: Fx/Fxx of the AL-augmented F at x_N (bp_derivsF
+// role), accumulators 0.  Returns whether Fx and Fxx are finite.
+template <class M, typename T>
+__host__ __device__ __forceinline__ bool fused_lane_start(
+    const FusedArgs<T>& A, const T* p, int b, Carry<T, M::NX>& c) {
+  constexpr int NX = M::NX;
+  const int B = A.B;
   T xf[NX], mu_fe[arr(M::NHFE)] = {}, mu_fi[arr(M::NHFI)] = {};
 #pragma unroll
   for (int a = 0; a < NX; ++a) xf[a] = A.xf[a * B + b];
@@ -49,23 +48,59 @@ __host__ __device__ __forceinline__ void fused_lane(const FusedArgs<T>& A,
   for (int i = 0; i < M::NHFE; ++i) mu_fe[i] = A.mu_fe[i * B + b];
 #pragma unroll
   for (int i = 0; i < M::NHFI; ++i) mu_fi[i] = A.mu_fi[i * B + b];
-  bool dok = final_derivs<M>(xf, p, N, mu_fe, mu_fi, wpf, c.Vx, c.Vxx);
+  const bool ok =
+      final_derivs<M>(xf, p, A.N, mu_fe, mu_fi, A.wpf[b], c.Vx, c.Vxx);
   c.dv0 = c.dv1 = c.g = c.fail = T(0);
+  return ok;
+}
+
+// The nominal point and running multipliers of (step k, lane b).
+template <class M, typename T>
+__host__ __device__ __forceinline__ void load_point(
+    const FusedArgs<T>& A, int k, int b, T (&x)[M::NX], T (&u)[M::NU],
+    T (&mu_le)[arr(M::NHLE)], T (&mu_li)[arr(M::NHLI)]) {
+  const int B = A.B;
+  const size_t kb = static_cast<size_t>(k);
+#pragma unroll
+  for (int a = 0; a < M::NX; ++a) x[a] = A.x[(kb * M::NX + a) * B + b];
+#pragma unroll
+  for (int a = 0; a < M::NU; ++a) u[a] = A.u[(kb * M::NU + a) * B + b];
+#pragma unroll
+  for (int i = 0; i < M::NHLE; ++i)
+    mu_le[i] = A.mu_le[(kb * M::NHLE + i) * B + b];
+#pragma unroll
+  for (int i = 0; i < M::NHLI; ++i)
+    mu_li[i] = A.mu_li[(kb * M::NHLI + i) * B + b];
+}
+
+// f(p) with the parameters a model reads: the fixed ones copied to
+// registers, or (M::TAIL) all of them read where they lie.
+template <class M, typename T, class F>
+__host__ __device__ __forceinline__ void with_params(const T* params, F f) {
+  if (M::TAIL) {
+    f(params);
+  } else {
+    T p[arr(M::NP)];
+#pragma unroll
+    for (int i = 0; i < M::NP; ++i) p[i] = params[i];
+    f(static_cast<const T*>(p));
+  }
+}
+
+// Lane b's whole backward pass on one thread, parameters at p.
+template <class M, typename T, int REG, bool FULL>
+__host__ __device__ __forceinline__ void fused_lane(const FusedArgs<T>& A,
+                                                    const T* p, int b) {
+  constexpr int NX = M::NX, NU = M::NU;
+  const int N = A.N, B = A.B;
+  const T wpl = A.wpl[b], lam = A.lam[b];
+  Carry<T, NX> c;
+  bool dok = fused_lane_start<M>(A, p, b, c);
 
   for (int t = N - 1; t >= 0; --t) {
     const size_t kb = static_cast<size_t>(t);
     T x[NX], u[NU], mu_le[arr(M::NHLE)] = {}, mu_li[arr(M::NHLI)] = {};
-#pragma unroll
-    for (int a = 0; a < NX; ++a) x[a] = A.x[(kb * NX + a) * B + b];
-#pragma unroll
-    for (int a = 0; a < NU; ++a) u[a] = A.u[(kb * NU + a) * B + b];
-#pragma unroll
-    for (int i = 0; i < M::NHLE; ++i)
-      mu_le[i] = A.mu_le[(kb * M::NHLE + i) * B + b];
-#pragma unroll
-    for (int i = 0; i < M::NHLI; ++i)
-      mu_li[i] = A.mu_li[(kb * M::NHLI + i) * B + b];
-
+    load_point<M>(A, t, b, x, u, mu_le, mu_li);
     StepTerms<T, NX, NU> d;
     const bool ok_t =
         step_derivs<M, FULL>(x, u, p, t, mu_le, mu_li, wpl, c.Vx, d);
@@ -81,25 +116,63 @@ __host__ __device__ __forceinline__ void fused_lane(const FusedArgs<T>& A,
         A.L[(kb * NU * NX + a * NX + e) * B + b] = live * so.L[a][e];
     }
   }
-  A.dV[b] = c.dv0;
-  A.dV[B + b] = c.dv1;
-  A.g_norm[b] = c.g / static_cast<T>(N - 1);
-  A.failed[b] = c.fail > T(0);
+  finish_lane(c, N, B, b, A.dV, A.g_norm, A.failed);
   A.derivs_ok[b] = dok;
 }
 
-// fused_lane with the parameters a model reads: the fixed ones copied to
-// registers, or (M::TAIL) all of them read where they lie.
 template <class M, typename T, int REG, bool FULL>
 __host__ __device__ __forceinline__ void fused_lane(const FusedArgs<T>& A,
                                                     int b) {
-  if (M::TAIL) {
-    fused_lane<M, T, REG, FULL>(A, A.params, b);
-  } else {
-    T p[arr(M::NP)];
-#pragma unroll
-    for (int i = 0; i < M::NP; ++i) p[i] = A.params[i];
+  with_params<M>(A.params, [&](const T* p) {
     fused_lane<M, T, REG, FULL>(A, p, b);
+  });
+}
+
+// Work items of one (step, lane): the D(D+1)/2 direction pairs, without
+// FULL the D directions of f, then the box limits.
+template <class M, bool FULL>
+__host__ __device__ constexpr int items_per_point() {
+  constexpr int D = M::NX + M::NU;
+  return D * (D + 1) / 2 + (FULL ? 0 : D) + 1;
+}
+
+// Tile (t0, lanes b0 ..) of B3's terms into a slot (staged.cuh: Terms
+// order, [term][step][lane]).  This caller runs items first, first +
+// stride, ... of the tile's items_per_point() x S x kLanes, ordered item
+// kind outermost so that a warp's 32 threads run one kind.  An item whose
+// terms are not all finite clears ok[g] of its lane (an AND over every
+// item, in any order).  Steps t < 0 and lanes >= B are skipped.
+template <class M, bool FULL, int S, typename T>
+__host__ __device__ __forceinline__ void fused_fill(const FusedArgs<T>& A,
+                                                    const T* p, int t0,
+                                                    int b0, T* slot, int* ok,
+                                                    int first, int stride) {
+  constexpr int NX = M::NX, NU = M::NU, D = NX + NU;
+  constexpr int NPAIR = D * (D + 1) / 2;
+  // (step, lane) points of a tile, and the slot stride between terms
+  constexpr int TS = S * kLanes;
+  for (int i = first; i < items_per_point<M, FULL>() * TS; i += stride) {
+    const int kind = i / TS, s = (i % TS) / kLanes, g = i % kLanes;
+    const int t = t0 - s, b = b0 + g;
+    if (t < 0 || b >= A.B) continue;
+    T x[NX], u[NU], mu_le[arr(M::NHLE)] = {}, mu_li[arr(M::NHLI)] = {};
+    load_point<M>(A, t, b, x, u, mu_le, mu_li);
+    T* q = slot + s * kLanes + g;
+    bool item_ok = true;
+    if (kind < NPAIR) {
+      int a = 0, r = kind;  // kind = tri(a, bb, D)
+      while (r >= D - a) {
+        r -= D - a;
+        ++a;
+      }
+      item_ok = pair_item<M, FULL>(x, u, p, t, mu_le, mu_li, A.wpl[b], a,
+                                   a + r, q, TS);
+    } else if (!FULL && kind < NPAIR + D) {
+      item_ok = dyn_item<M, FULL>(x, u, p, t, kind - NPAIR, q, TS);
+    } else {
+      box_item<M, FULL>(x, u, p, t, q, TS);
+    }
+    if (!item_ok) ok[g] = 0;
   }
 }
 

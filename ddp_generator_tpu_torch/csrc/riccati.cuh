@@ -60,6 +60,21 @@ __host__ __device__ constexpr int pattern_code(int n, int p) {
   return -1;
 }
 
+// The digits of every pattern, in enumeration order, as a table built at
+// compile time.  pattern_code and digit are loops over integer divisions,
+// which the device compiler leaves in the code when they are called in the
+// step (recomputing all 3^n_u patterns at every step); read from this
+// table with unrolled indices they are constants, and so are the free sets
+// and index lists of sym_solve.
+template <int NU>
+struct PatternTable {
+  int dg[pow3(NU)][NU];
+  __host__ __device__ constexpr PatternTable() : dg() {
+    for (int p = 0; p < pow3(NU); ++p)
+      for (int a = 0; a < NU; ++a) dg[p][a] = digit(pattern_code(NU, p), NU, a);
+  }
+};
+
 // Closed-form solve on the free block of H (upper triangle read), with the
 // PD gates of pallas_backpass.py:_sym_solve_small.  inv receives the
 // free-block inverse at global indices and zero elsewhere.
@@ -149,6 +164,7 @@ __host__ __device__ __forceinline__ void riccati_step(
     const StepTerms<T, NX, NU>& d, const T (&u)[NU], T lam,
     const T (&Vx)[NX], const T (&Vxx)[NX][NX], StepOut<T, NX, NU>& o) {
   constexpr int NP = pow3(NU);
+  constexpr PatternTable<NU> patterns;
 
   // ---- Q build (back_pass.c:80-131) ----
   T vfx[NX][NX], vfu[NX][NU];
@@ -273,13 +289,12 @@ __host__ __device__ __forceinline__ void riccati_step(
   }
 #pragma unroll
   for (int p = 0; p < NP; ++p) {
-    const int code = pattern_code(NU, p);
     bool fr[NU], at_lo[NU], at_up[NU];
     T xc[NU];
     bool bound_ok = true, any_free_clamped = false;
 #pragma unroll
     for (int a = 0; a < NU; ++a) {
-      const int dg = digit(code, NU, a);
+      const int dg = patterns.dg[p][a];
       fr[a] = dg == 0;
       at_lo[a] = dg == 1;
       at_up[a] = dg == 2;

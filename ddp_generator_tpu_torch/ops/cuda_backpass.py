@@ -13,14 +13,16 @@ the value update with the UNregularized Quu/Qxu and a symmetrized Vxx.
 Once a step fails the lane's outputs are zero and its carry, dV and g
 freeze (``back_pass.c:38-257``).
 
-On the card (H100): one thread per lane walks ``t = N-1 .. 0`` with
+On the card (H100): a block owns ``kLanes`` lanes (``csrc/staged.cuh``).
+Its consumer warp walks ``t = N-1 .. 0``, one thread per lane, with
 ``Vx``/``Vxx`` and the accumulators in registers -- the loop replaces the
-TPU's sequential grid, which carried them in VMEM scratch.  The bound is
-latency and occupancy: B=2048 lanes are only 64 warps, and each step's
-~2k flops depend on the previous step's value function.  The design keeps
-every bundle load coalesced (``comp*N*B + t*B + b``: neighbouring threads,
-neighbouring addresses) and uses small blocks (:data:`BLOCK` threads) so
-the 64 warps spread over 64 SMs instead of packing into 16.
+TPU's sequential grid, which carried them in VMEM scratch -- and reads each
+step's operands from shared memory, where a producer warp has copied the
+time tile with ``cp.async`` (each bundle value read once, coalesced) while
+the consumer ran the tile before.  Each step's ~2k flops depend on the
+previous step's value function, so the kernel is bound by that chain's
+latency times N, not by the ~0.2 ms its bytes take.  The tile shape is
+fixed in the source; :func:`kernel_info` reports it.
 
 Layouts as in JAX: inputs component-outer ``(C, N, B)`` (``cxx``, ``cuu``
 and the last two axes of ``fxx``/``fuu`` packed upper triangles), outputs
@@ -34,6 +36,7 @@ the kernel (or raises) for CUDA tensors.
 
 from __future__ import annotations
 
+import ctypes
 import itertools
 from typing import NamedTuple
 
@@ -43,8 +46,6 @@ from .. import _build
 
 Tensor = torch.Tensor
 
-# Threads per block: B=2048 lanes -> 64 blocks of one warp on 64 SMs.
-BLOCK = 32
 # (n_x, n_u) pairs instantiated in csrc/backpass.cu: CarParking, Cartpole,
 # Brachistochrone.
 KERNEL_SHAPES = ((4, 2), (4, 1), (1, 1))
@@ -446,13 +447,27 @@ def back_pass_cm(sd_cm: dict, final_cx, final_cxx, us_cm, lam, n_x: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ddp_backpass(
             0 if dtype == torch.float32 else 1, n_x, n_u, reg_type,
-            int(full_ddp), N, B, BLOCK, ptrs, stream)
+            int(full_ddp), N, B, ptrs, stream)
     _build.check(lib, rc, "backpass")
     back_pass_cm.launches += 1
     return l_out, L_out, dV, g_norm, failed
 
 
 back_pass_cm.launches = 0
+
+
+def kernel_info(n_x: int, n_u: int, reg_type: int, full_ddp: bool,
+                dtype: torch.dtype) -> dict:
+    """Tile shape and resources of one instantiation of kernel B1: lanes
+    per block ``G``, steps per tile ``S``, producer warps ``W``, dynamic
+    shared memory per block, registers and local memory (stack frame and
+    spill) per thread.  Builds the library; needs a CUDA device."""
+    lib = _build.load_library()
+    out = (ctypes.c_int * 6)()
+    rc = lib.ddp_backpass_info(0 if dtype == torch.float32 else 1, n_x, n_u,
+                               reg_type, int(full_ddp), out)
+    _build.check(lib, rc, "backpass info")
+    return _build.info_dict(out)
 
 
 def _check(t: Tensor, shape, dtype, dev, name: str) -> None:

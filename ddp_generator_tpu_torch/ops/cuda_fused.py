@@ -19,10 +19,17 @@ bundle of the emission path never exists in memory.  Besides B1's outputs
 it returns ``derivs_ok``: every derivative object finite, at every step and
 the final stage (the ``calc_derivs`` ok flag).
 
-On the card (H100): one thread per lane walks ``t = N-1 .. 0`` with the
-carry in registers, like B1; each step's derivative work does not depend on
-the carry and is independent work beside the dependent Riccati chain, so
-registers, not bytes, are the limit (see the note in ``csrc/fused.cu``).
+On the card (H100): B1's producer/consumer pipeline (``csrc/staged.cuh``)
+with producers that compute instead of copy.  A block owns ``kLanes``
+lanes; its consumer warp walks ``t = N-1 .. 0``, one thread per lane, with
+the carry in registers, reading each step's operands from shared memory;
+its producer warps fill the time tiles ahead of it, one work item per
+(step, lane, direction pair), per direction of ``f`` without FULL_DDP and
+per box-limit evaluation.  Only the FULL_DDP contraction ``Vx . f**``
+depends on the carry, and the consumer forms it, so the derivative work
+runs in parallel beside the one dependent chain (see the note in
+``csrc/fused.cu``).  The tile shape is fixed in the source;
+:func:`kernel_info` reports it.
 
 :func:`fused_derivs_back_pass_plain` is the plain PyTorch version: the
 emission (:func:`.cm_derivs.cm_emit`) followed by B1's plain version.
@@ -33,6 +40,7 @@ the kernel (or raises) for CUDA tensors.  Shared params, ``n_u <= 3``; no
 
 from __future__ import annotations
 
+import ctypes
 from typing import Any
 
 import torch
@@ -41,7 +49,6 @@ from .. import _build
 from ..problem import Problem
 from .cm_derivs import cm_emit
 from .cuda_backpass import (
-    BLOCK,
     BackPassResult,
     back_pass_cm_plain,
     result_from_cm,
@@ -150,10 +157,23 @@ def fused_derivs_back_pass(problem: Problem, xs, us, mu_le, mu_li, mu_fe,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ddp_fused(0 if dtype == torch.float32 else 1,
                            model.name.encode(), reg_type, int(full_ddp), N,
-                           B, BLOCK, ptrs, stream)
+                           B, ptrs, stream)
     _build.check(lib, rc, "fused")
     fused_derivs_back_pass.launches += 1
     return result_from_cm(l_out, L_out, dV, g_norm, failed), derivs_ok[0]
 
 
 fused_derivs_back_pass.launches = 0
+
+
+def kernel_info(model: str, reg_type: int, full_ddp: bool,
+                dtype: torch.dtype) -> dict:
+    """Tile shape and resources of one instantiation of kernel B3, as
+    :func:`.cuda_backpass.kernel_info`; ``model`` a name of
+    :data:`KERNEL_MODELS`.  Builds the library; needs a CUDA device."""
+    lib = _build.load_library()
+    out = (ctypes.c_int * 6)()
+    rc = lib.ddp_fused_info(0 if dtype == torch.float32 else 1,
+                            model.encode(), reg_type, int(full_ddp), out)
+    _build.check(lib, rc, "fused info")
+    return _build.info_dict(out)

@@ -1,0 +1,137 @@
+"""Where a full-width body call of the port's CarParking solve spends its
+time, on one CUDA card.
+
+    python3 scripts/body_call_profile.py [--paths kernel,fused] [--calls 10]
+
+For each backward-pass path (``"kernel"``: emission + kernel B1;
+``"fused"``: kernel B3) it builds the solver's parts for ``bench.py``'s
+workload (CarParking, B=2048, T=500, float32, ``chip_smoke.py``'s inputs
+and options), runs the initial rollout and 3 warm-up body calls, then
+``--calls`` body calls, each timed on the host clock between two
+``torch.cuda.synchronize()``; on the same carries it times the stages of a
+body call alone: the derivatives and backward pass, and the staged line
+search (kernels B2).  "Rest" is the body call less both.  Then
+``torch.profiler`` traces ``--calls`` more body calls: device busy share
+is the device time of all kernels over the wall time, and the device
+events per body call are counted.  Prints one line per path; imports no
+JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+
+def timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def profile_path(backpass: str, calls: int) -> dict:
+    import numpy as np
+    import torch
+
+    import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch import solver as slv
+    from ddp_generator_tpu_torch.models import car_parking
+    from ddp_generator_tpu_torch.ops.cm_derivs import (
+        cm_back_pass_from_bundle,
+        cm_emit,
+    )
+    from ddp_generator_tpu_torch.ops.cuda_fused import fused_derivs_back_pass
+    from ddp_generator_tpu_torch.ops.cuda_rollout import (
+        kernel_line_search_staged,
+    )
+
+    problem = car_parking.car_parking()
+    o = ddp.SolverOptions(max_iter=cs.MAX_ITER_MAIN, dtype="float32",
+                          tolFun=1e-5, debug_level=0,
+                          backpass_method=backpass,
+                          linesearch_method="kernel")
+    init_fn, body_fn, _, cast = slv._make_parts(problem, o, "cuda")
+    p_np, x0s, u0s = cs.bench_inputs(cs.B_MAIN, cs.T_MAIN, np.float32)
+    p = cast(ddp.params_from_jax(p_np, torch.float32, "cuda"))
+    c = init_fn(torch.as_tensor(x0s, device="cuda"),
+                torch.as_tensor(u0s, device="cuda"), p)
+    alphas = tuple(float(a) for a in o.alpha)
+
+    def bp_stage(c):
+        m = c.mult
+        if backpass == "fused":
+            return fused_derivs_back_pass(
+                problem, c.xs, c.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi,
+                c.w_pen_l, c.w_pen_f, c.lam, p, o.regType, o.full_ddp)[0]
+        sd, fcx, fcxx, us_cm, _ = cm_emit(
+            problem, c.xs, c.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi,
+            c.w_pen_l, c.w_pen_f, p, o.full_ddp)
+        return cm_back_pass_from_bundle(sd, fcx, fcxx, us_cm, c.lam,
+                                        problem.n_x, o.regType, o.full_ddp)
+
+    def ls_stage(c, bp):
+        m = c.mult
+        return kernel_line_search_staged(
+            problem, alphas, c.xs[:, 0], c.xs, c.us, bp.l, bp.L, bp.dV,
+            c.cost, o.zMin, p, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, c.w_pen_l,
+            c.w_pen_f, alive=~c.done)
+
+    for _ in range(3):
+        c = body_fn(c, p)
+    body, bps, lss = [], [], []
+    for _ in range(calls):
+        bp, t_bp = timed(lambda: bp_stage(c))
+        _, t_ls = timed(lambda: ls_stage(c, bp))
+        c, t_body = timed(lambda: body_fn(c, p))
+        body.append(t_body)
+        bps.append(t_bp)
+        lss.append(t_ls)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            c = body_fn(c, p)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.device_time_total for e in dev) / 1e3
+    med = statistics.median
+    return dict(path=backpass, calls=calls, body_ms=med(body),
+                bp_ms=med(bps), ls_ms=med(lss),
+                rest_ms=med(body) - med(bps) - med(lss),
+                body_ms_all=[round(v, 3) for v in body],
+                profiled_wall_ms=wall_ms, device_busy_pct=100 * busy_ms
+                / wall_ms, device_events_per_call=len(dev) / calls)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--paths", default="kernel,fused")
+    ap.add_argument("--calls", type=int, default=10)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    for path in args.paths.split(","):
+        cs.line("body_call", **profile_path(path, args.calls))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,196 @@
+"""Count the arithmetic of kernels B1, B2 and B3 per (step, lane), for the
+lower bounds ``chip_smoke.py`` puts beside their times.
+
+    python3 scripts/count_ops.py
+
+Builds the kernels' own headers (``ddp_generator_tpu_torch/csrc``) with
+``g++`` on ``Op``, a number type that counts every add, subtract, multiply,
+divide and elementary function (sin, cos, sqrt, asin) as one operation;
+negation, ``fabs``, comparisons and selects are free, as they are operand
+modifiers or predicates on the card.  Then runs, on CarParking (FULL_DDP,
+regType 1) with random operands:
+
+* ``backpass_lane`` (B1) and ``fused_lane`` (B3) over N steps and over
+  2N steps, so that the difference is the work of N steps and the rest the
+  work once per lane (B3's final-cost derivatives);
+* the model calls of one rollout step (B2: the running cost with its AL
+  penalties, the dynamics, the box limits), plus the gains
+  ``u = u_nom + alpha*l + L*dx`` (``NU*(2*NX+1)`` operations and ``NX``
+  subtractions for ``dx``) and the cost sum, as ``rollout.cu`` does them.
+
+Prints one JSON object: operations per step, per lane and, for B2, per
+step of one trajectory.  ``tests/test_torch_count_ops.py`` holds the
+constants of ``chip_smoke.py`` to this count.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "ddp_generator_tpu_torch" / "csrc"
+
+SHIM = r"""
+#include <cmath>
+#include <cstdio>
+
+// A double that counts the operations done on it.
+static long g_ops = 0;
+struct Op {
+  double v;
+  Op() : v(0) {}
+  Op(double x) : v(x) {}
+};
+inline Op operator+(Op a, Op b) { ++g_ops; return Op(a.v + b.v); }
+inline Op operator-(Op a, Op b) { ++g_ops; return Op(a.v - b.v); }
+inline Op operator*(Op a, Op b) { ++g_ops; return Op(a.v * b.v); }
+inline Op operator/(Op a, Op b) { ++g_ops; return Op(a.v / b.v); }
+inline Op operator-(Op a) { return Op(-a.v); }
+inline bool operator<(Op a, Op b) { return a.v < b.v; }
+inline bool operator<=(Op a, Op b) { return a.v <= b.v; }
+inline bool operator>(Op a, Op b) { return a.v > b.v; }
+inline bool operator>=(Op a, Op b) { return a.v >= b.v; }
+inline bool operator==(Op a, Op b) { return a.v == b.v; }
+inline bool operator!=(Op a, Op b) { return a.v != b.v; }
+inline Op sin(Op a) { ++g_ops; return Op(std::sin(a.v)); }
+inline Op cos(Op a) { ++g_ops; return Op(std::cos(a.v)); }
+inline Op sqrt(Op a) { ++g_ops; return Op(std::sqrt(a.v)); }
+inline Op asin(Op a) { ++g_ops; return Op(std::asin(a.v)); }
+inline Op fabs(Op a) { return Op(std::fabs(a.v)); }
+inline bool is_finite(Op a) { return std::isfinite(a.v); }
+
+#include "backpass.cuh"
+#include "fused.cuh"
+#include "models/car_parking.cuh"
+
+using namespace ddp;
+using M = CarParking;
+constexpr int NX = M::NX, NU = M::NU;
+
+static unsigned long long g_seed = 12345;
+static double rnd() {  // uniform in [-1, 1)
+  g_seed = g_seed * 6364136223846793005ULL + 1442695040888963407ULL;
+  return ((g_seed >> 11) * (1.0 / 9007199254740992.0)) * 2.0 - 1.0;
+}
+
+static const double kParams[M::NP] = {
+    2.0, 0.1, 0.01, 0.01, 0.01, 1.0, 0.1, 0.1, 1.0, 0.3,
+    0.01, 1e-4, 1e-3, 1e-3, 0.1, 0.1, -0.5, 0.5, -2.0, 2.0};
+
+// B3 on one lane over N steps: operations.
+static long fused_ops(int N) {
+  Op x[N * NX], u[N * NU], xf[NX], one(1.0), lam(1e-3), l[N * NU],
+      L[N * NU * NX], dV[2], g[1], p[M::NP];
+  bool failed[1], dok[1];
+  for (int k = 0; k < N; ++k) {
+    x[k * NX + 0] = 1.0 + 0.3 * rnd();
+    x[k * NX + 1] = 1.0 + 0.3 * rnd();
+    x[k * NX + 2] = 4.7 + 0.3 * rnd();
+    x[k * NX + 3] = 1.0 + 0.5 * rnd();
+    for (int a = 0; a < NU; ++a) u[k * NU + a] = 0.3 * rnd();
+  }
+  for (int a = 0; a < NX; ++a) xf[a] = x[a];
+  for (int i = 0; i < M::NP; ++i) p[i] = kParams[i];
+  FusedArgs<Op> A{x, u, nullptr, nullptr, xf, &one, &one, &lam, nullptr,
+                  nullptr, p, l, L, dV, g, failed, dok, N, 1};
+  g_ops = 0;
+  fused_lane<M, Op, 1, true>(A, p, 0);
+  return g_ops;
+}
+
+// B1 on one lane over N steps: operations.
+static long backpass_ops(int N) {
+  constexpr int TX = NX * (NX + 1) / 2, TU = NU * (NU + 1) / 2;
+  const int n[16] = {NX * NX, NX * NU, NX, NU, TX, TU, NX * NU, NX * TX,
+                     NX * TU, NX * NX * NU, NU, NU, NU * NX, NU * NX, NU, NU};
+  static Op buf[16][64 * 4096];
+  for (int f = 0; f < 16; ++f)
+    for (int i = 0; i < n[f] * N; ++i) buf[f][i] = 0.3 * rnd();
+  for (int k = 0; k < N; ++k) {
+    for (int a = 0; a < NX; ++a) buf[0][(a * NX + a) * N + k] = 1.0;
+    for (int a = 0; a < NX; ++a)
+      buf[4][tri(a, a, NX) * N + k] = 3.0;  // cxx diagonal
+    for (int a = 0; a < NU; ++a) {
+      buf[5][tri(a, a, NU) * N + k] = 3.0;  // cuu diagonal
+      buf[10][a * N + k] = -0.5;            // lower
+      buf[11][a * N + k] = 0.5;             // upper
+      buf[14][a * N + k] = -1.0;
+      buf[15][a * N + k] = 1.0;
+    }
+  }
+  Op us[NU * 4096], lam(1e-3), fcx[NX], fcxx[NX * NX], l[4096 * NU],
+      L[4096 * NU * NX], dV[2], g[1];
+  bool failed[1];
+  for (int i = 0; i < NU * N; ++i) us[i] = 0.3 * rnd();
+  for (int a = 0; a < NX; ++a) {
+    fcx[a] = rnd();
+    for (int e = 0; e < NX; ++e) fcxx[a * NX + e] = a == e ? 2.0 : 0.0;
+  }
+  BackpassArgs<Op> A{buf[0], buf[1], buf[2], buf[3], buf[4], buf[5],
+                     buf[6], buf[7], buf[8], buf[9], buf[10], buf[11],
+                     buf[12], buf[13], buf[14], buf[15], us, &lam, fcx, fcxx,
+                     l, L, dV, g, failed, N, 1};
+  g_ops = 0;
+  backpass_lane<Op, NX, NU, 1, true>(A, 0);
+  return g_ops;
+}
+
+// One step of one rollout (rollout.cu: rollout_lane): the model calls
+// counted, the gains and the cost sum by their formula.
+static long rollout_step_ops() {
+  Op x[NX] = {1.0, 1.0, 4.7, 1.0}, u[NU] = {0.1, -0.2}, p[M::NP], xn[NX];
+  for (int i = 0; i < M::NP; ++i) p[i] = kParams[i];
+  g_ops = 0;
+  for (int i = 0; i < M::NH; ++i) {
+    const Op s = static_cast<Op>(M::box_sign(i));
+    const Op lim = -s * (M::h(i, x, u, p, 0) - s * u[M::box_index(i)]);
+    (void)lim;
+  }
+  const Op c = aug_L<M>(x, u, p, 0, (const Op*)nullptr,
+                        (const Op*)nullptr, Op(1.0));
+  M::f(x, u, p, 0, xn);
+  (void)c;
+  return g_ops + NX + NU * (2 * NX + 1) + 1;
+}
+
+int main() {
+  const int N = 40;
+  const long b3_1 = fused_ops(N), b3_2 = fused_ops(2 * N);
+  const long b1_1 = backpass_ops(N), b1_2 = backpass_ops(2 * N);
+  std::printf(
+      "{\"fused_per_step\": %ld, \"fused_per_lane\": %ld, "
+      "\"backpass_per_step\": %ld, \"backpass_per_lane\": %ld, "
+      "\"rollout_per_step\": %ld}\n",
+      (b3_2 - b3_1) / N, b3_1 - (b3_2 - b3_1), (b1_2 - b1_1) / N,
+      b1_1 - (b1_2 - b1_1), rollout_step_ops());
+  return 0;
+}
+"""
+
+
+def count() -> dict:
+    """Build and run the counting program; its JSON as a dict."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("count_ops needs g++")
+    with tempfile.TemporaryDirectory() as tmp:
+        src, exe = Path(tmp) / "count.cpp", Path(tmp) / "count"
+        src.write_text(SHIM)
+        proc = subprocess.run(
+            [cxx, "-std=c++17", "-O1", "-Wno-unknown-pragmas", "-I",
+             str(CSRC), "-o", str(exe), str(src)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(proc.stderr)
+        out = subprocess.run([str(exe)], capture_output=True, text=True,
+                             check=True).stdout
+    return json.loads(out)
+
+
+if __name__ == "__main__":
+    print(json.dumps(count()))
+    sys.exit(0)

@@ -6,7 +6,11 @@ on/off in float32 and float64, B2 in both modes with alpha 0 lanes and a
 lane whose rollout turns NaN, and B3 for every CUDA model of
 ``KERNEL_MODELS`` with regType 1/2 and FULL_DDP on/off in both dtypes, with
 a lane that fails and a lane whose derivatives are not finite.  ``B`` is
-not a multiple of the block size, so the ragged last block is exercised.  Needs a CUDA device and ``nvcc``;
+not a multiple of the lanes per block, so the ragged last block is
+exercised; the ``*_ragged`` cases of B1 and B3 also take ``B = G+3``,
+``N = 2S+1`` (a last time tile of one step) and ``B = 128``, the smallest
+compaction width, with ``G`` and ``S`` read from the built kernel.  Needs
+a CUDA device and ``nvcc``;
 skips elsewhere.  The file imports no JAX, so on a machine without it run
 it past ``tests/conftest.py``::
 
@@ -55,7 +59,7 @@ def _close(out, ref, tol, name):
                                equal_nan=True, msg=name)
 
 
-def _bundle(rng, n_x, n_u, full_ddp, dtype, dev):
+def _bundle(rng, n_x, n_u, full_ddp, dtype, dev, N=N, B=B):
     """A random packed CM bundle ``{field: (C, N, B)}``; lane 3 has a
     strongly indefinite cuu at step 2, so its pass fails there."""
     def r(c, scale=1.0):
@@ -107,6 +111,36 @@ def test_backpass_kernel_matches_plain(cuda, n_x, n_u, reg_type, full_ddp,
     out = cb.back_pass_cm(*args)
     torch.cuda.synchronize()
     assert cb.back_pass_cm.launches == before + 1
+    ref = cb.back_pass_cm_plain(*args)
+    assert bool(ref[4][0, 3]) and not bool(ref[4].all())
+    for name, o, r in zip(("l", "L", "dV", "g_norm", "failed"), out, ref):
+        _close(o, r, TOL[dtype], name)
+
+
+# Ragged edges of the staged kernels (csrc/staged.cuh): the last block
+# holds 3 lanes, the last time tile one step, or the width is the smallest
+# the compaction reaches.
+EDGES = ("lanes_G+3", "steps_2S+1", "width_128")
+
+
+def _edge_shape(edge, info):
+    """(B, N) of an edge case for a kernel of tile shape ``info``."""
+    return {"lanes_G+3": (info["G"] + 3, N),
+            "steps_2S+1": (B, 2 * info["S"] + 1),
+            "width_128": (128, N)}[edge]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("edge", EDGES)
+def test_backpass_kernel_ragged(cuda, edge, dtype):
+    Bv, Nv = _edge_shape(edge, cb.kernel_info(4, 2, 1, True, dtype))
+    rng = np.random.default_rng(5)
+    sd, fcx, fcxx, us, lam = _bundle(rng, 4, 2, True, dtype, cuda, N=Nv,
+                                     B=Bv)
+    args = (sd, fcx, fcxx, us, lam, 4, 1, True)
+    out = cb.back_pass_cm(*args)
+    torch.cuda.synchronize()
     ref = cb.back_pass_cm_plain(*args)
     assert bool(ref[4][0, 3]) and not bool(ref[4].all())
     for name, o, r in zip(("l", "L", "dV", "g_norm", "failed"), out, ref):
@@ -171,7 +205,7 @@ def test_wrappers_raise_where_no_kernel_exists(cuda):
         cr.rollout_call(no_model, *ops[1:], alpha_vec, p, multi=False)
 
 
-def _fused_operands(model, dtype, dev):
+def _fused_operands(model, dtype, dev, N=N, B=B):
     """A nominal rollout of B lanes over N steps with random AL inputs.
     Lane 3 fails (lambda far below zero makes Quu indefinite); lane 5's
     derivatives are not finite."""
@@ -236,3 +270,19 @@ def test_fused_wrapper_raises_where_no_kernel_exists(cuda):
         cf.fused_derivs_back_pass(no_model, *args[1:], 1, True)
     with pytest.raises(ValueError, match="reg_type"):
         cf.fused_derivs_back_pass(*args, 3, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("edge", EDGES)
+def test_fused_kernel_ragged(cuda, edge, dtype):
+    Bv, Nv = _edge_shape(edge, cf.kernel_info("car_parking", 1, True, dtype))
+    args = _fused_operands("car_parking", dtype, cuda, N=Nv, B=Bv) + (1, True)
+    bp, ok = cf.fused_derivs_back_pass(*args)
+    torch.cuda.synchronize()
+    ref, ref_ok = cf.fused_derivs_back_pass_plain(*args)
+    assert torch.equal(ok, ref_ok) and int(ok.sum()) == Bv - 1
+    assert torch.equal(bp.failed, ref.failed) and bool(ref.failed[3])
+    for name in ("l", "L", "dV", "g_norm"):
+        _close(getattr(bp, name)[ok], getattr(ref, name)[ok], TOL[dtype],
+               name)

@@ -39,9 +39,15 @@ from ddp_generator_tpu_torch.ops.cm_derivs import (
 from ddp_generator_tpu_torch.ops.cuda_fused import fused_derivs_back_pass_plain
 
 SHIM = r"""
+#include <algorithm>
+#include <cmath>
+#include <vector>
+
+#include "backpass.cuh"
 #include "fused.cuh"
 #include "models/brachistochrone.cuh"
 #include "models/car_parking.cuh"
+#include "staged.cuh"
 
 using namespace ddp;
 
@@ -101,8 +107,131 @@ extern "C" int host_final(int model, const double* xf, const double* p,
   DISPATCH(model, return fin<M>(xf, p, N, mu_fe, mu_fi, wpf, Fx, Fxx))
 }
 
-extern "C" void host_lanes(int model, int reg, int full, int N, int B,
-                           void* const* q) {
+// Kernel B3's schedule run serially: per block of kLanes lanes, per time
+// tile, every producer work item into a slot first filled with NaN, then
+// every lane's consumer share of the tile.
+template <class M, int REG, bool FULL>
+void staged_fused(const FusedArgs<double>& A) {
+  constexpr int S = tile_steps<double, Terms<M::NX, M::NU, FULL>::NT>();
+  std::vector<double> slot(Terms<M::NX, M::NU, FULL>::NT * S * kLanes);
+  with_params<M>(A.params, [&](const double* p) {
+    for (int b0 = 0; b0 < A.B; b0 += kLanes) {
+      const int n = std::min(kLanes, A.B - b0);
+      int ok[kLanes];
+      bool dok[kLanes];
+      Carry<double, M::NX> c[kLanes];
+      for (int g = 0; g < n; ++g) {
+        ok[g] = 1;
+        dok[g] = fused_lane_start<M>(A, p, b0 + g, c[g]);
+      }
+      for (int j = 0; j < num_tiles(A.N, S); ++j) {
+        const int t0 = tile_t0(A.N, S, j);
+        std::fill(slot.begin(), slot.end(), NAN);
+        fused_fill<M, FULL, S>(A, p, t0, b0, slot.data(), ok, 0, 1);
+        for (int g = 0; g < n; ++g)
+          consume_tile<double, M::NX, M::NU, REG, FULL, S>(
+              slot.data(), t0, g, b0 + g, A.B, A.lam[b0 + g], c[g], A.l,
+              A.L);
+      }
+      for (int g = 0; g < n; ++g) {
+        finish_lane(c[g], A.N, A.B, b0 + g, A.dV, A.g_norm, A.failed);
+        A.derivs_ok[b0 + g] = dok[g] && ok[g] != 0;
+      }
+    }
+  });
+}
+
+template <class M>
+void lanes_staged(int reg, int full, const FusedArgs<double>& a) {
+  if (reg == 1 && full) staged_fused<M, 1, true>(a);
+  else if (reg == 1) staged_fused<M, 1, false>(a);
+  else if (full) staged_fused<M, 2, true>(a);
+  else staged_fused<M, 2, false>(a);
+}
+
+// Kernel B1's schedule run serially, the producer's copies a plain loop.
+template <int NX, int NU, int REG, bool FULL>
+void staged_backpass(const BackpassArgs<double>& A) {
+  constexpr int S = tile_steps<double, Terms<NX, NU, FULL>::NT>();
+  std::vector<double> slot(Terms<NX, NU, FULL>::NT * S * kLanes);
+  auto copy = [](double* dst, const double* src, int n) {
+    for (int e = 0; e < n; ++e) dst[e] = src[e];
+  };
+  for (int b0 = 0; b0 < A.B; b0 += kLanes) {
+    const int n = std::min(kLanes, A.B - b0);
+    Carry<double, NX> c[kLanes];
+    for (int g = 0; g < n; ++g) backpass_start(A, b0 + g, c[g]);
+    for (int j = 0; j < num_tiles(A.N, S); ++j) {
+      const int t0 = tile_t0(A.N, S, j);
+      std::fill(slot.begin(), slot.end(), NAN);
+      bundle_fill<double, NX, NU, FULL, S>(A, t0, b0, slot.data(), 0, 1,
+                                           copy);
+      for (int g = 0; g < n; ++g)
+        consume_tile<double, NX, NU, REG, FULL, S>(
+            slot.data(), t0, g, b0 + g, A.B, A.lam[b0 + g], c[g], A.l, A.L);
+    }
+    for (int g = 0; g < n; ++g)
+      finish_lane(c[g], A.N, A.B, b0 + g, A.dV, A.g_norm, A.failed);
+  }
+}
+
+template <int NX, int NU, int REG, bool FULL>
+void backpass(int staged, const BackpassArgs<double>& a) {
+  if (staged) {
+    staged_backpass<NX, NU, REG, FULL>(a);
+  } else {
+    for (int b = 0; b < a.B; ++b) backpass_lane<double, NX, NU, REG, FULL>(a, b);
+  }
+}
+
+template <int NX, int NU>
+void backpass_shape(int staged, int reg, int full,
+                    const BackpassArgs<double>& a) {
+  if (reg == 1 && full) backpass<NX, NU, 1, true>(staged, a);
+  else if (reg == 1) backpass<NX, NU, 1, false>(staged, a);
+  else if (full) backpass<NX, NU, 2, true>(staged, a);
+  else backpass<NX, NU, 2, false>(staged, a);
+}
+
+extern "C" int host_tile_lanes() { return kLanes; }
+
+// Steps per tile of B3 (model >= 0) or of B1 (model < 0, shape n_x, n_u).
+extern "C" int host_tile_steps(int model, int n_x, int n_u, int full) {
+  auto steps = [&](auto nx, auto nu) {
+    constexpr int NX = decltype(nx)::value, NU = decltype(nu)::value;
+    return full ? tile_steps<double, Terms<NX, NU, true>::NT>()
+                : tile_steps<double, Terms<NX, NU, false>::NT>();
+  };
+  if (model >= 0) DISPATCH(model, return steps(IntC<M::NX>(), IntC<M::NU>()))
+  if (n_x == 4 && n_u == 2) return steps(IntC<4>(), IntC<2>());
+  if (n_x == 4 && n_u == 1) return steps(IntC<4>(), IntC<1>());
+  return steps(IntC<1>(), IntC<1>());
+}
+
+// ptrs as ddp_backpass's; staged 0 runs backpass_lane per lane, 1 the
+// staged schedule.
+extern "C" void host_backpass(int staged, int n_x, int n_u, int reg,
+                              int full, int N, int B, void* const* p) {
+  BackpassArgs<double> a;
+  auto in = [&](int i) { return static_cast<const double*>(p[i]); };
+  auto out = [&](int i) { return static_cast<double*>(p[i]); };
+  a.fx = in(0);  a.fu = in(1);  a.cx = in(2);  a.cu = in(3);
+  a.cxx = in(4); a.cuu = in(5); a.cxu = in(6);
+  a.fxx = in(7); a.fuu = in(8); a.fxu = in(9);
+  a.lower = in(10); a.upper = in(11); a.lo_hx = in(12); a.up_hx = in(13);
+  a.lo_s = in(14);  a.up_s = in(15);
+  a.us = in(16); a.lam = in(17); a.final_cx = in(18); a.final_cxx = in(19);
+  a.l = out(20); a.L = out(21); a.dV = out(22); a.g_norm = out(23);
+  a.failed = static_cast<bool*>(p[24]);
+  a.N = N;
+  a.B = B;
+  if (n_x == 4 && n_u == 2) backpass_shape<4, 2>(staged, reg, full, a);
+  else if (n_x == 4 && n_u == 1) backpass_shape<4, 1>(staged, reg, full, a);
+  else backpass_shape<1, 1>(staged, reg, full, a);
+}
+
+extern "C" void host_lanes(int model, int staged, int reg, int full, int N,
+                           int B, void* const* q) {
   FusedArgs<double> a;
   auto in = [&](int i) { return static_cast<const double*>(q[i]); };
   auto out = [&](int i) { return static_cast<double*>(q[i]); };
@@ -114,7 +243,9 @@ extern "C" void host_lanes(int model, int reg, int full, int N, int B,
   a.derivs_ok = static_cast<bool*>(q[16]);
   a.N = N;
   a.B = B;
-  DISPATCH(model, lanes<M>(reg, full, a); return)
+  DISPATCH(model, if (staged) lanes_staged<M>(reg, full, a);
+                  else lanes<M>(reg, full, a);
+                  return)
 }
 """
 
@@ -143,8 +274,11 @@ def lib(tmp_path_factory):
     i, d = ctypes.c_int, ctypes.c_double
     lib.host_step.argtypes = [i, i, P, P, P, i, P, P, d, P, P]
     lib.host_final.argtypes = [i, P, P, i, P, P, d, P, P]
-    lib.host_lanes.argtypes = [i, i, i, i, i,
+    lib.host_lanes.argtypes = [i, i, i, i, i, i,
                                ctypes.POINTER(ctypes.c_void_p)]
+    lib.host_backpass.argtypes = [i, i, i, i, i, i, i,
+                                  ctypes.POINTER(ctypes.c_void_p)]
+    lib.host_tile_steps.argtypes = [i, i, i, i]
     return lib
 
 
@@ -158,7 +292,7 @@ def _problem(name):
             "brachistochrone_hli": tbr.brachistochrone_hli}[name]()
 
 
-def _case(name, seed):
+def _case(name, seed, N=N, B=B):
     """A nominal trajectory of B lanes over N steps, params and AL inputs
     with every term live; float64 numpy."""
     rng = np.random.default_rng(seed)
@@ -190,7 +324,7 @@ def _t(a):
 def _flat_params(c):
     return c["prob"].cuda_model.flat_params(
         td.params_from_jax(c["p"], torch.float64, "cpu"), torch.float64,
-        "cpu", N).numpy()
+        "cpu", c["us"].shape[1]).numpy()
 
 
 def _step_fields(n_x, n_u):
@@ -309,9 +443,10 @@ def test_final_derivatives_match_cm_derivs(lib, name):
         np.testing.assert_allclose(Fxx, ref_xx[:, b].numpy(), **TOL)
 
 
-def _host_lanes(lib, c, reg, full):
+def _host_lanes(lib, c, reg, full, staged=False):
     prob = c["prob"]
     n_x, n_u = prob.n_x, prob.n_u
+    B, N = c["us"].shape[:2]
     cm = lambda a: np.ascontiguousarray(np.transpose(a, (1, 2, 0)))
     row = lambda a: np.ascontiguousarray(a[None])
     ins = [cm(c["xs"][:, :N]), cm(c["us"]), cm(c["mu_le"]), cm(c["mu_li"]),
@@ -322,7 +457,8 @@ def _host_lanes(lib, c, reg, full):
             np.zeros((2, B)), np.zeros((1, B)), np.zeros((1, B), bool),
             np.zeros((1, B), bool)]
     q = (ctypes.c_void_p * 17)(*[a.ctypes.data for a in ins + outs])
-    lib.host_lanes(MODELS[prob.cuda_model.name], reg, int(full), N, B, q)
+    lib.host_lanes(MODELS[prob.cuda_model.name], int(staged), reg, int(full),
+                   N, B, q)
     return outs
 
 
@@ -351,3 +487,102 @@ def test_fused_lane_matches_plain(lib, name, reg, full):
         ref = ref.numpy()
         scale = max(1.0, np.abs(ref).max())
         np.testing.assert_allclose(out, ref, rtol=0, atol=1e-10 * scale)
+
+
+# The staged kernels against their one-thread-per-lane references: N and B
+# ragged against the tile (N not a multiple of the steps per tile, B not a
+# multiple of the lanes per block), a lane that fails and a lane whose
+# derivatives (B3) or bundle entries (B1) are not finite.
+N_STAGED, B_STAGED = 13, 19
+
+
+def _assert_ragged(lib, steps):
+    lanes = lib.host_tile_lanes()
+    assert N_STAGED % steps and B_STAGED % lanes, (steps, lanes)
+
+
+@pytest.mark.parametrize("full", [True, False], ids=["full", "gn"])
+@pytest.mark.parametrize("reg", [1, 2])
+@pytest.mark.parametrize("name", list(MODELS))
+def test_staged_fused_equals_fused_lane(lib, name, reg, full):
+    """B3's producer work items into slots, then the shared consumer,
+    equal ``fused_lane`` bit for bit."""
+    c = _case(name, 6, N=N_STAGED, B=B_STAGED)
+    _assert_ragged(lib, lib.host_tile_steps(MODELS[name], 0, 0, int(full)))
+    c["lam"][1] = -1e3  # Quu indefinite: this lane fails
+    if name == "car_parking":
+        c["xs"][5, :, 3] = 1e4  # asin of more than 1: NaN derivatives
+    else:
+        c["xs"][5, 3:, 0] = 0.5  # sqrt(-y) of y > 0: NaN derivatives
+    ref = _host_lanes(lib, c, reg, full)
+    out = _host_lanes(lib, c, reg, full, staged=True)
+    for o, r in zip(out, ref):
+        np.testing.assert_array_equal(o, r)
+    failed, dok = ref[4][0], ref[5][0]
+    assert failed[1] and not failed.all()
+    assert not dok[5] and dok.sum() == B_STAGED - 1
+
+
+def _bundle_np(rng, n_x, n_u, full, N, B):
+    """A random packed bundle ``[(C, N, B)] x 16`` in ``ddp_backpass``'s
+    pointer order, ``us``, ``lam``, ``final_cx``, ``final_cxx``; lane 3's
+    cuu is indefinite at step 2 (it fails there), lane 5 has a NaN in fx
+    at step 4."""
+    def r(c, scale=1.0):
+        return scale * rng.standard_normal((c, N, B))
+
+    def spd_packed(n):
+        a = rng.standard_normal((N, B, n, n))
+        m = np.einsum("...ij,...kj->...ik", a, a) + 3.0 * np.eye(n)
+        return np.stack([m[..., i, j] for i in range(n) for j in range(i, n)])
+
+    tx, tu = n_x * (n_x + 1) // 2, n_u * (n_u + 1) // 2
+    fx = r(n_x * n_x, 0.4)
+    for i in range(n_x):
+        fx[i * n_x + i] += 1.0
+    fx[0, 4, 5] = np.nan
+    cuu = spd_packed(n_u)
+    for i in range(n_u):
+        cuu[i * n_u - i * (i - 1) // 2, 2, 3] = -1e4
+    lower = r(n_u, 0.5) - 1.0
+    upper = lower + 0.3 + np.abs(r(n_u))
+    lower[0, :, 1], upper[0, :, 1] = -np.inf, np.inf
+    a = rng.standard_normal((B, n_x, n_x))
+    fcxx = (np.einsum("bij,bkj->bik", a, a) + 3 * np.eye(n_x)).reshape(B, -1).T
+    f = lambda c, sc: r(c, sc) if full else None
+    return [fx, r(n_x * n_u, 0.4), r(n_x), r(n_u), spd_packed(n_x), cuu,
+            r(n_x * n_u, 0.2), f(n_x * tx, 0.05), f(n_x * tu, 0.05),
+            f(n_x * n_x * n_u, 0.05), lower, upper, r(n_u * n_x, 0.3),
+            r(n_u * n_x, 0.3), -np.ones((n_u, N, B)), np.ones((n_u, N, B)),
+            r(n_u), np.abs(rng.standard_normal((1, B))) * 0.1,
+            r(n_x)[:, 0], fcxx]
+
+
+def _host_backpass(lib, ins, n_x, n_u, reg, full, staged):
+    N, B = ins[0].shape[1:]
+    outs = [np.zeros((N, n_u, B)), np.zeros((N, n_u * n_x, B)),
+            np.zeros((2, B)), np.zeros((1, B)), np.zeros((1, B), bool)]
+    arrs = [None if a is None else np.ascontiguousarray(a, np.float64)
+            for a in ins]
+    q = (ctypes.c_void_p * 25)(*[None if a is None else a.ctypes.data
+                                 for a in arrs + outs])
+    lib.host_backpass(int(staged), n_x, n_u, reg, int(full), N, B, q)
+    return outs
+
+
+@pytest.mark.parametrize("full", [True, False], ids=["full", "gn"])
+@pytest.mark.parametrize("reg", [1, 2])
+@pytest.mark.parametrize("n_x,n_u", [(4, 2), (4, 1), (1, 1)])
+def test_staged_backpass_equals_backpass_lane(lib, n_x, n_u, reg, full):
+    """B1's tile copies into slots, then the shared consumer, equal
+    ``backpass_lane`` bit for bit."""
+    _assert_ragged(lib, lib.host_tile_steps(-1, n_x, n_u, int(full)))
+    rng = np.random.default_rng(10 * n_x + n_u + 100 * reg)
+    ins = _bundle_np(rng, n_x, n_u, full, N_STAGED, B_STAGED)
+    ref = _host_backpass(lib, ins, n_x, n_u, reg, full, staged=False)
+    out = _host_backpass(lib, ins, n_x, n_u, reg, full, staged=True)
+    for o, r in zip(out, ref):
+        np.testing.assert_array_equal(o, r)
+    failed = ref[4][0]
+    assert failed[3] and not failed.all()
+    assert np.isnan(ref[2][:, 5]).any()
