@@ -15,8 +15,9 @@ full width:
 * the Brachistochrone with its moving floor (``brachistochrone_hli``,
   n=500, B=2048, float64) through B3 and B2, the path of the AL families.
 
-Beside the checks it times B1 and B3 at the widths the solver's compaction
-reaches (2048 down to 128 lanes), and puts each kernel's time beside its
+Beside the checks it times B1, B2 and B3 at the widths the solver's
+compaction reaches (2048 down to 128 lanes), and puts each kernel's time
+beside its
 lower bound: the larger of its bytes (each input read once, each output
 written once, from this run's tensors) over the card's memory rate and
 its operations (per (step, lane), counted by ``scripts/count_ops.py``)
@@ -270,13 +271,15 @@ def check_fused_car(problem, p, r, m, w, lam, reps):
     return compare_fused(name, args, TOL_B3[name], reps), args
 
 
-def widths_phase(b1_args, b3_args, reps):
-    """Phase 4d: B1 and B3 at each compaction width (the first w lanes of
-    phases 3 and 4b's operands), CUDA events.  Per-lane work is a
-    dependent chain over N, so below ~132 SMs' worth of blocks the time
-    should stay flat: the chain's latency is the floor."""
+def widths_phase(b1_args, b3_args, b2_args, reps):
+    """Phase 4d: B1, B3 and B2 (the sweep; the selected rollout with cost)
+    at each compaction width (the first w lanes of phases 3, 4b and 4's
+    operands), CUDA events.  Per-lane work is a dependent chain over N, so
+    below ~132 SMs' worth of blocks the time should stay flat: the chain's
+    latency is the floor."""
     from ddp_generator_tpu_torch.ops import cuda_backpass as cb
     from ddp_generator_tpu_torch.ops import cuda_fused as cf
+    from ddp_generator_tpu_torch.ops import cuda_rollout as cr
 
     def lanes(a, w):  # the first w lanes of a B1 (..., B) operand
         if isinstance(a, dict):
@@ -288,13 +291,22 @@ def widths_phase(b1_args, b3_args, reps):
     def rows(a, w):  # the first w lanes of a B3 (B, ...) operand
         return a[:w].contiguous() if hasattr(a, "shape") else a
 
+    def b2_lanes(ops, w):  # (problem, alphas, 12 (..., B) operands, params)
+        return ops[:2] + tuple(lanes(a, w) for a in ops[2:14]) + ops[14:]
+
     out = {}
     for w in WIDTHS:
         a1 = tuple(lanes(a, w) for a in b1_args)
         a3 = tuple(rows(a, w) for a in b3_args)
-        out[w] = dict(backpass_ms=time_ms(lambda: cb.back_pass_cm(*a1), reps),
-                      fused_ms=time_ms(
-                          lambda: cf.fused_derivs_back_pass(*a3), reps))
+        multi, selected = (b2_lanes(ops, w) for ops in b2_args)
+        out[w] = dict(
+            backpass_ms=time_ms(lambda: cb.back_pass_cm(*a1), reps),
+            fused_ms=time_ms(lambda: cf.fused_derivs_back_pass(*a3), reps),
+            rollout_multi_ms=time_ms(
+                lambda: cr.rollout_call(*multi, multi=True), reps),
+            rollout_selected_ms=time_ms(
+                lambda: cr.rollout_call(*selected, multi=False,
+                                        want_cost=True), reps))
     return out
 
 
@@ -391,7 +403,9 @@ def check_rollout(problem, alphas, p, r, m, w, bp, tol, reps):
         res[mode] = dict(max_abs_err=worst_abs, max_rel_err=worst_rel,
                          tol=tol, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
-                         not_ok=int((~oks[0][1]).sum()))
+                         not_ok=int((~oks[0][1]).sum()),
+                         **cr.kernel_info(problem.cuda_model.name,
+                                          dtype=dtype, **kw))
     # the selected rollout without cost (main path: after the sweep)
     out = cr.rollout_call(*operands(alpha_vec), multi=False)
     ref = cr.rollout_plain(*operands(alpha_vec), multi=False)
@@ -399,7 +413,7 @@ def check_rollout(problem, alphas, p, r, m, w, bp, tol, reps):
         e_abs, e_rel = max_rel_err(a, b)
         if not e_rel <= tol:
             fail(f"rollout selected (no cost): rel err {e_rel:.3g} > {tol}")
-    return res
+    return res, (operands(None), operands(alpha_vec))
 
 
 def brachi_options(**kw):
@@ -662,12 +676,12 @@ def main() -> int:
     line("backpass_f64", **bp64)
 
     # 4. B2 against its plain version
-    ro32 = check_rollout(problem, alphas, p32, r32, m32, w32, out32,
-                         TOL_ROLLOUT["float32"], 20)
+    ro32, b2_args = check_rollout(problem, alphas, p32, r32, m32, w32, out32,
+                                  TOL_ROLLOUT["float32"], 20)
     for mode, d in ro32.items():
         line(f"rollout_{mode}_f32", B=B_MAIN, N=T_MAIN, **d)
-    ro64 = check_rollout(problem, alphas, p64, r64, m64, w64, out64,
-                         TOL_ROLLOUT["float64"], 5)
+    ro64, _ = check_rollout(problem, alphas, p64, r64, m64, w64, out64,
+                            TOL_ROLLOUT["float64"], 5)
     for mode, d in ro64.items():
         line(f"rollout_{mode}_f64", B=256, N=T_MAIN, **d)
 
@@ -679,10 +693,10 @@ def main() -> int:
     line("fused_f64", N=T_MAIN, **fu64)
     line("fused_brachi_f64", N=N_BRACHI, **check_fused_brachi(5))
 
-    # 4d. B1 and B3 at the compaction widths: the latency floor
-    for w, d in widths_phase(b1_args, b3_args, 10).items():
+    # 4d. B1, B3 and B2 at the compaction widths: the latency floor
+    for w, d in widths_phase(b1_args, b3_args, b2_args, 10).items():
         line("widths_f32", B=w, N=T_MAIN, **d)
-    del out32, out64, r32, r64, b1_args, b3_args
+    del out32, out64, r32, r64, b1_args, b3_args, b2_args
 
     # 5. per-lane checks, kernels on the GPU vs plain on the CPU
     line("per_lane", **per_lane_check(problem))
@@ -714,7 +728,8 @@ def main() -> int:
                     replaces=f"ddp_generator_tpu/ops/{replaces}", launches=n,
                     max_abs_err=d["max_abs_err"], ms=d["ms"],
                     plain_ms=d["plain_ms"], bound_ms=d["bound_ms"],
-                    bound_by=d["bound_by"], library_ms=None)
+                    bound_by=d["bound_by"], library_ms=None,
+                    registers=d["registers"], local_bytes=d["local_bytes"])
 
     kernels = [entry("backpass", "backpass.cu", "pallas_backpass.py:682",
                      launches["backpass"], bp32)]

@@ -122,22 +122,21 @@ def load_library() -> ctypes.CDLL:
 
 def open_library(path: Path) -> ctypes.CDLL:
     """Load a built kernel library with every C entry point's
-    ``argtypes``/``restype`` declared."""
+    ``argtypes``/``restype`` declared.  An entry point the library lacks is
+    passed over (``scripts/tile_sweep.py`` loads other trees' builds)."""
     lib = ctypes.CDLL(str(path))
     i, p = ctypes.c_int, ctypes.c_void_p
-    lib.ddp_backpass.argtypes = [i, i, i, i, i, i, i, ctypes.POINTER(p), p]
-    lib.ddp_backpass.restype = i
-    ip = ctypes.POINTER(i)
-    lib.ddp_backpass_info.argtypes = [i, i, i, i, i, ip]
-    lib.ddp_backpass_info.restype = i
-    lib.ddp_fused_info.argtypes = [i, ctypes.c_char_p, i, i, ip]
-    lib.ddp_fused_info.restype = i
-    lib.ddp_rollout.argtypes = [i, ctypes.c_char_p, i, i, i, i, i, i,
-                                ctypes.POINTER(p), p]
-    lib.ddp_rollout.restype = i
-    lib.ddp_fused.argtypes = [i, ctypes.c_char_p, i, i, i, i,
-                              ctypes.POINTER(p), p]
-    lib.ddp_fused.restype = i
+    ip, pp, name = ctypes.POINTER(i), ctypes.POINTER(p), ctypes.c_char_p
+    for fn, argtypes in (
+            ("ddp_backpass", [i, i, i, i, i, i, i, pp, p]),
+            ("ddp_backpass_info", [i, i, i, i, i, ip]),
+            ("ddp_fused", [i, name, i, i, i, i, pp, p]),
+            ("ddp_fused_info", [i, name, i, i, ip]),
+            ("ddp_rollout", [i, name, i, i, i, i, i, i, pp, p]),
+            ("ddp_rollout_info", [i, name, i, i, ip])):
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = i
     lib.ddp_error_string.argtypes = [i]
     lib.ddp_error_string.restype = ctypes.c_char_p
     return lib
@@ -150,7 +149,8 @@ def pointer_array(tensors) -> "ctypes.Array":
 
 
 def info_dict(out) -> dict:
-    """The six ints of ``ddp_backpass_info``/``ddp_fused_info``."""
+    """The six ints of ``ddp_backpass_info``, ``ddp_fused_info`` and
+    ``ddp_rollout_info``."""
     return dict(zip(("G", "S", "W", "smem_bytes", "registers",
                      "local_bytes"), list(out)))
 

@@ -20,8 +20,6 @@
 // riccati.cuh:riccati_step on the step's bundle entries; once a step fails
 // the lane writes zeros and its carry, dV and g freeze (riccati.cuh:
 // advance); g_norm is divided by N-1.
-#include <stdint.h>
-
 #include "backpass.cuh"
 #include "common.cuh"
 #include "riccati.cuh"
@@ -32,29 +30,6 @@ namespace {
 
 constexpr int kProducerWarps = 1;
 constexpr int kThreads = 32 * (1 + kProducerWarps);
-
-// copy(dst, src, n) for bundle_fill: one 16-byte cp.async where the source
-// is aligned and the chunk whole, else one per value.
-struct AsyncCopy {
-  template <typename T>
-  __device__ __forceinline__ void operator()(T* dst, const T* src,
-                                             int n) const {
-    const unsigned d =
-        static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    if (n * static_cast<int>(sizeof(T)) == 16 &&
-        (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                   "l"(src)
-                   : "memory");
-    } else {
-      for (int e = 0; e < n; ++e)
-        asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
-                         d + e * static_cast<unsigned>(sizeof(T))),
-                     "l"(src + e), "n"(sizeof(T))
-                     : "memory");
-    }
-  }
-};
 
 template <typename T, int NX, int NU, int REG, bool FULL>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -87,7 +62,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       bundle_fill<T, NX, NU, FULL, S>(A, tile_t0(A.N, S, j), b0,
                                       slots + r * SLOT, threadIdx.x - 32,
                                       32 * kProducerWarps, AsyncCopy());
-      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      async_copies_wait();
     });
   }
 }

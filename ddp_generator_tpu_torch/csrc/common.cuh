@@ -110,6 +110,20 @@ __host__ __device__ __forceinline__ S aug_F(const S* x, const T* p, int N,
   return c;
 }
 
+// f(p) with the parameters a model reads: the fixed ones copied to
+// registers, or (M::TAIL) all of them read where they lie.
+template <class M, typename T, class F>
+__host__ __device__ __forceinline__ void with_params(const T* params, F f) {
+  if (M::TAIL) {
+    f(params);
+  } else {
+    T p[arr(M::NP)];
+#pragma unroll
+    for (int i = 0; i < M::NP; ++i) p[i] = params[i];
+    f(static_cast<const T*>(p));
+  }
+}
+
 inline unsigned grid_for(long long threads, int block) {
   return static_cast<unsigned>((threads + block - 1) / block);
 }

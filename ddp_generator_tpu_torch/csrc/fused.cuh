@@ -73,20 +73,6 @@ __host__ __device__ __forceinline__ void load_point(
     mu_li[i] = A.mu_li[(kb * M::NHLI + i) * B + b];
 }
 
-// f(p) with the parameters a model reads: the fixed ones copied to
-// registers, or (M::TAIL) all of them read where they lie.
-template <class M, typename T, class F>
-__host__ __device__ __forceinline__ void with_params(const T* params, F f) {
-  if (M::TAIL) {
-    f(params);
-  } else {
-    T p[arr(M::NP)];
-#pragma unroll
-    for (int i = 0; i < M::NP; ++i) p[i] = params[i];
-    f(static_cast<const T*>(p));
-  }
-}
-
 // Lane b's whole backward pass on one thread, parameters at p.
 template <class M, typename T, int REG, bool FULL>
 __host__ __device__ __forceinline__ void fused_lane(const FusedArgs<T>& A,

@@ -1,23 +1,41 @@
-// Kernel B2: the line-search rollouts, one thread per trajectory.
+// Kernel B2: the line-search rollouts, staged for the H100.
 //
 // Replaces ddp_generator_tpu/ops/pallas_rollout.py:rollout_call
 // (pl.pallas_call at line 424, body _make_rollout_kernel).  The TPU kernel
-// walked time as a sequential grid with the state in VMEM scratch and traced
-// the user's Python functions inside itself; here each thread loops
-// k = 0 .. N-1 with the state in registers and calls the hand-written
-// __device__ functions of a CUDA model (models/*.cuh), templated in.
+// walked time as a sequential grid with the state in VMEM scratch, took its
+// parallelism from 128-lane vectors over each step, and traced the user's
+// Python functions inside itself; here the model is a template parameter
+// (models/*.cuh), dispatched by name.
 //
 // Two modes:
-//  * MULTI: the cost sweep, one thread per (alpha, lane): total cost and ok
-//    flag per alpha, no trajectories;
-//  * selected: one thread per lane with its own alpha; writes xs, xf, us
-//    and, with WANT_COST, the total cost and ok flag.
+//  * MULTI: the cost sweep: total cost and ok flag of every (alpha, lane),
+//    no trajectories;
+//  * selected: one alpha per lane; writes xs, xf, us and, with WANT_COST,
+//    the total cost and ok flag.
 //
-// What bounds it on an H100: the dependent chain of transcendentals per
-// step (sin, cos, asin, sqrt for CarParking) at low occupancy (16k threads
-// in the sweep, 2k in the selected rollout); the ~16 values read per step
-// are coalesced over lanes, and the sweep's alphas of one lane read the
-// same addresses.
+// What bounds it on an H100: nothing the card counts.  The operands are
+// ~16 values a step and lane (a bound of ~0.02 ms by bytes at B=2048,
+// N=500), the arithmetic ~84 operations; but a trajectory is one
+// dependent chain over N steps, so the chain's latency times N sets the
+// time at every width.  With one thread per trajectory, a step's operand
+// loads from device memory, its running cost and its stores all sat on
+// that chain (1.1-1.5 us a step; the chain alone takes 0.5-0.7).  The
+// design takes everything off it that the next state does not need
+// (rollout.cuh):
+//  * a block owns kRolloutLanes lanes; a producer warp copies each time
+//    tile of xnom, unom, l and L into a shared-memory ring with cp.async,
+//    a tile ahead (staged.cuh, B1's copy);
+//  * the chain warps run only dx -> u -> clamp -> f, one thread per
+//    trajectory, reading operands from the ring and leaving x_k, u_k in a
+//    second ring;
+//  * the cost warps take each finished tile from it: one work item per
+//    (step, trajectory) evaluates the running cost and the finiteness
+//    flags, one thread per trajectory adds them in k order, and in the
+//    selected mode they write xs and us to device memory, coalesced over
+//    lanes;
+//  * in the sweep a block's chains are its lanes times up to kAlphaChunk
+//    alphas, all reading one copy of the lane's tile.
+// After the last tile the chain thread adds the final cost.
 //
 // Semantics (pallas_rollout.py:_make_rollout_kernel, ops/forward.py):
 // u = u_nom + alpha*l + L*dx, exactly u_nom when alpha == 0; sequential
@@ -28,167 +46,177 @@
 #include "common.cuh"
 #include "models/brachistochrone.cuh"
 #include "models/car_parking.cuh"
+#include "rollout.cuh"
+#include "staged.cuh"
 
 #include <string.h>
 
 namespace ddp {
 namespace {
 
-template <typename T>
-struct RolloutArgs {
-  const T* xnom;   // (N, NX, B)
-  const T* unom;   // (N, NU, B)
-  const T* l;      // (N, NU, B)
-  const T* L;      // (N, NU*NX, B)
-  const T* mu_le;  // (N, NHLE, B)
-  const T* mu_li;  // (N, NHLI, B)
-  const T* x0;     // (NX, B)
-  const T* wpl;    // (1, B)
-  const T* wpf;    // (1, B)
-  const T* mu_fe;  // (NHFE, B)
-  const T* mu_fi;  // (NHFI, B)
-  const T* alpha;  // MULTI: the (A,) schedule; selected: (1, B) per lane
-  const T* params; // flat, model order (models/*.cuh)
-  T* cost;         // MULTI: (A, B); selected + WANT_COST: (1, B)
-  bool* ok;        // same shape as cost
-  T* xs;           // (N, NX, B)   selected only
-  T* xf;           // (NX, B)      selected only
-  T* us;           // (N, NU, B)   selected only
-  int N, B, A;
+constexpr int kCostBarrier = 2 * kSecondRing + 1;  // among the cost warps
+
+// Warps of a block that rolls na alphas per lane, in this order: the chain
+// warps (32 trajectories each), as many cost warps, the producer warp.
+__host__ __device__ constexpr int chain_warps(int na) {
+  return (kRolloutLanes * na + 31) / 32;
+}
+__host__ __device__ constexpr int block_warps(int na) {
+  return 2 * chain_warps(na) + 1;
+}
+
+// One instantiation's tile shape and its shared memory: the input ring,
+// the output ring, then the cost warps' per-tile items and per-chain sums.
+template <class M, typename T, bool MULTI, bool WANT_COST>
+struct Shape {
+  static constexpr bool COST = MULTI || WANT_COST;
+  static constexpr int S = rollout_steps<M, T, MULTI>();
+  static constexpr int NCH = block_chains<MULTI>();
+  static constexpr int IN = RolloutTerms<M>::NT * S * kRolloutLanes;
+  static constexpr int OUT = OutSlot<M, S, NCH>::SIZE;
+  static constexpr int ITEMS = COST ? S * NCH : 0;
+  static constexpr int kSmem =
+      (kSlots * (IN + OUT) + ITEMS + NCH) * sizeof(T) + ITEMS + NCH;
+  static constexpr int kMaxThreads =
+      32 * block_warps(MULTI ? kAlphaChunk : 1);
 };
 
-// Trajectory idx, parameters at p (a register copy, or A.params for a
-// model whose [k]-indexed tail stays in device memory).
-template <typename M, typename T, bool MULTI, bool WANT_COST>
-__host__ __device__ void rollout_lane(const RolloutArgs<T>& A, const T* p,
-                                      int idx) {
-  constexpr int NX = M::NX, NU = M::NU;
-  const int N = A.N, B = A.B;
-  int b, ai;
-  T alpha;
-  if (MULTI) {
-    ai = idx / B;
-    b = idx - ai * B;
-    alpha = A.alpha[ai];
-  } else {
-    ai = 0;
-    b = idx;
-    alpha = A.alpha[b];
-  }
-  T x[NX];
-#pragma unroll
-  for (int a = 0; a < NX; ++a) x[a] = A.x0[a * B + b];
-  const T wpl = A.wpl[b], wpf = A.wpf[b];
-  T c_acc = T(0);
-  bool ok = true;
+template <class M, typename T, bool MULTI, bool WANT_COST>
+__device__ __forceinline__ void rollout_block(const RolloutArgs<T>& A,
+                                              const T* p) {
+  using Sh = Shape<M, T, MULTI, WANT_COST>;
+  constexpr int S = Sh::S, NCH = Sh::NCH, G = kRolloutLanes;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* in = reinterpret_cast<T*>(smem);
+  T* out = in + kSlots * Sh::IN;
+  T* cbuf = out + kSlots * Sh::OUT;
+  T* c_acc = cbuf + Sh::ITEMS;
+  bool* okbuf = reinterpret_cast<bool*>(c_acc + NCH);
+  bool* ok_acc = okbuf + Sh::ITEMS;
 
-  for (int k = 0; k < N; ++k) {
-    const size_t kb = static_cast<size_t>(k);
-    T dx[NX];
-#pragma unroll
-    for (int a = 0; a < NX; ++a)
-      dx[a] = x[a] - A.xnom[(kb * NX + a) * B + b];
-    T u0[NU], u[NU];
-#pragma unroll
-    for (int j = 0; j < NU; ++j) {
-      T du = alpha * A.l[(kb * NU + j) * B + b];
-#pragma unroll
-      for (int a = 0; a < NX; ++a)
-        du = du + A.L[(kb * NU * NX + j * NX + a) * B + b] * dx[a];
-      const T un = A.unom[(kb * NU + j) * B + b];
-      // alpha == 0: the exact open-loop branch (iLQG_func.tem:155-158)
-      u0[j] = alpha == T(0) ? un : un + du;
-      u[j] = u0[j];
-    }
-    // clampU (iLQG_func.tem:68-73)
-#pragma unroll
-    for (int i = 0; i < M::NH; ++i) {
-      const int j = M::box_index(i);
-      const T s = static_cast<T>(M::box_sign(i));
-      const T lim = -s * (M::h(i, x, u0, p, k) - s * u0[j]);
-      u[j] = M::box_sign(i) > 0 ? nan_min(u[j], lim) : nan_max(u[j], lim);
-    }
-    T mu_le[arr(M::NHLE)] = {}, mu_li[arr(M::NHLI)] = {};
-#pragma unroll
-    for (int i = 0; i < M::NHLE; ++i)
-      mu_le[i] = A.mu_le[(kb * M::NHLE + i) * B + b];
-#pragma unroll
-    for (int i = 0; i < M::NHLI; ++i)
-      mu_li[i] = A.mu_li[(kb * M::NHLI + i) * B + b];
-    const T c = aug_L<M>(x, u, p, k, mu_le, mu_li, wpl);
-    T xn[NX];
-    M::f(x, u, p, k, xn);
-    bool ok_k = is_finite(c);
-#pragma unroll
-    for (int a = 0; a < NX; ++a) ok_k = ok_k && is_finite(xn[a]);
-    if (!MULTI) {
-#pragma unroll
-      for (int a = 0; a < NX; ++a) A.xs[(kb * NX + a) * B + b] = x[a];
-#pragma unroll
-      for (int j = 0; j < NU; ++j) A.us[(kb * NU + j) * B + b] = u[j];
-    }
-    c_acc = c_acc + c;
-    ok = ok && ok_k;
-#pragma unroll
-    for (int a = 0; a < NX; ++a) x[a] = xn[a];
+  const int b0 = blockIdx.x * G, a0 = blockIdx.y * kAlphaChunk;
+  const int na =
+      !MULTI ? 1 : (A.A - a0 < kAlphaChunk ? A.A - a0 : kAlphaChunk);
+  const int nch = G * na;
+  const int cw = chain_warps(na);
+  const int chain_threads = 32 * cw, cost_threads = chain_threads;
+  const int in_threads = chain_threads + 32;
+  const int out_threads = chain_threads + cost_threads;
+  const int ntiles = num_tiles(A.N, S);
+  const int warp = threadIdx.x / 32;
+
+  for (int c = threadIdx.x; c < NCH; c += blockDim.x) {
+    c_acc[c] = T(0);
+    ok_acc[c] = true;
   }
-  if (MULTI || WANT_COST) {
-    T mu_fe[arr(M::NHFE)] = {}, mu_fi[arr(M::NHFI)] = {};
+  __syncthreads();
+
+  const int c = threadIdx.x;  // a chain thread's chain
+  const Chain ch = chain_of(c, b0, a0, na, A.B);
+  const bool mine = warp < cw && ch.live;
+  T x[M::NX];
+  if (warp < cw) {
+    T alpha = T(0);
+    if (mine) {
+      alpha = MULTI ? A.alpha[ch.ai] : A.alpha[ch.b];
 #pragma unroll
-    for (int i = 0; i < M::NHFE; ++i) mu_fe[i] = A.mu_fe[i * B + b];
-#pragma unroll
-    for (int i = 0; i < M::NHFI; ++i) mu_fi[i] = A.mu_fi[i * B + b];
-    const T cf = aug_F<M>(x, p, N, mu_fe, mu_fi, wpf);
-    A.cost[ai * B + b] = c_acc + cf;
-    A.ok[ai * B + b] = ok && is_finite(cf);
+      for (int a = 0; a < M::NX; ++a) x[a] = A.x0[a * A.B + ch.b];
+    }
+    consumer_loop(ntiles, in_threads, 0, [&](int j, int r) {
+      ring_produce(j, out_threads, kSecondRing, [&](int, int) {
+        if (mine)
+          chain_tile<M, T, S, NCH>(in + r * Sh::IN, out + r * Sh::OUT,
+                                   tile_len(A.N, S, j), tile_k0(S, j), ch.g,
+                                   c, alpha, p, x);
+        __syncwarp();
+      });
+    });
+  } else if (warp < 2 * cw) {
+    const int t = threadIdx.x - chain_threads;
+    consumer_loop(ntiles, out_threads, kSecondRing, [&](int j, int r) {
+      const T* o = out + r * Sh::OUT;
+      const int n = tile_len(A.N, S, j), k0 = tile_k0(S, j);
+      if (!MULTI) store_tile<M, T, S, NCH>(A, o, n, k0, b0, t, cost_threads);
+      if (Sh::COST) {
+        cost_items<M, T, S, NCH>(A, p, o, n, k0, b0, a0, na, cbuf, okbuf, t,
+                                 cost_threads);
+        __syncwarp();
+        bar_sync(kCostBarrier, cost_threads);
+        cost_sum<T, NCH>(cbuf, okbuf, n, nch, c_acc, ok_acc, t,
+                         cost_threads);
+      }
+    });
+  } else if (warp == 2 * cw) {
+    producer_loop(ntiles, in_threads, 0, [&](int j, int r) {
+      rollout_fill<M, T, S>(A, tile_k0(S, j), b0, in + r * Sh::IN,
+                            threadIdx.x - out_threads, 32, AsyncCopy());
+      async_copies_wait();
+    });
   }
-  if (!MULTI) {
-#pragma unroll
-    for (int a = 0; a < NX; ++a) A.xf[a * B + b] = x[a];
-  }
+  __syncthreads();  // every chain's sum is in
+  if (mine)
+    rollout_finish<M, T, MULTI, WANT_COST>(A, p, x, ch.b, ch.ai, c_acc[c],
+                                           ok_acc[c]);
 }
 
-template <typename M, typename T, bool MULTI, bool WANT_COST>
-__global__ void rollout_kernel(const RolloutArgs<T> args) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int total = MULTI ? args.A * args.B : args.B;
-  if (idx >= total) return;
-  if (M::TAIL) {
-    rollout_lane<M, T, MULTI, WANT_COST>(args, args.params, idx);
-  } else {
-    T p[M::NP];
-#pragma unroll
-    for (int i = 0; i < M::NP; ++i) p[i] = args.params[i];
-    rollout_lane<M, T, MULTI, WANT_COST>(args, p, idx);
-  }
+template <class M, typename T, bool MULTI, bool WANT_COST>
+__global__ void __launch_bounds__(Shape<M, T, MULTI, WANT_COST>::kMaxThreads,
+                                  1)
+    rollout_kernel(const RolloutArgs<T> A) {
+  with_params<M>(A.params, [&](const T* p) {
+    rollout_block<M, T, MULTI, WANT_COST>(A, p);
+  });
 }
 
-template <typename M, typename T>
-int launch_model(bool multi, bool want_cost, const RolloutArgs<T>& a,
-                 int block, cudaStream_t stream) {
-  const bool need_al = (M::NHLE && !a.mu_le) || (M::NHLI && !a.mu_li) ||
-                       (M::NHFE && !a.mu_fe) || (M::NHFI && !a.mu_fi);
-  if (need_al) return kNullPointer;
-  if (multi) {
-    if (!a.cost || !a.ok) return kNullPointer;
-    const unsigned grid = grid_for(static_cast<long long>(a.A) * a.B, block);
-    rollout_kernel<M, T, true, true><<<grid, block, 0, stream>>>(a);
-  } else {
-    if (!a.xs || !a.xf || !a.us) return kNullPointer;
-    const unsigned grid = grid_for(a.B, block);
-    if (want_cost) {
-      if (!a.cost || !a.ok) return kNullPointer;
-      rollout_kernel<M, T, false, true><<<grid, block, 0, stream>>>(a);
-    } else {
-      rollout_kernel<M, T, false, false><<<grid, block, 0, stream>>>(a);
-    }
+// One instantiation: its launch and its attributes.
+template <class M, typename T, bool MULTI, bool WANT_COST>
+struct Variant {
+  using Model = M;
+  using Sh = Shape<M, T, MULTI, WANT_COST>;
+
+  static int launch(const RolloutArgs<T>& a, cudaStream_t stream) {
+    const auto kernel = rollout_kernel<M, T, MULTI, WANT_COST>;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int na = !MULTI ? 1 : (a.A < kAlphaChunk ? a.A : kAlphaChunk);
+    const dim3 grid(grid_for(a.B, kRolloutLanes),
+                    MULTI ? grid_for(a.A, kAlphaChunk) : 1);
+    kernel<<<grid, 32 * block_warps(na), Sh::kSmem, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+
+  static int info(int* out) {
+    cudaFuncAttributes fa;
+    const cudaError_t e =
+        cudaFuncGetAttributes(&fa, rollout_kernel<M, T, MULTI, WANT_COST>);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int v[6] = {kRolloutLanes, Sh::S, Sh::kMaxThreads / 32, Sh::kSmem,
+                      fa.numRegs, static_cast<int>(fa.localSizeBytes)};
+    for (int i = 0; i < 6; ++i) out[i] = v[i];
+    return 0;
+  }
+};
+
+// f(Variant<...>()) for the instantiated model and mode.
+template <typename T, class F>
+int visit(const char* model, bool multi, bool want_cost, F f) {
+  auto modes = [&](auto m) -> int {
+    using M = decltype(m);
+    if (multi) return f(Variant<M, T, true, true>());
+    if (want_cost) return f(Variant<M, T, false, true>());
+    return f(Variant<M, T, false, false>());
+  };
+  if (strcmp(model, "car_parking") == 0) return modes(CarParking());
+  if (strcmp(model, "brachistochrone") == 0) return modes(Brachistochrone());
+  if (strcmp(model, "brachistochrone_hli") == 0)
+    return modes(BrachistochroneHli());
+  return kBadVariant;
 }
 
 template <typename T>
 int launch(const char* model, bool multi, bool want_cost, int N, int B,
-           int A, int block, void* const* p, cudaStream_t stream) {
+           int A, void* const* p, cudaStream_t stream) {
   RolloutArgs<T> a;
   auto in = [&](int i) { return static_cast<const T*>(p[i]); };
   auto out = [&](int i) { return static_cast<T*>(p[i]); };
@@ -204,15 +232,15 @@ int launch(const char* model, bool multi, bool want_cost, int N, int B,
   a.A = A;
   for (int i : {0, 1, 2, 3, 6, 7, 8, 11, 12})
     if (p[i] == nullptr) return kNullPointer;
-  if (strcmp(model, "car_parking") == 0)
-    return launch_model<CarParking, T>(multi, want_cost, a, block, stream);
-  if (strcmp(model, "brachistochrone") == 0)
-    return launch_model<Brachistochrone, T>(multi, want_cost, a, block,
-                                            stream);
-  if (strcmp(model, "brachistochrone_hli") == 0)
-    return launch_model<BrachistochroneHli, T>(multi, want_cost, a, block,
-                                               stream);
-  return kBadVariant;
+  if ((multi || want_cost) && (!a.cost || !a.ok)) return kNullPointer;
+  if (!multi && (!a.xs || !a.xf || !a.us)) return kNullPointer;
+  return visit<T>(model, multi, want_cost, [&](auto v) {
+    using M = typename decltype(v)::Model;
+    const bool need_al = (M::NHLE && !a.mu_le) || (M::NHLI && !a.mu_li) ||
+                         (M::NHFE && !a.mu_fe) || (M::NHFI && !a.mu_fi);
+    return need_al ? static_cast<int>(kNullPointer)
+                   : decltype(v)::launch(a, stream);
+  });
 }
 
 }  // namespace
@@ -224,8 +252,10 @@ int launch(const char* model, bool multi, bool want_cost, int N, int B,
 // alpha, params, then the outputs cost, ok, xs, xf, us (NULL where a mode
 // or an empty AL family has none).  model: a CUDA model name
 // ("car_parking", "brachistochrone", "brachistochrone_hli").  dtype: 0
-// float32, 1 float64.  Launches on `stream`, does not synchronize, returns
-// cudaGetLastError() or a negative ddp code.
+// float32, 1 float64.  block: checked and otherwise unused; the block's
+// shape follows from the tile constants (rollout.cuh).  Launches on
+// `stream`, does not synchronize, returns cudaGetLastError() or a negative
+// ddp code.
 extern "C" int ddp_rollout(int dtype, const char* model, int multi,
                            int want_cost, int N, int B, int A, int block,
                            void* const* ptrs, void* stream) {
@@ -234,9 +264,22 @@ extern "C" int ddp_rollout(int dtype, const char* model, int multi,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return ddp::launch<float>(model, multi != 0, want_cost != 0, N, B, A,
-                              block, ptrs, s);
+                              ptrs, s);
   if (dtype == 1)
     return ddp::launch<double>(model, multi != 0, want_cost != 0, N, B, A,
-                               block, ptrs, s);
+                               ptrs, s);
+  return ddp::kBadDtype;
+}
+
+// The tile shape and resources of one instantiation, as ddp_backpass_info;
+// out[2] counts all the warps of a block that rolls kAlphaChunk alphas
+// (sweep) or one (selected).
+extern "C" int ddp_rollout_info(int dtype, const char* model, int multi,
+                                int want_cost, int* out) {
+  auto info = [&](auto v) { return decltype(v)::info(out); };
+  if (dtype == 0)
+    return ddp::visit<float>(model, multi != 0, want_cost != 0, info);
+  if (dtype == 1)
+    return ddp::visit<double>(model, multi != 0, want_cost != 0, info);
   return ddp::kBadDtype;
 }

@@ -29,7 +29,15 @@
 // r's "empty" barrier before refilling it and arrive on its "full"
 // barrier when done; the consumer waits on "full", runs the tile's steps
 // and arrives on "empty".  Producers thus run up to kSlots-1 tiles ahead.
+//
+// Kernel B2 (rollout.cu) walks time forwards and chains two such rings:
+// its input ring is B1's (a cp.async producer warp), and its chain warps
+// are in turn the producers of a second ring that the cost warps consume
+// (rollout.cuh).  Each ring has its own barrier ids (`base`) and its own
+// count of participating threads.
 #pragma once
+
+#include <stdint.h>
 
 #include "common.cuh"
 #include "riccati.cuh"
@@ -59,11 +67,12 @@ struct Terms {
                        UP_S = LO_S + NU, U = UP_S + NU, NT = U + NU;
 };
 
-// Steps per tile: 8, halved until kSlots slots fit the budget.
-__host__ __device__ constexpr int fit_steps(int s, int bytes_per_step) {
-  return (s == 1 || kSlots * s * bytes_per_step <= kSlotBudget)
+// Steps per tile: s, halved until kSlots slots fit the budget.
+__host__ __device__ constexpr int fit_steps(int s, int bytes_per_step,
+                                            int budget = kSlotBudget) {
+  return (s == 1 || kSlots * s * bytes_per_step <= budget)
              ? s
-             : fit_steps(s / 2, bytes_per_step);
+             : fit_steps(s / 2, bytes_per_step, budget);
 }
 
 template <typename T, int NT>
@@ -71,12 +80,17 @@ __host__ __device__ constexpr int tile_steps() {
   return fit_steps(8, kLanes * NT * static_cast<int>(sizeof(T)));
 }
 
-// Tile j holds t = N-1 - j*S - s for s = 0 .. S-1, those >= 0.
+// Backward in time (B1, B3): tile j holds t = N-1 - j*S - s for s = 0 ..
+// S-1, those >= 0.  Forward (B2): tile j holds k = j*S + s, those < N.
 __host__ __device__ constexpr int num_tiles(int N, int S) {
   return (N + S - 1) / S;
 }
 __host__ __device__ constexpr int tile_t0(int N, int S, int j) {
   return N - 1 - j * S;
+}
+__host__ __device__ constexpr int tile_k0(int S, int j) { return j * S; }
+__host__ __device__ constexpr int tile_len(int N, int S, int j) {
+  return N - j * S < S ? N - j * S : S;
 }
 
 // The consumer's share of one tile: lane b (slot column g) runs the steps
@@ -187,9 +201,13 @@ __host__ __device__ __forceinline__ void finish_lane(const Carry<T, NX>& c,
 }
 
 #ifdef __CUDACC__
-// Named barriers 1 .. kSlots ("slot r full") and kSlots+1 .. 2*kSlots
-// ("slot r empty"); 0 is __syncthreads'.  The non-aligned forms, so that
-// a warp whose lanes diverged before may reach them.
+// A ring's named barriers: base+1 .. base+kSlots ("slot r full") and
+// base+kSlots+1 .. base+2*kSlots ("slot r empty"); 0 is __syncthreads'.
+// B1 and B3 have one ring (base 0); B2 adds a second (kSecondRing).  The
+// non-aligned forms, so that a warp whose lanes diverged before may reach
+// them.
+constexpr int kSecondRing = 2 * kSlots;
+
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("barrier.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
@@ -198,30 +216,84 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
                : "memory");
 }
 
-// Warp 0's loop: wait until tile j's slot is full, consume it, hand the
-// slot back unless no later tile will refill it.  THREADS: the block.
-template <int THREADS, class Consume>
-__device__ __forceinline__ void consumer_loop(int ntiles, Consume consume) {
-  for (int j = 0; j < ntiles; ++j) {
-    const int r = j % kSlots;
-    bar_sync(1 + r, THREADS);
-    consume(j, r);
-    __syncwarp();
-    if (j + kSlots < ntiles) bar_arrive(1 + kSlots + r, THREADS);
-  }
+// One tile of a ring's consumer: wait until tile j's slot is full, consume
+// it, hand the slot back unless no later tile will refill it.  threads:
+// every thread that takes part in the ring, producers and consumers.
+template <class Consume>
+__device__ __forceinline__ void ring_consume(int j, int ntiles, int threads,
+                                             int base, Consume consume) {
+  const int r = j % kSlots;
+  bar_sync(base + 1 + r, threads);
+  consume(j, r);
+  __syncwarp();
+  if (j + kSlots < ntiles) bar_arrive(base + 1 + kSlots + r, threads);
 }
 
-// The producer warps' loop: wait until tile j's slot is free (its
+// One tile of a ring's producer: wait until tile j's slot is free (its
 // previous tile consumed), fill it, mark it full.
+template <class Fill>
+__device__ __forceinline__ void ring_produce(int j, int threads, int base,
+                                             Fill fill) {
+  const int r = j % kSlots;
+  if (j >= kSlots) bar_sync(base + 1 + kSlots + r, threads);
+  fill(j, r);
+  __threadfence_block();
+  bar_arrive(base + 1 + r, threads);
+}
+
+// A consumer warp's loop over the tiles of ring `base`.
+template <class Consume>
+__device__ __forceinline__ void consumer_loop(int ntiles, int threads,
+                                              int base, Consume consume) {
+  for (int j = 0; j < ntiles; ++j)
+    ring_consume(j, ntiles, threads, base, consume);
+}
+
+// The producer warps' loop over the tiles of ring `base`.
+template <class Fill>
+__device__ __forceinline__ void producer_loop(int ntiles, int threads,
+                                              int base, Fill fill) {
+  for (int j = 0; j < ntiles; ++j) ring_produce(j, threads, base, fill);
+}
+
+// B1's and B3's loops: one ring that the whole block (THREADS) takes part
+// in.
+template <int THREADS, class Consume>
+__device__ __forceinline__ void consumer_loop(int ntiles, Consume consume) {
+  consumer_loop(ntiles, THREADS, 0, consume);
+}
 template <int THREADS, class Fill>
 __device__ __forceinline__ void producer_loop(int ntiles, Fill fill) {
-  for (int j = 0; j < ntiles; ++j) {
-    const int r = j % kSlots;
-    if (j >= kSlots) bar_sync(1 + kSlots + r, THREADS);
-    fill(j, r);
-    __threadfence_block();
-    bar_arrive(1 + r, THREADS);
+  producer_loop(ntiles, THREADS, 0, fill);
+}
+
+// copy(dst, src, n) of a producer's tile copy (backpass.cuh: bundle_fill,
+// rollout.cuh: rollout_fill): one 16-byte cp.async where the source is
+// aligned and the chunk whole, else one per value.
+struct AsyncCopy {
+  template <typename T>
+  __device__ __forceinline__ void operator()(T* dst, const T* src,
+                                             int n) const {
+    const unsigned d =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    if (n * static_cast<int>(sizeof(T)) == 16 &&
+        (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                   "l"(src)
+                   : "memory");
+    } else {
+      for (int e = 0; e < n; ++e)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                         d + e * static_cast<unsigned>(sizeof(T))),
+                     "l"(src + e), "n"(sizeof(T))
+                     : "memory");
+    }
   }
+};
+
+// Every cp.async of this thread has landed.
+__device__ __forceinline__ void async_copies_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 #endif
 

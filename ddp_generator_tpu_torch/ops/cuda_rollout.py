@@ -2,14 +2,14 @@
 
 Replaces ``ddp_generator_tpu/ops/pallas_rollout.py:rollout_call`` (the
 ``pl.pallas_call`` at line 424, body ``_make_rollout_kernel``).  Sources:
-``csrc/rollout.cu`` and the problem's CUDA model, e.g.
-``csrc/models/car_parking.cuh``.  Two modes:
+``csrc/rollout.cu``, ``csrc/rollout.cuh``, ``csrc/staged.cuh`` and the
+problem's CUDA model, e.g. ``csrc/models/car_parking.cuh``.  Two modes:
 
-* ``multi=True``: the cost sweep.  One thread per (alpha, lane) rolls the
-  whole horizon and writes ``costs (A, B)`` and ``ok (A, B)``, no
+* ``multi=True``: the cost sweep.  Every (alpha, lane) is rolled over the
+  whole horizon; writes ``costs (A, B)`` and ``ok (A, B)``, no
   trajectories;
-* ``multi=False``: the selected rollout.  One thread per lane rolls its own
-  ``alpha_vec`` and writes ``xs (N, n_x, B)``, ``xf (n_x, B)``,
+* ``multi=False``: the selected rollout.  Every lane is rolled with its own
+  ``alpha_vec`` entry; writes ``xs (N, n_x, B)``, ``xf (n_x, B)``,
   ``us (N, n_u, B)``, plus ``cost``/``ok (1, B)`` when ``want_cost``.
 
 Each step: ``u = u_nom + alpha*l + L*dx`` (exactly ``u_nom`` when alpha is
@@ -24,12 +24,22 @@ cannot, so each problem names a CUDA model of hand-written ``__device__``
 functions (``Problem.cuda_model``).  A problem without one raises on a CUDA
 device.
 
-On the card (H100): one thread per trajectory, a sequential loop over the
-horizon, state in registers.  The bound is the dependent chain of
-transcendentals per step (sin, cos, asin, sqrt for CarParking) at low
-occupancy: 16k threads in the sweep, 2k in the selected rollout.  Loads of
-the nominal trajectory and gains are coalesced over the lane axis, and the
-sweep's 8 alphas of one lane read the same addresses, so they hit in L1/L2.
+On the card (H100) neither bytes (~16 operand values a step and lane) nor
+operations (~84 a step) bound the kernel: a trajectory is one dependent
+chain over the horizon, and its latency times ``N`` is the time at every
+width.  So the kernel keeps on that chain only what the next state needs.
+A block owns 8 lanes.  A producer warp copies each time tile of the
+operands into a shared-memory ring with ``cp.async``, a tile ahead; the
+chain warps, one thread per trajectory, run ``dx -> u -> clamp -> f`` on
+operands from that ring and leave ``x_k``, ``u_k`` in a second ring; the
+cost warps take each finished tile from it, evaluate the running cost and
+the finiteness flags one work item per (step, trajectory), add them per
+trajectory in step order, and in the selected mode write ``xs``/``us`` to
+device memory.  In the sweep a block rolls its 8 lanes under up to 8
+alphas, all reading one copy of the lane's tile.  Every floating-point
+expression is the one-thread reference's (``rollout.cuh: rollout_lane``),
+in its order; ``tests/test_torch_rollout_host.py`` holds the staged
+schedule against it on the host, bit for bit.
 
 The plain PyTorch version is :func:`rollout_plain`; :func:`rollout_call`
 takes it for CPU tensors only.
@@ -37,6 +47,7 @@ takes it for CPU tensors only.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Any, Sequence
 
@@ -49,7 +60,8 @@ from .linesearch import LineSearchResult
 
 Tensor = torch.Tensor
 
-# Threads per block of the rollout kernel.
+# ``ddp_rollout``'s block-size argument: checked, otherwise unused (the
+# block's shape follows from the tile constants in ``csrc/rollout.cuh``).
 BLOCK = 64
 
 
@@ -224,6 +236,22 @@ def rollout_call(problem: Problem, alphas: Sequence[float], xnom_cm, unom_cm,
 
 
 rollout_call.launches = {"multi": 0, "selected": 0}
+
+
+def kernel_info(model: str, dtype: torch.dtype, multi: bool,
+                want_cost: bool = False) -> dict:
+    """Tile shape and resources of one instantiation of kernel B2, as
+    :func:`.cuda_backpass.kernel_info`: lanes per block ``G``, steps per
+    tile ``S``, warps of a block ``W`` (chain, producer and cost warps
+    together), dynamic shared memory per block, registers and local memory
+    per thread; ``model`` a CUDA model name.  Builds the library; needs a
+    CUDA device."""
+    lib = _build.load_library()
+    out = (ctypes.c_int * 6)()
+    rc = lib.ddp_rollout_info(0 if dtype == torch.float32 else 1,
+                              model.encode(), int(multi), int(want_cost), out)
+    _build.check(lib, rc, "rollout info")
+    return _build.info_dict(out)
 
 
 def _to_cm(a: Tensor) -> Tensor:

@@ -13,8 +13,9 @@ body call alone: the derivatives and backward pass, and the staged line
 search (kernels B2).  "Rest" is the body call less both.  Then
 ``torch.profiler`` traces ``--calls`` more body calls: device busy share
 is the device time of all kernels over the wall time, and the device
-events per body call are counted.  Prints one line per path; imports no
-JAX.
+events and the launches of each hand-written kernel per body call are
+counted (B2: the sweep and the selected rollouts; a staged line search
+launches up to three).  Prints one line per path; imports no JAX.
 """
 
 from __future__ import annotations
@@ -101,12 +102,15 @@ def profile_path(backpass: str, calls: int) -> dict:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
+    cs.reset_launches()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             c = body_fn(c, p)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {f"{k}_launches_per_call": v / calls
+                for k, v in cs.read_launches().items()}
     dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy_ms = sum(e.device_time_total for e in dev) / 1e3
     med = statistics.median
@@ -115,7 +119,8 @@ def profile_path(backpass: str, calls: int) -> dict:
                 rest_ms=med(body) - med(bps) - med(lss),
                 body_ms_all=[round(v, 3) for v in body],
                 profiled_wall_ms=wall_ms, device_busy_pct=100 * busy_ms
-                / wall_ms, device_events_per_call=len(dev) / calls)
+                / wall_ms, device_events_per_call=len(dev) / calls,
+                **launches)
 
 
 def main() -> int:

@@ -1,23 +1,31 @@
-"""Time kernels B1 and B3 of the port under other tile constants, and
+"""Time kernels B1, B2 and B3 of the port under other tile constants, and
 against another source tree, on one CUDA card.
 
     python3 scripts/tile_sweep.py [--lanes 16] [--warps 4]
-        [--parent DIR] [--widths 2048,128] [--reps 10] [--out FILE]
+        [--rollout 8x16,16x32] [--kernels B1,B2,B3] [--parent DIR]
+        [--widths 2048,128] [--reps 10] [--out FILE]
 
-Each variant is a copy of ``ddp_generator_tpu_torch/csrc`` with the lanes
-per block (``kLanes``, staged.cuh) and B3's producer warps
-(``kProducerWarps``, fused.cu) replaced; ``--parent`` adds the kernels of
-another checkout (its ``ddp_generator_tpu_torch/csrc``, built as they are;
-a tree from before the staged kernels, whose C interface took a block
-size, is called through that interface).
+Each variant is a copy of ``ddp_generator_tpu_torch/csrc`` with tile
+constants replaced: for B1 and B3 the lanes per block (``kLanes``,
+staged.cuh) and B3's producer warps (``kProducerWarps``, fused.cu), one
+variant per ``--lanes`` x ``--warps``; for B2 the lanes per block and the
+steps per tile (``kRolloutLanes`` x ``kRolloutSteps``, rollout.cuh), one
+variant per ``--rollout`` entry.  The tree as it stands is always a
+variant (``tree``); ``--parent`` adds the kernels of other checkouts
+(comma-separated; each its
+``ddp_generator_tpu_torch/csrc``, built as they are; a tree from before the
+staged kernels, whose C interface took a block size, is called through
+that interface) and puts them first: ``parent``, ``parent2``, ...
 All are built in parallel into ``build/torch_kernels/``, then timed in
 turns (CUDA events, after a warm-up launch) on the operands of
-``chip_smoke.py`` phases 3 and 4b: CarParking, FULL_DDP, regType 1, the
-initial rollout of ``bench.py``'s inputs, float32 at the given widths and
-float64 at B=256, N=500.  Every variant's outputs are compared with the
-first variant's, bit for bit.  Prints one line per variant and kernel, and
-the registers and spill that ``ptxas`` reported, and writes all of it as
-JSON to ``--out``.  Imports no JAX.
+``chip_smoke.py`` phases 3, 4 and 4b: CarParking, FULL_DDP, regType 1, the
+initial rollout of ``bench.py``'s inputs, B2 on the gains of B1 (the sweep
+of 8 alphas, and the selected rollout with cost), float32 at the given
+widths and float64 at B=256, N=500.  Every variant's outputs are compared
+with the first variant's, bit for bit (B2: cost, ok, xs, xf, us).  Prints
+one line per variant and kernel, and the registers and spill that
+``ptxas`` reported, and writes all of it as JSON to ``--out``.  Imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -39,20 +47,19 @@ import chip_smoke as cs  # noqa: E402
 from ddp_generator_tpu_torch import _build  # noqa: E402
 
 
-def variant_sources(lanes: int, warps: int) -> Path:
-    """A copy of the package's csrc with the two tile constants set."""
-    dst = _build.BUILD_ROOT.parent / "tile_sweep" / f"G{lanes}_W{warps}"
+def variant_sources(label: str, constants) -> Path:
+    """A copy of the package's csrc with ``(file, constant, value)`` tile
+    constants set."""
+    dst = _build.BUILD_ROOT.parent / "tile_sweep" / label
     if dst.exists():
         shutil.rmtree(dst)
     shutil.copytree(_build.CSRC, dst)
-    for name, pat, val in (("staged.cuh", r"constexpr int kLanes = \d+;",
-                            f"constexpr int kLanes = {lanes};"),
-                           ("fused.cu", r"constexpr int kProducerWarps = \d+;",
-                            f"constexpr int kProducerWarps = {warps};")):
+    for name, const, val in constants:
         f = dst / name
-        text, n = re.subn(pat, val, f.read_text())
+        text, n = re.subn(rf"constexpr int {const} = \d+;",
+                          f"constexpr int {const} = {val};", f.read_text())
         if n != 1:
-            raise RuntimeError(f"{name}: tile constant not found")
+            raise RuntimeError(f"{name}: tile constant {const} not found")
         f.write_text(text)
     return dst
 
@@ -87,7 +94,8 @@ def open_any(path: Path):
 
 
 def ptxas_summary(path: Path) -> dict:
-    """{kernel: (registers, spill store bytes)} of B1's and B3's kernels."""
+    """{kernel: (registers, spill store bytes)} of B1's, B2's and B3's
+    kernels."""
     out, name = {}, None
     text = (path.parent / "ptxas.txt").read_text().splitlines()
     for ln in text:
@@ -99,7 +107,8 @@ def ptxas_summary(path: Path) -> dict:
         if m:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", ln)
-        if m and name and ("backpass_kernel" in name or "fused_kernel" in name):
+        if m and name and any(k in name for k in (
+                "backpass_kernel", "fused_kernel", "rollout_kernel")):
             out[demangle(name)] = (int(m.group(1)), spill)
             name = None
     return out
@@ -114,7 +123,8 @@ def demangle(name: str) -> str:
 
 
 def operands(B: int, dtype):
-    """B1's and B3's arguments at phase 3's operands, width B."""
+    """B1's and B3's arguments at phase 3's operands, width B, and what
+    B2's need beside B1's gains."""
     import numpy as np
     import torch
 
@@ -130,13 +140,40 @@ def operands(B: int, dtype):
     b1 = (sd, fcx, fcxx, us_cm, lam, problem.n_x, 1, True)
     b3 = (problem, r.xs, r.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, w, w,
           lam[0], p, 1, True)
-    return b1, b3
+    return b1, b3, (problem, p, r, m, w)
+
+
+def rollout_calls(b2, gains):
+    """B2's two timed calls as chip_smoke.py phase 4 makes them: the sweep
+    and the selected rollout with cost, on B1's gains ``(l, L)``."""
+    import numpy as np
+    import torch
+
+    import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch.ops import cuda_rollout as cr
+
+    problem, p, r, m, w = b2
+    B, N = r.us.shape[:2]
+    l_b = gains[0].permute(2, 0, 1)
+    L_b = gains[1].permute(2, 0, 1).reshape(B, N, problem.n_u, problem.n_x)
+    ctx = cr._LSCtx(problem, r.xs[:, 0], r.xs, r.us, l_b, L_b, None, None,
+                    m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, w, w)
+    alphas = tuple(ddp.SolverOptions().alpha)
+    alpha_vec = torch.as_tensor(
+        np.random.default_rng(1).choice(alphas, B), dtype=r.us.dtype,
+        device=r.us.device)[None].contiguous()
+    return (("B2 sweep", lambda: ctx.call(problem, alphas, p, None,
+                                          multi=True)),
+            ("B2 selected", lambda: ctx.call(problem, alphas, p, alpha_vec,
+                                             multi=False, want_cost=True)))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--lanes", default="16")
-    ap.add_argument("--warps", default="4")
+    ap.add_argument("--lanes", default="")
+    ap.add_argument("--warps", default="5")
+    ap.add_argument("--rollout", default="")
+    ap.add_argument("--kernels", default="B1,B2,B3")
     ap.add_argument("--parent", default=None)
     ap.add_argument("--widths", default="2048,128")
     ap.add_argument("--reps", type=int, default=10)
@@ -151,11 +188,20 @@ def main() -> int:
     from ddp_generator_tpu_torch.ops import cuda_fused as cf
 
     srcs = {}
-    if args.parent:
-        srcs["parent"] = Path(args.parent) / "ddp_generator_tpu_torch" / "csrc"
-    for g in map(int, args.lanes.split(",")):
-        for wp in map(int, args.warps.split(",")):
-            srcs[f"G{g}_W{wp}"] = variant_sources(g, wp)
+    for n, parent in enumerate(filter(None, (args.parent or "").split(","))):
+        srcs["parent" + (str(n + 1) if n else "")] = (
+            Path(parent) / "ddp_generator_tpu_torch" / "csrc")
+    srcs["tree"] = _build.CSRC
+    for g in filter(None, args.lanes.split(",")):
+        for wp in args.warps.split(","):
+            srcs[f"G{g}_W{wp}"] = variant_sources(
+                f"G{g}_W{wp}", (("staged.cuh", "kLanes", g),
+                                ("fused.cu", "kProducerWarps", wp)))
+    for gs in filter(None, args.rollout.split(",")):
+        g, st = gs.split("x")
+        srcs[f"B2_{gs}"] = variant_sources(
+            f"B2_{gs}", (("rollout.cuh", "kRolloutLanes", g),
+                         ("rollout.cuh", "kRolloutSteps", st)))
     with ThreadPoolExecutor(len(srcs)) as ex:
         paths = dict(zip(srcs, ex.map(_build.build, srcs.values())))
     libs = {k: open_any(v) for k, v in paths.items()}
@@ -165,19 +211,29 @@ def main() -> int:
              for b in args.widths.split(",")]
     cases.append(("f64 B=256", 256, torch.float64))
     results = {k: {} for k in libs}
+    mismatch = {}
+    wanted = args.kernels.split(",")
     for label, B, dtype in cases:
-        b1, b3 = operands(B, dtype)
+        b1, b3, b2 = operands(B, dtype)
+        _build.load_library = lambda: libs["tree"]
+        calls = [("B1", lambda: cb.back_pass_cm(*b1)),
+                 ("B3", lambda: cf.fused_derivs_back_pass(*b3))]
+        calls += rollout_calls(b2, cb.back_pass_cm(*b1))
+        calls = [(k, fn) for k, fn in calls if k[:2] in wanted]
         ref = {}
         for rnd in range(2):  # in turns: every variant, twice
             for name, lib in libs.items():
                 _build.load_library = lambda lib=lib: lib
-                for kern, fn in (("B1", lambda: cb.back_pass_cm(*b1)),
-                                 ("B3", lambda: cf.fused_derivs_back_pass(
-                                     *b3))):
+                for kern, fn in calls:
+                    # a variant of B2's constants times B2 only, one of
+                    # B1's and B3's those two only
+                    if (not name.startswith(("parent", "tree")) and
+                            name.startswith("B2_") != kern.startswith("B2")):
+                        continue
                     out = fn()
                     torch.cuda.synchronize()
-                    flat = (list(out) if kern == "B1"
-                            else list(out[0]) + [out[1]])
+                    flat = (list(out[0]) + [out[1]] if kern == "B3"
+                            else list(out))
                     same = None
                     if kern in ref:
                         same = all(torch.equal(a, b) or (
@@ -187,6 +243,9 @@ def main() -> int:
                             for a, b in zip(flat, ref[kern]))
                     else:
                         ref[kern] = flat
+                    if same is False:
+                        mismatch.setdefault(name, set()).add(
+                            f"{kern} {label}")
                     ms = cs.time_ms(fn, args.reps)
                     rec = results[name].setdefault(f"{kern} {label}", [])
                     rec.append(ms)
@@ -194,8 +253,12 @@ def main() -> int:
                           f"ms={ms:.4f} same_as_first={same}", flush=True)
     for name, d in ptx.items():
         for k, (regs, spill) in sorted(d.items()):
-            if "4, 2," in k or "CarParking" in k:
+            if "4, 2," in k or "CarParking" in k:  # the operands' shape
                 print(f"[ptxas] {name} regs={regs} spill={spill} {k}")
+    differ = [f"{n} {k}" for n, d in results.items() for k in d
+              if k in mismatch.get(n, ())]
+    if differ:
+        print("[sweep] outputs differ from the first variant's:", differ)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
@@ -203,7 +266,7 @@ def main() -> int:
                                                 d.items()}
                                             for k, d in ptx.items()}},
             indent=1))
-    return 0
+    return 1 if differ else 0
 
 
 if __name__ == "__main__":

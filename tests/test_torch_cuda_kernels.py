@@ -7,7 +7,7 @@ lane whose rollout turns NaN, and B3 for every CUDA model of
 ``KERNEL_MODELS`` with regType 1/2 and FULL_DDP on/off in both dtypes, with
 a lane that fails and a lane whose derivatives are not finite.  ``B`` is
 not a multiple of the lanes per block, so the ragged last block is
-exercised; the ``*_ragged`` cases of B1 and B3 also take ``B = G+3``,
+exercised; the ``*_ragged`` cases of B1, B2 and B3 also take ``B = G+3``,
 ``N = 2S+1`` (a last time tile of one step) and ``B = 128``, the smallest
 compaction width, with ``G`` and ``S`` read from the built kernel.  Needs
 a CUDA device and ``nvcc``;
@@ -147,7 +147,7 @@ def test_backpass_kernel_ragged(cuda, edge, dtype):
         _close(o, r, TOL[dtype], name)
 
 
-def _rollout_operands(dtype, dev):
+def _rollout_operands(dtype, dev, N=N, B=B):
     problem = car_parking.car_parking()
     rng = np.random.default_rng(7)
     p_np, x0, _ = car_parking.default_setup(T=N, seed=0)
@@ -189,6 +189,32 @@ def test_rollout_kernel_matches_plain(cuda, mode, dtype):
     assert len(out) == len(ref)
     for i, (o, r) in enumerate(zip(out, ref)):
         _close(o, r, TOL[dtype], f"{mode} output {i}")
+    if mode != "selected":
+        ok = out[-1]
+        assert not bool(ok[:, 5].any()) and bool(ok[:, :5].all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("mode", ["multi", "selected", "selected_cost"])
+@pytest.mark.parametrize("edge", EDGES)
+def test_rollout_kernel_ragged(cuda, edge, mode, dtype):
+    """B2's ragged edges (csrc/rollout.cuh): a last block of 3 lanes, a
+    last time tile of one step, the smallest compaction width; in the
+    sweep one alpha more than a block rolls."""
+    kw = dict(multi=mode == "multi", want_cost=mode == "selected_cost")
+    Bv, Nv = _edge_shape(edge, cr.kernel_info("car_parking", dtype=dtype,
+                                              **kw))
+    ops, alpha_vec, p = _rollout_operands(dtype, cuda, N=Nv, B=Bv)
+    alphas = tuple(np.logspace(0, -3, 9))
+    ops = (ops[0], alphas) + ops[2:]
+    av = None if mode == "multi" else alpha_vec
+    out = cr.rollout_call(*ops, av, p, **kw)
+    torch.cuda.synchronize()
+    ref = cr.rollout_plain(*ops, av, p, **kw)
+    assert len(out) == len(ref)
+    for i, (o, r) in enumerate(zip(out, ref)):
+        _close(o, r, TOL[dtype], f"{edge} {mode} output {i}")
     if mode != "selected":
         ok = out[-1]
         assert not bool(ok[:, 5].any()) and bool(ok[:, :5].all())
