@@ -13,7 +13,17 @@ full width:
 * the same solve with ``backpass_method="fused"``: kernel B3 (derivatives
   and backward pass in one kernel) in place of emission + B1;
 * the Brachistochrone with its moving floor (``brachistochrone_hli``,
-  n=500, B=2048, float64) through B3 and B2, the path of the AL families.
+  n=500, B=2048, float64) through B3 and B2, the path of the AL families;
+* the serial path (``SolverOptions()``'s own methods: eager PyTorch, no
+  kernel) against the kernel path on CarParking at full width, three
+  iterations deep;
+* the Cartpole swing-up (B=2048, T=150, max_iter=150) twice: with the
+  default options (serial, float64) and through B3 and B2 in float32
+  (tolFun 1e-5, as the main path).
+
+The Cartpole instantiations of B1 (4, 1), B2 and B3 are held against their
+plain versions like CarParking's, and small float64 solves of the serial
+path and of the inline lambda retries are checked lane by lane.
 
 Beside the checks it times B1, B2 and B3 at the widths the solver's
 compaction reaches (2048 down to 128 lanes), and puts each kernel's time
@@ -53,17 +63,32 @@ TOL_ROLLOUT = {"float32": 1e-6, "float64": 1e-14}
 # against reverse-mode autograd), so the gap is not 0; the 500-step
 # recursion at small lambda amplifies it.  Each limit sits about 100x above
 # the largest gap of the first sound run on an H100 (CarParking 9.4e-4 in
-# float32, 4.6e-14 in float64; brachistochrone_hli 2.9e-15 in float64).
+# float32, 4.6e-14 in float64; brachistochrone_hli 2.9e-15 in float64;
+# Cartpole, N=150, 2.9e-3 in float32, 1.8e-12 in float64).
 TOL_B3 = {"car_parking float32": 1e-1, "car_parking float64": 5e-12,
-          "brachistochrone_hli float64": 3e-13}
+          "brachistochrone_hli float64": 3e-13,
+          "cartpole float32": 3e-1, "cartpole float64": 2e-10}
 SOLVED_MIN = 0.90
 N_BRACHI = 500
-# Operations per (step, lane) and per lane of each kernel on CarParking
-# (FULL_DDP, regType 1), counted by scripts/count_ops.py on the kernels'
-# own headers (tests/test_torch_count_ops.py holds these to that count).
+T_POLE, MAX_ITER_POLE = 150, 150  # cartpole.default_setup's horizon
+# The Cartpole swing-up from x0 = [0, pi, 0, 0] + 0.05 normal: the JAX
+# package (float64, serial, on the CPU, max_iter 150) solves 98.4% of the
+# first 64 lanes of cartpole_inputs and 98.2% of the first 512, so the 90%
+# floor holds there too; but only 80.5% of its solved lanes of the 512 end
+# in the upright basin, cos(th_N) > 0.98: the others converge (tolFun) to a
+# local minimum a turn further, cos(th_N) ~ 0.977, cost ~1.42 against
+# ~0.32.  The floor on that share is the JAX share less 5 points.
+UPRIGHT_MIN = 0.805 - 0.05
+# Operations per (step, lane) and per lane of each kernel (FULL_DDP,
+# regType 1), CarParking's under plain names, Cartpole's with the prefix
+# "cartpole_", counted by scripts/count_ops.py on the kernels' own headers
+# (tests/test_torch_count_ops.py holds these to that count).
 OPS = {"backpass_per_step": 1470, "backpass_per_lane": 1,
        "fused_per_step": 7756, "fused_per_lane": 2065,
-       "rollout_per_step": 84}
+       "rollout_per_step": 84,
+       "cartpole_backpass_per_step": 822, "cartpole_backpass_per_lane": 1,
+       "cartpole_fused_per_step": 4727, "cartpole_fused_per_lane": 799,
+       "cartpole_rollout_per_step": 61}
 # NVIDIA H100 SXM data sheet: HBM3 rate and the float32/float64 rates
 # outside the tensor cores, all at the full 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
@@ -110,6 +135,11 @@ def nbytes(*tensors) -> int:
     return total
 
 
+def ops(model: str, key: str) -> int:
+    """``OPS[key]`` of a CUDA model (CarParking's have no prefix)."""
+    return OPS[key if model == "car_parking" else f"{model}_{key}"]
+
+
 def bound(n_bytes: int, n_ops: int, dtype) -> tuple[float, str]:
     """The least time the card could take (ms) and what sets it."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
@@ -146,9 +176,24 @@ def bench_inputs(B: int, T: int, np_dtype, seed: int = 0):
     return p, x0s, u0s
 
 
-def nominal_bundle(problem, B, T, dtype, device):
-    """The port's emission (cm_emit) on the initial rollout of bench's
-    inputs: the bundle the backward pass sees on its first body call."""
+def cartpole_inputs(B: int, T: int, np_dtype=np.float64):
+    """The swing-up from hanging: x0 = [0, pi, 0, 0] + 0.05 normal and
+    u0 = 0.1 normal, each from its own fixed seed, so that the first lanes
+    of a batch do not depend on its width."""
+    from ddp_generator_tpu_torch.models import cartpole
+
+    p, x0, _ = cartpole.default_setup(T=T)
+    noise = np.random.default_rng(5).standard_normal((B, 4))
+    x0s = np.tile(x0, (B, 1)) + 0.05 * noise
+    u0s = 0.1 * np.random.default_rng(6).standard_normal((B, T, 1))
+    p = {k: np.asarray(v, np_dtype) for k, v in p.items()}
+    return p, x0s.astype(np_dtype), u0s.astype(np_dtype)
+
+
+def nominal_bundle(problem, B, T, dtype, device, inputs=bench_inputs):
+    """The port's emission (cm_emit) on the initial rollout of ``inputs``
+    (bench's by default): the bundle the backward pass sees on its first
+    body call."""
     import torch
 
     import ddp_generator_tpu_torch as ddp
@@ -156,7 +201,7 @@ def nominal_bundle(problem, B, T, dtype, device):
     from ddp_generator_tpu_torch.ops.forward import forward_pass
 
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
-    p_np, x0s, u0s = bench_inputs(B, T, np_dtype)
+    p_np, x0s, u0s = inputs(B, T, np_dtype)
     p = ddp.params_from_jax(p_np, dtype, device)
     x0 = torch.as_tensor(x0s, device=device)
     u0 = torch.as_tensor(u0s, device=device)
@@ -169,7 +214,8 @@ def nominal_bundle(problem, B, T, dtype, device):
     return p, r, m, w, sd, fcx, fcxx, us_cm, ok
 
 
-def check_backpass(problem, B, T, dtype, tol, reps, rng, device="cuda"):
+def check_backpass(problem, B, T, dtype, tol, reps, rng, device="cuda",
+                   inputs=bench_inputs):
     """Phase 3: kernel B1 against its plain version on the emitted bundle,
     with lambdas that make a quarter of the lanes fail."""
     import torch
@@ -177,8 +223,9 @@ def check_backpass(problem, B, T, dtype, tol, reps, rng, device="cuda"):
     from ddp_generator_tpu_torch.ops import cuda_backpass as cb
 
     dev = torch.device(device)
+    model = problem.cuda_model.name
     p, r, m, w, sd, fcx, fcxx, us_cm, ok = nominal_bundle(
-        problem, B, T, dtype, dev)
+        problem, B, T, dtype, dev, inputs)
     lam_np = 10.0 ** rng.uniform(-6, 2, size=B)
     lam_np[::4] = -1.0  # Quu - I is indefinite: these lanes fail
     lam = torch.as_tensor(lam_np, dtype=dtype, device=dev)[None]
@@ -205,8 +252,8 @@ def check_backpass(problem, B, T, dtype, tol, reps, rng, device="cuda"):
     plain_ms = time_ms(lambda: cb.back_pass_cm_plain(*args), 1)
     bound_ms, bound_by = bound(
         nbytes(args, out),
-        OPS["backpass_per_step"] * T * B + OPS["backpass_per_lane"] * B,
-        dtype)
+        ops(model, "backpass_per_step") * T * B
+        + ops(model, "backpass_per_lane") * B, dtype)
     return dict(B=B, N=T, dtype=str(dtype).replace("torch.", ""),
                 failed_lanes=n_failed, max_abs_err=worst_abs,
                 max_rel_err=worst_rel, tol=tol, ms=ms, plain_ms=plain_ms,
@@ -252,20 +299,23 @@ def compare_fused(name, args, tol, reps):
     res = dict(B=B, failed_lanes=n_failed, derivs_ok=int(ok.sum()),
                max_abs_err=worst_abs, max_rel_err=worst_rel, tol=tol,
                ms=ms, plain_ms=plain_ms)
-    if problem.cuda_model.name == "car_parking":
+    model = problem.cuda_model.name
+    if model in ("car_parking", "cartpole"):
         N = us.shape[1]
         res["bound_ms"], res["bound_by"] = bound(
             nbytes(args, bp, ok),
-            OPS["fused_per_step"] * N * B + OPS["fused_per_lane"] * B,
-            us.dtype)
+            ops(model, "fused_per_step") * N * B
+            + ops(model, "fused_per_lane") * B, us.dtype)
     return dict(res, **cf.kernel_info(problem.cuda_model.name, reg_type,
                                       full_ddp, us.dtype))
 
 
-def check_fused_car(problem, p, r, m, w, lam, reps):
-    """Phase 4b: B3 on CarParking at the operands of phase 3 (the initial
-    rollout of bench's inputs, phase 3's lambdas), regType 1, FULL_DDP."""
-    name = "car_parking " + str(r.us.dtype).replace("torch.", "")
+def check_fused_model(problem, p, r, m, w, lam, reps):
+    """Phase 4b: B3 on CarParking (or Cartpole) at the operands of phase 3
+    (the initial rollout of its inputs, phase 3's lambdas), regType 1,
+    FULL_DDP."""
+    name = (problem.cuda_model.name + " "
+            + str(r.us.dtype).replace("torch.", ""))
     args = (problem, r.xs, r.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, w, w,
             lam, p, 1, True)
     return compare_fused(name, args, TOL_B3[name], reps), args
@@ -399,7 +449,8 @@ def check_rollout(problem, alphas, p, r, m, w, bp, tol, reps):
         trajectories = len(alphas) * B if mode == "multi" else B
         bound_ms, bound_by = bound(
             nbytes(operands(av), out),
-            OPS["rollout_per_step"] * N * trajectories, dtype)
+            ops(problem.cuda_model.name, "rollout_per_step") * N
+            * trajectories, dtype)
         res[mode] = dict(max_abs_err=worst_abs, max_rel_err=worst_rel,
                          tol=tol, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
@@ -456,9 +507,9 @@ def per_lane_brachi():
                        x0s, u0s, p)
 
 
-def same_on_cpu(problem, opts, x0s, u0s, p):
+def same_on_cpu(problem, opts, x0s, u0s, p, cost_rtol=1e-8):
     """The solve on the GPU and on the CPU: equal status, iterations, body
-    and stale calls per lane, cost to a relative 1e-8."""
+    and stale calls per lane, cost to a relative ``cost_rtol``."""
     import torch
 
     import ddp_generator_tpu_torch as ddp
@@ -477,8 +528,8 @@ def same_on_cpu(problem, opts, x0s, u0s, p):
             fail(f"per-lane check: {f} differs: gpu {getattr(g, f)} "
                  f"cpu {getattr(c, f)}")
     cost_rel = float(np.max(np.abs(g.cost - c.cost) / np.abs(c.cost)))
-    if not cost_rel <= 1e-8:
-        fail(f"per-lane check: cost rel err {cost_rel:.3g} > 1e-8")
+    if not cost_rel <= cost_rtol:
+        fail(f"per-lane check: cost rel err {cost_rel:.3g} > {cost_rtol}")
     return dict(lanes=x0s.shape[0], T=u0s.shape[1],
                 status=np.bincount(g.status).tolist(),
                 cost_rel_err=cost_rel, gpu_s=round(out["cuda"][1], 2),
@@ -609,6 +660,170 @@ def brachi_path():
                 mean_cost=float(s.cost[ok].mean()), launches=launches)
 
 
+def per_lane_serial():
+    """Phase 5b: the default options (serial backward pass and line search,
+    float64, max_iter 20) on 16 lanes, GPU against CPU: CarParking T=100
+    and Cartpole T=150."""
+    import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch.models import car_parking, cartpole
+
+    opts = ddp.SolverOptions(debug_level=0)
+    p, x0s, u0s = bench_inputs(16, 100, np.float64, seed=3)
+    x0s = x0s + 0.05 * np.random.default_rng(4).standard_normal(x0s.shape)
+    car = same_on_cpu(car_parking.car_parking(), opts, x0s, u0s, p)
+    p, x0s, u0s = cartpole_inputs(16, T_POLE)
+    # max_iter 20 stops every lane mid swing-up (status 7), where the solve
+    # amplifies a last-bit difference (the card's sin/cos against the
+    # CPU's): a one-ulp change of lane 9's th0 moves its cost by 3.6e-8 on
+    # the CPU (the other lanes' by at most 5e-12), and the card's largest
+    # gap was 1.4e-8 on an H100; the counts are held equal all the same.
+    pole = same_on_cpu(cartpole.cartpole(), opts, x0s, u0s, p,
+                       cost_rtol=1e-6)
+    return car, pole
+
+
+def per_lane_inline():
+    """Phase 5c: inline lambda retries on the kernel path.  A retry-heavy
+    CarParking workload (tests/test_batched.py:102-127: 16 lanes, T=60,
+    u0 = 4 normal, FULL_DDP) through StepwiseSolver with inline_below=8 and
+    16 against inline_below=0 on the card: equal status and iterations,
+    cost and us as that test holds them, retries on the deferred side and
+    fewer body calls where they ran inline."""
+    import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch.models import car_parking
+
+    problem = car_parking.car_parking()
+    p, x0, _ = car_parking.default_setup(T=60)
+    x0s = np.tile(x0, (16, 1))
+    u0s = 4.0 * np.random.default_rng(11).standard_normal((16, 60, 2))
+    opts = ddp.SolverOptions(max_iter=30, full_ddp=True, debug_level=0,
+                             backpass_method="kernel",
+                             linesearch_method="kernel")
+    out = {}
+    # 8: the tail after one halving; 16: every width (here every retry
+    # falls before the first halving, so only 16 moves the retries inline)
+    for below in (0, 8, 16):
+        solver = ddp.StepwiseSolver(problem, opts, chunk=4, compact_levels=2,
+                                    min_compact_batch=4, inline_below=below,
+                                    device="cuda")
+        out[below] = timed_solve(solver, x0s, u0s, p)
+    plain = out[0][0]
+    retries = int(plain.bp_retry_calls.sum())
+    if retries <= 0:
+        fail("per-lane inline: the deferred solve made no lambda retry")
+    res = dict(lanes=16, T=60, deferred_retries=retries,
+               body_calls_deferred=int(plain.body_calls.sum()),
+               backpass_launches_deferred=out[0][2]["backpass"])
+    for below in (8, 16):
+        mixed, _, launches = out[below]
+        for f in ("status", "iterations"):
+            if not np.array_equal(getattr(plain, f), getattr(mixed, f)):
+                fail(f"per-lane inline_below={below}: {f} differs")
+        cost_rel = float(np.max(np.abs(mixed.cost - plain.cost)
+                                / np.abs(plain.cost)))
+        us_abs = float(np.max(np.abs(mixed.us - plain.us)))
+        if not (cost_rel <= 1e-12 and us_abs <= 1e-12):
+            fail(f"per-lane inline_below={below}: cost rel {cost_rel:.3g}, "
+                 f"us {us_abs:.3g}")
+        res.update({f"below{below}_attempts": int(mixed.bp_retry_calls.sum()),
+                    f"below{below}_body_calls": int(mixed.body_calls.sum()),
+                    f"below{below}_backpass_launches": launches["backpass"],
+                    f"below{below}_cost_rel_err": cost_rel,
+                    f"below{below}_us_abs_err": us_abs})
+    if res["below16_body_calls"] >= res["body_calls_deferred"]:
+        fail("per-lane inline: inline retries saved no body call")
+    return res
+
+
+def serial_vs_kernel(problem):
+    """Phase 9: the serial path against the kernel path on CarParking at
+    full width (B=2048, T=500, float64), cut to max_iter=3 (a whole eager
+    serial solve at T=500 takes minutes): per lane equal status,
+    iterations, body and stale calls, cost to a relative 1e-8; seconds per
+    body call of each (wall over the most body calls of a lane)."""
+    import ddp_generator_tpu_torch as ddp
+
+    p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float64)
+    res, sols = {}, {}
+    for path in ("serial", "kernel"):
+        opts = ddp.SolverOptions(max_iter=3, dtype="float64", debug_level=0,
+                                 backpass_method=path,
+                                 linesearch_method=path)
+        solver = ddp.StepwiseSolver(problem, opts, device="cuda")
+        s, wall, launches = timed_solve(solver, x0s, u0s, p)
+        used = sum(launches.values())
+        if (path == "serial") != (used == 0):
+            fail(f"serial_vs_kernel: the {path} path launched {launches}")
+        sols[path] = s
+        calls = int(s.body_calls.max())
+        res[f"{path}_wall_s"] = wall
+        res[f"{path}_body_calls"] = calls
+        res[f"{path}_s_per_body_call"] = wall / calls
+    a, b = sols["serial"], sols["kernel"]
+    for f in ("status", "iterations", "body_calls", "stale_calls"):
+        if not np.array_equal(getattr(a, f), getattr(b, f)):
+            n = int((getattr(a, f) != getattr(b, f)).sum())
+            fail(f"serial_vs_kernel: {f} differs in {n} lanes")
+    cost_rel = float(np.max(np.abs(a.cost - b.cost) / np.abs(b.cost)))
+    if not cost_rel <= 1e-8:
+        fail(f"serial_vs_kernel: cost rel err {cost_rel:.3g} > 1e-8")
+    return dict(B=B_MAIN, T=T_MAIN, max_iter=3, depth_cut="max_iter 200->3",
+                cost_rel_err=cost_rel,
+                status=np.bincount(a.status).tolist(), **res)
+
+
+def cartpole_path(serial: bool):
+    """Phase 10: the Cartpole swing-up at full width (B=2048, T=150,
+    max_iter=150): with the default options (serial, float64), or through
+    B3 and B2 in float32 (tolFun 1e-5).  Solved lanes must end in the
+    upright basin at the reference's share and within the force limits."""
+    import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch.models import cartpole
+
+    what = "cartpole serial" if serial else "cartpole fused"
+    # float32 takes tolFun=1e-5, as the main path does: a float32 cost of
+    # ~0.3 moves by ~3e-8 a rounding, below the 1e-7 of float64's default
+    kw = (dict() if serial else
+          dict(dtype="float32", tolFun=1e-5, backpass_method="fused",
+               linesearch_method="kernel"))
+    opts = ddp.SolverOptions(max_iter=MAX_ITER_POLE, debug_level=0, **kw)
+    np_dtype = np.float64 if serial else np.float32
+    p, x0s, u0s = cartpole_inputs(B_MAIN, T_POLE, np_dtype)
+    solver = ddp.StepwiseSolver(cartpole.cartpole(), opts, device="cuda")
+    s, wall, launches = timed_solve(solver, x0s, u0s, p)
+    want = set() if serial else {"fused", "rollout_multi",
+                                 "rollout_selected"}
+    for name, n in launches.items():
+        if (n > 0) != (name in want):
+            fail(f"{what}: kernel {name} was launched {n} times")
+    if s.xs.shape != (B_MAIN, T_POLE + 1, 4) or not np.all(
+            np.isfinite(s.cost)):
+        fail(f"{what}: shape {s.xs.shape} or non-finite costs")
+    ok = np.isin(s.status, (1, 2))
+    solved = float(ok.mean())
+    upright = np.cos(s.xs[:, -1, 1]) > 0.98
+    upright_share = float(upright[ok].mean()) if ok.any() else 0.0
+    u_max = float(np.abs(s.us[ok]).max()) if ok.any() else 0.0
+    if solved < SOLVED_MIN:
+        fail(f"{what}: solved share {solved:.4f} < {SOLVED_MIN}")
+    if upright_share < UPRIGHT_MIN:
+        fail(f"{what}: upright share of solved lanes {upright_share:.4f} < "
+             f"{UPRIGHT_MIN}")
+    if u_max > 15.0 * (1 + 1e-6):
+        fail(f"{what}: |u| reaches {u_max} > 15")
+    body = int(s.body_calls.max())
+    return dict(B=B_MAIN, T=T_POLE, max_iter=MAX_ITER_POLE,
+                dtype=opts.dtype, wall_s=wall, solves_per_s=B_MAIN / wall,
+                solved_pct=100 * solved,
+                exhausted_pct=100 * float((s.status == 7).mean()),
+                status=np.bincount(s.status, minlength=8).tolist(),
+                upright_pct_of_solved=100 * upright_share,
+                max_abs_u=u_max, mean_iters=float(s.iterations.mean()),
+                mean_body_calls=float(s.body_calls.mean()),
+                max_body_calls=body, s_per_body_call=wall / body,
+                mean_cost=float(s.cost[ok].mean()), launches=launches)
+
+
 def main() -> int:
     try:
         import torch
@@ -621,7 +836,7 @@ def main() -> int:
     try:
         import ddp_generator_tpu_torch as ddp
         from ddp_generator_tpu_torch import _build
-        from ddp_generator_tpu_torch.models import car_parking
+        from ddp_generator_tpu_torch.models import car_parking, cartpole
     except ImportError as e:
         print(f"the port is not importable from here: {e}", file=sys.stderr)
         return 2
@@ -687,9 +902,9 @@ def main() -> int:
 
     # 4b/4c. B3 against its plain version: CarParking on phase 3's
     # operands, brachistochrone_hli with every AL term live
-    fu32, b3_args = check_fused_car(problem, p32, r32, m32, w32, lam32, 10)
+    fu32, b3_args = check_fused_model(problem, p32, r32, m32, w32, lam32, 10)
     line("fused_f32", N=T_MAIN, **fu32)
-    fu64, _ = check_fused_car(problem, p64, r64, m64, w64, lam64, 3)
+    fu64, _ = check_fused_model(problem, p64, r64, m64, w64, lam64, 3)
     line("fused_f64", N=T_MAIN, **fu64)
     line("fused_brachi_f64", N=N_BRACHI, **check_fused_brachi(5))
 
@@ -698,10 +913,37 @@ def main() -> int:
         line("widths_f32", B=w, N=T_MAIN, **d)
     del out32, out64, r32, r64, b1_args, b3_args, b2_args
 
+    # 4e. Cartpole's instantiations of B1 (4, 1), B2 and B3 against their
+    # plain versions, on its swing-up's initial rollout
+    pole = cartpole.cartpole()
+    pole_kernels = {}
+    for dtype, B, reps in ((torch.float32, B_MAIN, 10),
+                           (torch.float64, 256, 3)):
+        key = str(dtype).replace("torch.", "")
+        b1, (p_, r_, m_, w_, out_, lam_, _) = check_backpass(
+            pole, B, T_POLE, dtype, TOL_B1[key], reps, rng,
+            inputs=cartpole_inputs)
+        line("cartpole_kernels", kernel="backpass", **b1)
+        ro, _ = check_rollout(pole, alphas, p_, r_, m_, w_, out_,
+                              TOL_ROLLOUT[key], reps)
+        for mode, d in ro.items():
+            line("cartpole_kernels", kernel=f"rollout_{mode}", B=B,
+                 N=T_POLE, dtype=key, **d)
+        fu, _ = check_fused_model(pole, p_, r_, m_, w_, lam_, reps)
+        line("cartpole_kernels", kernel="fused", N=T_POLE, dtype=key, **fu)
+        pole_kernels[key] = dict(ro, fused=fu)
+        del p_, r_, m_, w_, out_, lam_
+
     # 5. per-lane checks, kernels on the GPU vs plain on the CPU
     line("per_lane", **per_lane_check(problem))
     line("per_lane_fused", **per_lane_check(problem, "fused"))
     line("per_lane_fused_brachi", **per_lane_brachi())
+    # 5b. the serial path (default options), GPU vs CPU; inline retries
+    car, pole_lanes = per_lane_serial()
+    line("per_lane_serial", model="car_parking", **car)
+    line("per_lane_serial", model="cartpole", **pole_lanes)
+    line("per_lane_serial", model="car_parking", path="kernel_inline",
+         **per_lane_inline())
 
     # 6. the main path: emission + B1, B2
     stats = main_path(problem)
@@ -721,9 +963,20 @@ def main() -> int:
     line("brachi_path", **bstats, **{f"launches_{k}": v
                                      for k, v in blaunches.items()})
 
-    def entry(name, source, replaces, n, d):
+    # 9. the serial path against the kernel path at full width, 3 deep
+    line("serial_vs_kernel", **serial_vs_kernel(problem))
+
+    # 10. the Cartpole swing-up at full width: serial float64, then B3 + B2
+    # in float32
+    for serial in (True, False):
+        cstats = cartpole_path(serial)
+        claunches = cstats.pop("launches")
+        line("cartpole_path", path="serial" if serial else "fused",
+             **cstats, **{f"launches_{k}": v for k, v in claunches.items()})
+
+    def entry(name, source, replaces, n, d, model="car_parking"):
         # no single PyTorch call computes any of these: library_ms is null
-        return dict(name=name, route="cuda",
+        return dict(name=name, model=model, route="cuda",
                     source=f"ddp_generator_tpu_torch/csrc/{source}",
                     replaces=f"ddp_generator_tpu/ops/{replaces}", launches=n,
                     max_abs_err=d["max_abs_err"], ms=d["ms"],
@@ -739,6 +992,16 @@ def main() -> int:
                              launches[f"rollout_{mode}"], ro32[mode]))
     kernels.append(entry("fused", "fused.cu", "pallas_fused.py:715",
                          flaunches["fused"], fu32))
+    # Cartpole's instantiations, with their launches on the fused
+    # cartpole_path (the last solve above)
+    for mode in ("multi", "selected"):
+        kernels.append(entry(f"rollout_{mode}", "rollout.cu",
+                             "pallas_rollout.py:424",
+                             claunches[f"rollout_{mode}"],
+                             pole_kernels["float32"][mode], "cartpole"))
+    kernels.append(entry("fused", "fused.cu", "pallas_fused.py:715",
+                         claunches["fused"],
+                         pole_kernels["float32"]["fused"], "cartpole"))
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,11 @@ H100.  It imports no JAX.  The solver's kernels are hand-written CUDA for
 (B2) and the fused derivatives + backward pass (B3,
 ``backpass_method="fused"``), built with ``nvcc`` at first use on a CUDA
 device; on the CPU the same entry points run their plain PyTorch versions.
-Models: ``models.car_parking`` and ``models.brachistochrone``.
+The default options run the serial path, eager PyTorch on either device
+(``ops/backpass.py``, ``ops/boxqp.py``, ``ops/chol.py``,
+``ops/linesearch.py``), as the JAX package's default runs ``lax.scan``.
+Models: ``models.car_parking``, ``models.brachistochrone`` and
+``models.cartpole``.
 
 Quick start::
 
@@ -25,8 +29,18 @@ Quick start::
 from .al import Multipliers, init_multipliers, update_multipliers
 from .convert import params_from_jax, to_numpy, to_torch
 from .derivs import DerivBundle, batched_calc_derivs, calc_derivs
-from .models import brachistochrone, car_parking
+from .models import brachistochrone, car_parking, cartpole
+from .ops.backpass import BackPassResult, back_pass
+from .ops.boxqp import (
+    BoxQPHyper,
+    BoxQPResult,
+    boxqp,
+    boxqp_enumerate,
+    boxqp_newton,
+)
+from .ops.chol import ModCholResult, mod_chol, mod_chol_perturb
 from .ops.cuda_fused import fused_derivs_back_pass
+from .ops.linesearch import LineSearchResult, line_search
 from .options import DEFAULT_ALPHA, OptionError, SolverOptions, options_from_dict
 from .problem import (
     PER_STEP,
@@ -59,10 +73,15 @@ from .solver import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "BackPassResult",
     "BoxConstraint",
+    "BoxQPHyper",
+    "BoxQPResult",
     "CudaModel",
     "DEFAULT_ALPHA",
     "DerivBundle",
+    "LineSearchResult",
+    "ModCholResult",
     "Multipliers",
     "OptionError",
     "PER_STEP",
@@ -79,17 +98,25 @@ __all__ = [
     "Solution",
     "SolverOptions",
     "StepwiseSolver",
+    "back_pass",
     "batched_calc_derivs",
+    "boxqp",
+    "boxqp_enumerate",
+    "boxqp_newton",
     "brachistochrone",
     "calc_derivs",
     "car_parking",
+    "cartpole",
     "clamp_u",
     "fused_derivs_back_pass",
     "init_multipliers",
     "limits_u",
+    "line_search",
     "make_batched_solver",
     "make_problem",
     "make_stepwise_solver",
+    "mod_chol",
+    "mod_chol_perturb",
     "options_from_dict",
     "params_from_jax",
     "solve",

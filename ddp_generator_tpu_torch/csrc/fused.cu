@@ -34,6 +34,7 @@
 #include "fused.cuh"
 #include "models/brachistochrone.cuh"
 #include "models/car_parking.cuh"
+#include "models/cartpole.cuh"
 #include "staged.cuh"
 
 #include <string.h>
@@ -140,6 +141,7 @@ int visit(const char* model, int reg_type, bool full_ddp, F f) {
     return kBadVariant;
   };
   if (strcmp(model, "car_parking") == 0) return variants(CarParking());
+  if (strcmp(model, "cartpole") == 0) return variants(Cartpole());
   if (strcmp(model, "brachistochrone") == 0)
     return variants(Brachistochrone());
   if (strcmp(model, "brachistochrone_hli") == 0)
@@ -175,9 +177,9 @@ int launch(const char* model, int reg_type, bool full_ddp, int N, int B,
 // ptrs: x, u, mu_le, mu_li, xf, w_pen_l, w_pen_f, lam, mu_fe, mu_fi,
 // params, then the outputs l, L, dV, g_norm, failed, derivs_ok (the mu_*
 // NULL where the model's AL family is empty).  model: a CUDA model name
-// ("car_parking", "brachistochrone", "brachistochrone_hli").  dtype: 0
-// float32, 1 float64.  Launches on `stream`, does not synchronize, returns
-// cudaGetLastError() or a negative ddp code.
+// ("car_parking", "cartpole", "brachistochrone", "brachistochrone_hli").
+// dtype: 0 float32, 1 float64.  Launches on `stream`, does not
+// synchronize, returns cudaGetLastError() or a negative ddp code.
 extern "C" int ddp_fused(int dtype, const char* model, int reg_type,
                          int full_ddp, int N, int B, void* const* ptrs,
                          void* stream) {

@@ -46,6 +46,7 @@
 #include "common.cuh"
 #include "models/brachistochrone.cuh"
 #include "models/car_parking.cuh"
+#include "models/cartpole.cuh"
 #include "rollout.cuh"
 #include "staged.cuh"
 
@@ -208,6 +209,7 @@ int visit(const char* model, bool multi, bool want_cost, F f) {
     return f(Variant<M, T, false, false>());
   };
   if (strcmp(model, "car_parking") == 0) return modes(CarParking());
+  if (strcmp(model, "cartpole") == 0) return modes(Cartpole());
   if (strcmp(model, "brachistochrone") == 0) return modes(Brachistochrone());
   if (strcmp(model, "brachistochrone_hli") == 0)
     return modes(BrachistochroneHli());
@@ -251,9 +253,9 @@ int launch(const char* model, bool multi, bool want_cost, int N, int B,
 // ptrs: xnom, unom, l, L, mu_le, mu_li, x0, w_pen_l, w_pen_f, mu_fe, mu_fi,
 // alpha, params, then the outputs cost, ok, xs, xf, us (NULL where a mode
 // or an empty AL family has none).  model: a CUDA model name
-// ("car_parking", "brachistochrone", "brachistochrone_hli").  dtype: 0
-// float32, 1 float64.  block: checked and otherwise unused; the block's
-// shape follows from the tile constants (rollout.cuh).  Launches on
+// ("car_parking", "cartpole", "brachistochrone", "brachistochrone_hli").
+// dtype: 0 float32, 1 float64.  block: checked and otherwise unused; the
+// block's shape follows from the tile constants (rollout.cuh).  Launches on
 // `stream`, does not synchronize, returns cudaGetLastError() or a negative
 // ddp code.
 extern "C" int ddp_rollout(int dtype, const char* model, int multi,

@@ -1,4 +1,4 @@
-"""Derivative bundles via ``torch.func`` (``ddp_generator_tpu.derivs``).
+"""Derivative bundles (``ddp_generator_tpu.derivs``).
 
 Per running step ``k`` (names as in the reference ``trajEl_t``):
 ``fx (n_x,n_x)``, ``fu (n_x,n_u)``; ``fxx (n_x,n_x,n_x)``, ``fuu``, ``fxu``
@@ -6,10 +6,12 @@ when FULL_DDP; ``cx, cu, cxx, cuu, cxu`` of the AL-augmented running cost;
 the input box bounds ``lower/upper/lower_hx/upper_hx/lower_sign/upper_sign``.
 Final stage: ``cx``, ``cxx`` of the AL-augmented final cost.
 
-:func:`calc_derivs` differentiates one instance with ``jacfwd``/``grad``
-under ``vmap`` over the horizon; :func:`batched_calc_derivs` maps it over a
-leading batch axis.  The solver's hot path does not use it: it emits the
-packed component-major bundle of ``ops/cm_derivs.py`` instead.
+:func:`batched_calc_derivs` gives the bundle of a batch, step-major with a
+leading lane axis, as the serial backward pass (``ops/backpass.py``) reads
+it: it unpacks the emission of ``ops/cm_derivs.py`` (reverse mode on the
+whole ``(comp, N, B)`` plane, a sixth of the host time of ``torch.func``'s
+``vmap`` of ``jacfwd`` per step).  :func:`calc_derivs` is its one-instance
+case.
 """
 
 from __future__ import annotations
@@ -17,10 +19,10 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
-from torch.func import grad, jacfwd, vmap
 
-from .al import augmented_F, augmented_L
-from .problem import Problem, limits_u
+from .ops.cm_derivs import batched_calc_derivs_cm
+from .ops.cuda_backpass import _unpack_sym, tri_size
+from .problem import Problem
 
 Tensor = torch.Tensor
 
@@ -66,63 +68,63 @@ def calc_derivs(
     mu_li: Tensor,
     mu_fe: Tensor,  # (n_hfe,)
     mu_fi: Tensor,
-    w_pen_l: Tensor,
-    w_pen_f: Tensor,
+    w_pen_l,
+    w_pen_f,
     full_ddp: bool,
 ) -> DerivBundle:
     """Differentiate dynamics and cost along one nominal trajectory
-    (generated ``calc_derivs``, ``iLQG_func.tem:187-221``).  ``ok`` is the
-    NaN/Inf guard (``genenerator_main.mac:193-198``)."""
-    N = us.shape[0]
-    n_x, n_u = problem.n_x, problem.n_u
-    dtype, dev = us.dtype, us.device
-
-    def L_aug(x, u, k, mle, mli):
-        return augmented_L(problem, x, u, p, k, mle, mli, w_pen_l)
-
-    def f_fn(x, u, k):
-        return problem.f(x, u, p, k)
-
-    def step(k, x, u, mle, mli):
-        fx = jacfwd(f_fn, argnums=0)(x, u, k)
-        fu = jacfwd(f_fn, argnums=1)(x, u, k)
-        cx = grad(L_aug, argnums=0)(x, u, k, mle, mli)
-        cu = grad(L_aug, argnums=1)(x, u, k, mle, mli)
-        cxx = jacfwd(grad(L_aug, argnums=0), argnums=0)(x, u, k, mle, mli)
-        cuu = jacfwd(grad(L_aug, argnums=1), argnums=1)(x, u, k, mle, mli)
-        cxu = jacfwd(grad(L_aug, argnums=0), argnums=1)(x, u, k, mle, mli)
-        if full_ddp:
-            fxx = jacfwd(jacfwd(f_fn, argnums=0), argnums=0)(x, u, k)
-            fuu = jacfwd(jacfwd(f_fn, argnums=1), argnums=1)(x, u, k)
-            fxu = jacfwd(jacfwd(f_fn, argnums=0), argnums=1)(x, u, k)
-        else:
-            fxx = fuu = fxu = x.new_zeros((0, 0, 0))
-        lo, up, lo_hx, up_hx, lo_s, up_s = limits_u(problem, x, u, p, k)
-        return (fx, fu, cx, cu, cxx, cuu, cxu, fxx, fuu, fxu,
-                lo, up, lo_hx, up_hx, lo_s, up_s)
-
-    ks = torch.arange(N, device=dev)
-    sd = StepDerivs(*vmap(step)(ks, xs[:N], us, mu_le, mu_li))
-    if not full_ddp:
-        z = torch.zeros((N, 0, 0, 0), dtype=dtype, device=dev)
-        sd = sd._replace(fxx=z, fuu=z, fxu=z)
-
-    def F_aug(x):
-        return augmented_F(problem, x, p, N, mu_fe, mu_fi, w_pen_f)
-
-    cx_f = grad(F_aug)(xs[N])
-    cxx_f = jacfwd(grad(F_aug))(xs[N])
-    ok = torch.ones((), dtype=torch.bool, device=dev)
-    for a in (sd.fx, sd.fu, sd.cx, sd.cu, sd.cxx, sd.cuu, sd.cxu,
-              sd.fxx, sd.fuu, sd.fxu, cx_f, cxx_f):
-        ok = ok & torch.isfinite(a).all()
-    return DerivBundle(step=sd, final=FinalDerivs(cx=cx_f, cxx=cxx_f), ok=ok)
+    (generated ``calc_derivs``, ``iLQG_func.tem:187-221``): the one-lane
+    case of :func:`batched_calc_derivs`.  ``ok`` is the NaN/Inf guard
+    (``genenerator_main.mac:193-198``)."""
+    w = [torch.as_tensor(v, dtype=us.dtype, device=us.device).reshape(1)
+         for v in (w_pen_l, w_pen_f)]
+    d = batched_calc_derivs(problem, xs[None], us[None], p, mu_le[None],
+                            mu_li[None], mu_fe[None], mu_fi[None], *w,
+                            full_ddp)
+    return DerivBundle(step=StepDerivs(*(f[0] for f in d.step)),
+                       final=FinalDerivs(*(f[0] for f in d.final)),
+                       ok=d.ok[0])
 
 
 def batched_calc_derivs(problem, xs, us, p, mu_le, mu_li, mu_fe, mu_fi,
                         w_pen_l, w_pen_f, full_ddp) -> DerivBundle:
-    """:func:`calc_derivs` over a leading batch axis (shared params)."""
-    return vmap(
-        lambda xs_, us_, mle, mli, mfe, mfi, wl, wf: calc_derivs(
-            problem, xs_, us_, p, mle, mli, mfe, mfi, wl, wf, full_ddp)
-    )(xs, us, mu_le, mu_li, mu_fe, mu_fi, w_pen_l, w_pen_f)
+    """:func:`calc_derivs` of every lane (shared params), step-major:
+    ``xs (B, N+1, n_x)``, ``us (B, N, n_u)``, ``mu_le (B, N, n_hle)``,
+    ``mu_fe (B, n_hfe)``, ``w_pen_* (B,)``; every field gains a leading
+    ``B``."""
+    B, N = us.shape[0], us.shape[1]
+    n_x, n_u = problem.n_x, problem.n_u
+    sd_cm, fcx, fcxx, ok = batched_calc_derivs_cm(
+        problem, xs, us, p, mu_le, mu_li, mu_fe, mu_fi, w_pen_l, w_pen_f,
+        full_ddp)
+
+    def lanes(a, *shape):  # (prod(shape), N, B) -> (B, N, *shape)
+        a = a.reshape(shape + (N, B))
+        return a.permute((len(shape) + 1, len(shape))
+                         + tuple(range(len(shape))))
+
+    def sym(a, n):  # packed upper triangle -> (B, N, n, n)
+        return lanes(_unpack_sym(a, n).reshape(n * n, N, B), n, n)
+
+    def tensor3(key, n):  # (n_x * tri(n), N, B) -> (B, N, n_x, n, n)
+        rows = sd_cm[key].reshape(n_x, tri_size(n), N, B)
+        return lanes(torch.stack([_unpack_sym(r, n) for r in rows]).reshape(
+            n_x * n * n, N, B), n_x, n, n)
+
+    if full_ddp:
+        fxx, fuu = tensor3("fxx", n_x), tensor3("fuu", n_u)
+        fxu = lanes(sd_cm["fxu"], n_x, n_x, n_u)
+    else:
+        fxx = fuu = fxu = us.new_zeros((B, N, 0, 0, 0))
+    sd = StepDerivs(
+        fx=lanes(sd_cm["fx"], n_x, n_x), fu=lanes(sd_cm["fu"], n_x, n_u),
+        cx=lanes(sd_cm["cx"], n_x), cu=lanes(sd_cm["cu"], n_u),
+        cxx=sym(sd_cm["cxx"], n_x), cuu=sym(sd_cm["cuu"], n_u),
+        cxu=lanes(sd_cm["cxu"], n_x, n_u), fxx=fxx, fuu=fuu, fxu=fxu,
+        lower=lanes(sd_cm["lower"], n_u), upper=lanes(sd_cm["upper"], n_u),
+        lower_hx=lanes(sd_cm["lower_hx"], n_u, n_x),
+        upper_hx=lanes(sd_cm["upper_hx"], n_u, n_x),
+        lower_sign=lanes(sd_cm["lower_sign"], n_u),
+        upper_sign=lanes(sd_cm["upper_sign"], n_u))
+    final = FinalDerivs(cx=fcx.T, cxx=fcxx.T.reshape(B, n_x, n_x))
+    return DerivBundle(step=sd, final=final, ok=ok)

@@ -37,26 +37,18 @@ the kernel (or raises) for CUDA tensors.
 from __future__ import annotations
 
 import ctypes
-import itertools
-from typing import NamedTuple
 
 import torch
 
 from .. import _build
+from .backpass import BackPassResult
+from .boxqp import _patterns
 
 Tensor = torch.Tensor
 
 # (n_x, n_u) pairs instantiated in csrc/backpass.cu: CarParking, Cartpole,
 # Brachistochrone.
 KERNEL_SHAPES = ((4, 2), (4, 1), (1, 1))
-
-
-class BackPassResult(NamedTuple):
-    l: Tensor  # (B, N, n_u) feedforward
-    L: Tensor  # (B, N, n_u, n_x) feedback
-    dV: Tensor  # (B, 2) expected-reduction coefficients
-    g_norm: Tensor  # (B,)
-    failed: Tensor  # (B,) bool
 
 
 def tri_size(n: int) -> int:
@@ -70,13 +62,6 @@ def tri_index(a: int, b: int, n: int) -> int:
     ``fxx``/``fuu`` in the bundle."""
     assert a <= b
     return a * n - a * (a - 1) // 2 + (b - a)
-
-
-def _patterns(n_u: int):
-    """Clamp patterns (0 free, 1 at lower, 2 at upper) in enumeration order:
-    sorted by the number of clamped inputs, product order within."""
-    return sorted(itertools.product((0, 1, 2), repeat=n_u),
-                  key=lambda pat: sum(1 for v in pat if v))
 
 
 def _unpack_sym(packed: Tensor, n: int) -> Tensor:

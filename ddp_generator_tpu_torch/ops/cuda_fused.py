@@ -58,7 +58,8 @@ Tensor = torch.Tensor
 
 # CUDA models instantiated in csrc/fused.cu (each with regType 1/2, FULL_DDP
 # on/off, float32/float64).
-KERNEL_MODELS = ("car_parking", "brachistochrone", "brachistochrone_hli")
+KERNEL_MODELS = ("car_parking", "cartpole", "brachistochrone",
+                 "brachistochrone_hli")
 
 
 def fused_derivs_back_pass_plain(problem: Problem, xs, us, mu_le, mu_li,

@@ -56,9 +56,14 @@ import torch
 from .. import _build
 from ..al import _eq_penalty, _ineq_penalty
 from ..problem import Problem
-from .linesearch import LineSearchResult
+from .linesearch import LineSearchResult, first_accept
 
 Tensor = torch.Tensor
+
+# CUDA models instantiated in csrc/rollout.cu (each in both modes,
+# float32/float64).
+KERNEL_MODELS = ("car_parking", "cartpole", "brachistochrone",
+                 "brachistochrone_hli")
 
 # ``ddp_rollout``'s block-size argument: checked, otherwise unused (the
 # block's shape follows from the tile constants in ``csrc/rollout.cuh``).
@@ -166,6 +171,10 @@ def rollout_call(problem: Problem, alphas: Sequence[float], xnom_cm, unom_cm,
         raise NotImplementedError(
             f"problem {problem.name!r} names no CUDA model "
             "(Problem.cuda_model): the rollout kernel cannot run it")
+    if model.name not in KERNEL_MODELS:
+        raise NotImplementedError(
+            f"problem {problem.name!r}: the rollout kernel is instantiated "
+            f"for the CUDA models {KERNEL_MODELS}, not {model.name!r}")
     N, n_x, B = xnom_cm.shape
     n_u = unom_cm.shape[1]
     A = len(alphas)
@@ -297,17 +306,8 @@ class _LSCtx:
 def _select_first_accept(alphas, costs, ok, ctx: _LSCtx, z_min: float):
     """First accepted alpha per lane (``line_search.c:41-54``).  Returns
     ``(idx, any_ok, dcost, expected, z, al (A, 1))``."""
-    A = len(alphas)
     al = torch.tensor(alphas, dtype=ctx.dtype, device=ctx.device)[:, None]
-    dcost = ctx.cost[None, :] - costs
-    expected = -al * (ctx.dV[:, 0][None, :] + al * ctx.dV[:, 1][None, :])
-    pos = expected > 0.0
-    z = torch.where(pos, dcost / torch.where(pos, expected, 1.0), 0.0)
-    accepted = ok & (z > z_min)
-    idx_first = accepted.to(torch.int32).argmax(0)
-    any_ok = accepted.any(0)
-    idx = torch.where(any_ok, idx_first, A - 1)
-    return idx, any_ok, dcost, expected, z, al
+    return first_accept(al, costs, ok, ctx.cost, ctx.dV, z_min) + (al,)
 
 
 def _traj_out(xs_cm, xf_cm, us_cm):

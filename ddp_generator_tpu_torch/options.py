@@ -80,20 +80,25 @@ class SolverOptions:
     boxqp_min_step: float = 1e-22
     boxqp_armijo: float = 0.1
     boxqp_method: str = "auto"
-    # "kernel": the whole backward pass as one hand-written CUDA kernel on a
-    # CUDA device, its plain PyTorch version on the CPU
-    # (ops/cuda_backpass.py).  "serial", "parallel" and "fused" validate but
-    # are not ported yet: the solver raises NotImplementedError for them.
+    # "serial": the step-major derivatives and the eager backward pass of
+    # ops/backpass.py (boxQP ops/boxqp.py, MOD_CHOL ops/chol.py), on either
+    # device.  "kernel": derivative emission, then the whole backward pass
+    # as one hand-written CUDA kernel (B1, ops/cuda_backpass.py) on a CUDA
+    # device, its plain PyTorch version on the CPU.  "fused": derivatives
+    # and backward pass in one CUDA kernel (B3, ops/cuda_fused.py).
+    # "parallel" validates but is not ported yet: the solver raises
+    # NotImplementedError for it.
     backpass_method: str = "serial"
-    # "kernel": the multi-alpha line search as the two rollout modes of the
-    # hand-written CUDA kernel (ops/cuda_rollout.py).  "serial" validates but
-    # is not ported yet.
+    # "serial": every alpha rolled out by ops/forward.py at once
+    # (ops/linesearch.py).  "kernel": the multi-alpha line search as the two
+    # rollout modes of the hand-written CUDA kernel (B2, ops/cuda_rollout.py).
     linesearch_method: str = "serial"
     # Staged kernel line search: roll alpha[0] first, the full sweep only
     # when some live lane rejects it.  Per-lane results are identical.
     linesearch_staged: bool = True
     # "deferred": a failed backward pass escalates lambda and the lane
-    # retries on the next body call.  "inline" validates but is not ported.
+    # retries on the next body call.  "inline": the retries run inside the
+    # body call, re-running only the backward pass (iLQG.c:261-284).
     lam_retry: str = "deferred"
     derivs_emitter: str = "per-family"
     scan_unroll: int = 1

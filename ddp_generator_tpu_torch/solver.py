@@ -2,11 +2,14 @@
 
 One body call is one masked outer iteration of every lane of the batch
 (``iLQG.c:239-361``): the derivatives and the backward pass -- with
-``backpass_method="kernel"`` derivative emission into the packed
-component-major bundle (``ops/cm_derivs.py``) then kernel B1, with
-``"fused"`` kernel B3, which computes the derivatives inside the backward
-pass (``ops/cuda_fused.py``) -- the gradient-tolerance exit, the staged line
-search (kernel B2), then the accept/reject updates.  The JAX package writes
+``backpass_method="serial"`` the step-major bundle (``derivs.py``) and the
+reverse loop of ``ops/backpass.py``, with ``"kernel"`` derivative emission
+into the packed component-major bundle (``ops/cm_derivs.py``) then kernel
+B1, with ``"fused"`` kernel B3, which computes the derivatives inside the
+backward pass (``ops/cuda_fused.py``) -- the lambda retries
+(``lam_retry``), the gradient-tolerance exit, the line search (serial,
+``ops/linesearch.py``, or kernel B2), then the accept/reject updates.  The
+JAX package writes
 one lane and ``vmap``s it, with ``custom_vmap`` rules that hand the batch
 to its kernels; here the batch dimension is written out, every masked
 update is a ``torch.where`` per lane, and a lane whose loop condition is
@@ -30,10 +33,14 @@ import torch
 from . import solution as sol
 from .al import Multipliers, init_multipliers, update_multipliers
 from .convert import to_torch
+from .derivs import batched_calc_derivs
+from .ops.backpass import back_pass
+from .ops.boxqp import BoxQPHyper
 from .ops.cm_derivs import cm_back_pass_from_bundle, cm_emit
 from .ops.cuda_fused import fused_derivs_back_pass
 from .ops.cuda_rollout import kernel_line_search, kernel_line_search_staged
 from .ops.forward import cost_only, forward_pass
+from .ops.linesearch import line_search
 from .options import SolverOptions
 from .problem import Problem
 from .solution import Solution
@@ -98,29 +105,67 @@ def _lane_where(mask: Tensor, a, b):
 def _check_ported(problem: Problem, o: SolverOptions) -> None:
     """Raise for options that validate but whose code is not ported yet,
     naming the ROADMAP item that ports it."""
-    if o.backpass_method not in ("kernel", "fused"):
+    if o.backpass_method == "parallel":
         raise NotImplementedError(
-            f"backpass_method={o.backpass_method!r} is not ported yet "
-            "(ROADMAP.md queue A: the serial path backpass/boxqp/chol, "
-            "parallel_riccati); use 'kernel' or 'fused'")
-    if o.linesearch_method != "kernel":
-        raise NotImplementedError(
-            f"linesearch_method={o.linesearch_method!r} is not ported yet "
-            "(ROADMAP.md queue A: the serial path); use 'kernel'")
-    if o.lam_retry != "deferred":
-        raise NotImplementedError(
-            "lam_retry='inline' is not ported yet (ROADMAP.md queue A: "
-            "inline retries and inline_below)")
-    # the fused path computes its derivatives itself: no emitter to choose
+            "backpass_method='parallel' is not ported yet (ROADMAP.md queue "
+            "A item 8: parallel_riccati); use 'serial', 'kernel' or 'fused'")
+    # the serial and fused paths compute their derivatives themselves: no
+    # emitter to choose
     if o.backpass_method == "kernel" and o.derivs_emitter != "per-family":
         raise NotImplementedError(
-            "derivs_emitter='shared' is not ported (the port emits per "
-            "family only)")
+            "derivs_emitter='shared' is not ported yet (ROADMAP.md queue A "
+            "item 10: emission); the port emits per family")
     if o.dtype not in _DTYPES:
         raise ValueError(f"dtype must be float32|float64, got {o.dtype!r}")
-    if problem.n_u > 3:
+    if o.backpass_method in ("kernel", "fused") and problem.n_u > 3:
         raise ValueError(f"backpass_method={o.backpass_method!r} supports "
                          "n_u <= 3")
+
+
+def _boxqp_hyper(o: SolverOptions) -> BoxQPHyper:
+    # "auto" resolves the boxQP tolerances per dtype as the JAX package
+    # does: the reference values (boxQP.c:52-57) are calibrated for double
+    # precision; in float32 a QP warm-started at its optimum cannot drive
+    # its gradient below ~eps*|g| ~ 1e-8.  Explicit floats are used as given.
+    f32 = o.dtype == "float32"
+    min_grad = o.boxqp_min_grad
+    if min_grad == "auto":
+        min_grad = 1e-5 if f32 else 1e-8
+    min_rel_improve = o.boxqp_min_rel_improve
+    if min_rel_improve == "auto":
+        min_rel_improve = 1e-6 if f32 else 1e-8
+    return BoxQPHyper(
+        max_iter=o.boxqp_max_iter, min_grad=min_grad,
+        min_rel_improve=min_rel_improve, step_dec=o.boxqp_step_dec,
+        min_step=o.boxqp_min_step, armijo=o.boxqp_armijo,
+        method=o.boxqp_method, use_mod_chol=o.use_mod_chol)
+
+
+def _lam_retry_loop(bp_call, bp0, lam0: Tensor, dlam0: Tensor, can: Tensor,
+                    o: SolverOptions):
+    """The reference's inner lambda-escalation loop (``iLQG.c:261-284``),
+    batched: a failed backward pass escalates lambda and re-runs ONLY the
+    backward pass (``bp_call(lam)``, closed over the frozen derivatives).
+
+    One host read of ``any(cont)`` per retry; each retry runs ``bp_call``
+    on the whole batch and keeps its result on the lanes that retried.  Per
+    lane the (lambda, attempt) sequence is that of ``lam_retry="deferred"``.
+    Returns ``(bp, lam, dlam, n_attempts)``; a lane that exhausts the
+    schedule keeps ``bp.failed`` with lambda past ``lambdaMax``."""
+    lam, dlam, bp = lam0, dlam0, bp0
+    cont = bp0.failed & can
+    n = torch.zeros_like(cont, dtype=torch.int32)
+    while bool(cont.any()):
+        dlam_f = torch.clamp(dlam * o.lambdaFactor, min=o.lambdaFactor)
+        lam_f = torch.clamp(lam * dlam_f, min=o.lambdaMin)
+        do = cont & ~(lam_f > o.lambdaMax)
+        bp1 = bp_call(lam_f)
+        bp = _lane_where(do, bp1, bp)
+        lam = torch.where(cont, lam_f, lam)
+        dlam = torch.where(cont, dlam_f, dlam)
+        cont = do & bp1.failed
+        n = n + do.to(torch.int32)
+    return bp, lam, dlam, n
 
 
 def _same_device(t: Tensor, device: torch.device) -> bool:
@@ -162,6 +207,8 @@ def _make_parts(problem: Problem, options: SolverOptions, device):
     n_log = max(o.max_iter, 1)
     has_al = (problem.n_hle + problem.n_hli + problem.n_hfe
               + problem.n_hfi) > 0
+    hyper = _boxqp_hyper(o)
+    inline = o.lam_retry == "inline"
     i32 = torch.int32
 
     def full(B, v, dt=dtype):
@@ -169,18 +216,38 @@ def _make_parts(problem: Problem, options: SolverOptions, device):
 
     def derivs_back_pass(c: _Carry, w_pen_l_d, w_pen_f_d, params):
         """Derivatives at the nominal trajectory and one backward-pass
-        attempt: ``(BackPassResult, derivs_ok (B,))``."""
+        attempt: ``(bp_call, BackPassResult, derivs_ok (B,))``, where
+        ``bp_call(lam)`` re-runs only the backward pass on the same
+        derivatives (the inline lambda retries)."""
         m = c.mult
         if o.backpass_method == "fused":
-            return fused_derivs_back_pass(
+            # B3 re-derives the bundle per attempt (it never exists in
+            # memory): a retry re-launches the kernel on unchanged inputs.
+            def bp_call(lam):
+                return fused_derivs_back_pass(
+                    problem, c.xs, c.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi,
+                    w_pen_l_d, w_pen_f_d, lam, params, o.regType, o.full_ddp)
+            bp, d_ok = bp_call(c.lam)
+            return lambda lam: bp_call(lam)[0], bp, d_ok
+        if o.backpass_method == "kernel":
+            # emission once; a retry re-runs B1 on the same bundle
+            sd_cm, fcx, fcxx, us_cm, d_ok = cm_emit(
                 problem, c.xs, c.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi,
-                w_pen_l_d, w_pen_f_d, c.lam, params, o.regType, o.full_ddp)
-        sd_cm, fcx, fcxx, us_cm, d_ok = cm_emit(
-            problem, c.xs, c.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi,
-            w_pen_l_d, w_pen_f_d, params, o.full_ddp)
-        return cm_back_pass_from_bundle(sd_cm, fcx, fcxx, us_cm, c.lam,
-                                        problem.n_x, o.regType,
-                                        o.full_ddp), d_ok
+                w_pen_l_d, w_pen_f_d, params, o.full_ddp)
+
+            def bp_call(lam):
+                return cm_back_pass_from_bundle(sd_cm, fcx, fcxx, us_cm, lam,
+                                                problem.n_x, o.regType,
+                                                o.full_ddp)
+        else:
+            d = batched_calc_derivs(
+                problem, c.xs, c.us, params, m.mu_le, m.mu_li, m.mu_fe,
+                m.mu_fi, w_pen_l_d, w_pen_f_d, o.full_ddp)
+            d_ok = d.ok
+
+            def bp_call(lam):
+                return back_pass(d, c.us, lam, o.regType, o.full_ddp, hyper)
+        return bp_call, bp_call(c.lam), d_ok
 
     def init_fn(x0s, u0s, params) -> _Carry:
         _check_device(x0s, device, "x0s")
@@ -241,22 +308,33 @@ def _make_parts(problem: Problem, options: SolverOptions, device):
         # ===== STEP 1: derivatives (iLQG.c:241-256) =====
         w_pen_l_d = where(c.new_deriv, c.w_pen_l, c.w_pen_l_d)
         w_pen_f_d = where(c.new_deriv, c.w_pen_f, c.w_pen_f_d)
-        # ===== STEP 2: backward pass, one attempt per body call =====
-        bp, d_ok = derivs_back_pass(c, w_pen_l_d, w_pen_f_d, params)
+        # ===== STEP 2: backward pass + lambda escalation (iLQG.c:261-284)
+        bp_call, bp, d_ok = derivs_back_pass(c, w_pen_l_d, w_pen_f_d, params)
         derivs_failed = c.new_deriv & ~d_ok
         status = where(derivs_failed, sol.STATUS_DERIVS_FAILED, status)
         alive = ~derivs_failed
-        # Deferred lambda retry (iLQG.c:261-284): a failed pass escalates
-        # lambda; the lane retries on the next call WITHOUT advancing `it`.
-        dlam_f = torch.clamp(c.dlam * lf, min=lf)
-        lam_f = torch.clamp(c.lam * dlam_f, min=o.lambdaMin)
-        bp_failed = alive & bp.failed
-        gave_up = bp_failed & (lam_f > o.lambdaMax)
-        retrying = bp_failed & ~gave_up
-        lam = where(bp_failed, lam_f, c.lam)
-        dlam = where(bp_failed, dlam_f, c.dlam)
-        bp_retry_calls = c.bp_retry_calls + processed * (
-            c.was_bp_retry & ~c.new_deriv).to(i32)
+        if inline:
+            # The reference's inner while around only the backward pass:
+            # a lane still failed after it has lambda past lambdaMax.
+            live = ~c.done & (c.it < o.max_iter)
+            bp, lam, dlam, n_att = _lam_retry_loop(
+                bp_call, bp, c.lam, c.dlam, live & ~(c.new_deriv & ~d_ok), o)
+            bp_failed = alive & bp.failed
+            gave_up = bp_failed & live
+            retrying = torch.zeros_like(bp_failed)
+            bp_retry_calls = c.bp_retry_calls + n_att
+        else:
+            # Deferred: a failed pass escalates lambda; the lane retries on
+            # the next call WITHOUT advancing `it`.
+            dlam_f = torch.clamp(c.dlam * lf, min=lf)
+            lam_f = torch.clamp(c.lam * dlam_f, min=o.lambdaMin)
+            bp_failed = alive & bp.failed
+            gave_up = bp_failed & (lam_f > o.lambdaMax)
+            retrying = bp_failed & ~gave_up
+            lam = where(bp_failed, lam_f, c.lam)
+            dlam = where(bp_failed, dlam_f, c.dlam)
+            bp_retry_calls = c.bp_retry_calls + processed * (
+                c.was_bp_retry & ~c.new_deriv).to(i32)
         status = where(gave_up, sol.STATUS_NO_DESCENT, status)
         alive = alive & ~bp_failed
         back_pass_done = c.back_pass_done | alive
@@ -276,7 +354,9 @@ def _make_parts(problem: Problem, options: SolverOptions, device):
         ls_args = (problem, alphas, c.xs[:, 0], c.xs, c.us, bp.l, bp.L, bp.dV,
                    c.cost, o.zMin, params, c.mult.mu_le, c.mult.mu_li,
                    c.mult.mu_fe, c.mult.mu_fi, c.w_pen_l, c.w_pen_f)
-        if o.linesearch_staged:
+        if o.linesearch_method == "serial":
+            ls = line_search(*ls_args)
+        elif o.linesearch_staged:
             ls = kernel_line_search_staged(*ls_args, alive=ls_alive)
         else:
             ls = kernel_line_search(*ls_args)
@@ -455,9 +535,15 @@ class StepwiseSolver:
     below ``min_compact_batch``).  Per-lane results are bit-identical with
     compaction on or off: every lane sees the same iteration sequence.
 
+    ``inline_below``: working widths ``<= inline_below`` run a body with
+    ``lam_retry="inline"`` (the reference's inner while around only the
+    backward pass) instead of the deferred retries; per-lane results are
+    the same either way, only ``bp_retry_calls`` counts backward-pass
+    attempts in inline calls.  0 disables.
+
     ``device`` is where the solve runs; tensor inputs on another device
-    raise.  ``mesh``, ``pipeline_depth > 1``, ``inline_below`` and
-    ``batch_params`` are not ported yet and raise ``NotImplementedError``.
+    raise.  ``mesh``, ``pipeline_depth > 1`` and ``batch_params`` are not
+    ported yet and raise ``NotImplementedError``.
     """
 
     def __init__(
@@ -475,11 +561,10 @@ class StepwiseSolver:
         device,
     ):
         not_ported = [
-            (mesh is not None, "mesh (ROADMAP.md queue A: mesh over "
+            (mesh is not None, "mesh (ROADMAP.md queue A item 9: mesh over "
              "torch.distributed)"),
-            (pipeline_depth > 1, "pipeline_depth > 1 (ROADMAP.md queue A)"),
-            (inline_below > 0, "inline_below (ROADMAP.md queue A: inline "
-             "retries and inline_below)"),
+            (pipeline_depth > 1,
+             "pipeline_depth > 1 (ROADMAP.md queue A item 3)"),
             (batch_params, "batch_params=True (ROADMAP.md queue A item 6)"),
         ]
         for cond, what in not_ported:
@@ -490,15 +575,27 @@ class StepwiseSolver:
         self.chunk = chunk
         self.compact_levels = compact_levels
         self.min_compact_batch = min_compact_batch
+        self.inline_below = inline_below
         self.device = torch.device(device)
         (self._init, self._body, self._finalize,
          self._cast_params) = _make_parts(problem, options, self.device)
+        self._body_inline = self._body
+        if inline_below > 0 and options.lam_retry != "inline":
+            self._body_inline = _make_parts(
+                problem, options.replace(lam_retry="inline"), self.device)[1]
 
     def precompile(self, x0s, u0s, params, max_workers: int = 8) -> float:
         raise NotImplementedError(
-            "precompile is not ported yet (ROADMAP.md queue A: aot with "
-            "CUDA graphs); eager torch compiles nothing, the kernels build "
-            "at first use")
+            "precompile is not ported yet (ROADMAP.md queue A item 10: aot "
+            "with CUDA graphs); eager torch compiles nothing, the kernels "
+            "build at first use")
+
+    def _body_at(self, size: int):
+        """The body for working width ``size``: inline retries at widths
+        ``<= inline_below``."""
+        if 0 < size <= self.inline_below:
+            return self._body_inline
+        return self._body
 
     def _chunk_len(self, size: int, B0: int) -> int:
         """Iterations per chunk, scaled inversely with the working width
@@ -534,7 +631,7 @@ class StepwiseSolver:
                            // self.chunk)) + 1
         exhausted = True
         for chunk_i in range(n_calls):
-            small = _masked_steps(self._body, small, p, o.max_iter,
+            small = _masked_steps(self._body_at(size), small, p, o.max_iter,
                                   self._chunk_len(size, B))
             active = int(_running(small, o.max_iter).sum())
             if o.debug_level >= 1:

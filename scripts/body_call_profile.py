@@ -1,16 +1,19 @@
 """Where a full-width body call of the port's CarParking solve spends its
 time, on one CUDA card.
 
-    python3 scripts/body_call_profile.py [--paths kernel,fused] [--calls 10]
+    python3 scripts/body_call_profile.py [--paths kernel,fused,serial]
+        [--calls 10] [--dtype float32]
 
 For each backward-pass path (``"kernel"``: emission + kernel B1;
-``"fused"``: kernel B3) it builds the solver's parts for ``bench.py``'s
-workload (CarParking, B=2048, T=500, float32, ``chip_smoke.py``'s inputs
-and options), runs the initial rollout and 3 warm-up body calls, then
+``"fused"``: kernel B3; ``"serial"``: the step-major bundle and the eager
+backward pass of ``ops/backpass.py``, with the serial line search) it
+builds the solver's parts for ``bench.py``'s workload (CarParking, B=2048,
+T=500, ``chip_smoke.py``'s inputs and options, float32 unless
+``--dtype``), runs the initial rollout and 3 warm-up body calls, then
 ``--calls`` body calls, each timed on the host clock between two
 ``torch.cuda.synchronize()``; on the same carries it times the stages of a
-body call alone: the derivatives and backward pass, and the staged line
-search (kernels B2).  "Rest" is the body call less both.  Then
+body call alone: the derivatives and backward pass, and the line search
+(staged on kernels B2, or serial).  "Rest" is the body call less both.  Then
 ``torch.profiler`` traces ``--calls`` more body calls: device busy share
 is the device time of all kernels over the wall time, and the device
 events and the launches of each hand-written kernel per body call are
@@ -42,7 +45,7 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def profile_path(backpass: str, calls: int) -> dict:
+def profile_path(backpass: str, calls: int, dtype: str) -> dict:
     import numpy as np
     import torch
 
@@ -57,21 +60,30 @@ def profile_path(backpass: str, calls: int) -> dict:
     from ddp_generator_tpu_torch.ops.cuda_rollout import (
         kernel_line_search_staged,
     )
+    from ddp_generator_tpu_torch.ops.linesearch import line_search
 
     problem = car_parking.car_parking()
-    o = ddp.SolverOptions(max_iter=cs.MAX_ITER_MAIN, dtype="float32",
-                          tolFun=1e-5, debug_level=0,
-                          backpass_method=backpass,
-                          linesearch_method="kernel")
+    serial = backpass == "serial"
+    o = ddp.SolverOptions(max_iter=cs.MAX_ITER_MAIN, dtype=dtype,
+                          tolFun=1e-5 if dtype == "float32" else 1e-7,
+                          debug_level=0, backpass_method=backpass,
+                          linesearch_method="serial" if serial else "kernel")
     init_fn, body_fn, _, cast = slv._make_parts(problem, o, "cuda")
-    p_np, x0s, u0s = cs.bench_inputs(cs.B_MAIN, cs.T_MAIN, np.float32)
-    p = cast(ddp.params_from_jax(p_np, torch.float32, "cuda"))
+    np_dtype = np.float32 if dtype == "float32" else np.float64
+    p_np, x0s, u0s = cs.bench_inputs(cs.B_MAIN, cs.T_MAIN, np_dtype)
+    p = cast(ddp.params_from_jax(p_np, getattr(torch, dtype), "cuda"))
     c = init_fn(torch.as_tensor(x0s, device="cuda"),
                 torch.as_tensor(u0s, device="cuda"), p)
     alphas = tuple(float(a) for a in o.alpha)
 
     def bp_stage(c):
         m = c.mult
+        if serial:
+            d = ddp.batched_calc_derivs(
+                problem, c.xs, c.us, p, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi,
+                c.w_pen_l, c.w_pen_f, o.full_ddp)
+            return ddp.back_pass(d, c.us, c.lam, o.regType, o.full_ddp,
+                                 slv._boxqp_hyper(o))
         if backpass == "fused":
             return fused_derivs_back_pass(
                 problem, c.xs, c.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi,
@@ -84,6 +96,11 @@ def profile_path(backpass: str, calls: int) -> dict:
 
     def ls_stage(c, bp):
         m = c.mult
+        if serial:
+            return line_search(
+                problem, alphas, c.xs[:, 0], c.xs, c.us, bp.l, bp.L, bp.dV,
+                c.cost, o.zMin, p, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi,
+                c.w_pen_l, c.w_pen_f)
         return kernel_line_search_staged(
             problem, alphas, c.xs[:, 0], c.xs, c.us, bp.l, bp.L, bp.dV,
             c.cost, o.zMin, p, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, c.w_pen_l,
@@ -114,7 +131,7 @@ def profile_path(backpass: str, calls: int) -> dict:
     dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy_ms = sum(e.device_time_total for e in dev) / 1e3
     med = statistics.median
-    return dict(path=backpass, calls=calls, body_ms=med(body),
+    return dict(path=backpass, dtype=dtype, calls=calls, body_ms=med(body),
                 bp_ms=med(bps), ls_ms=med(lss),
                 rest_ms=med(body) - med(bps) - med(lss),
                 body_ms_all=[round(v, 3) for v in body],
@@ -127,6 +144,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--paths", default="kernel,fused")
     ap.add_argument("--calls", type=int, default=10)
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "float64"))
     args = ap.parse_args()
     import torch
 
@@ -134,7 +153,7 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     for path in args.paths.split(","):
-        cs.line("body_call", **profile_path(path, args.calls))
+        cs.line("body_call", **profile_path(path, args.calls, args.dtype))
     return 0
 
 

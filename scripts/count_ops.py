@@ -7,8 +7,8 @@ Builds the kernels' own headers (``ddp_generator_tpu_torch/csrc``) with
 ``g++`` on ``Op``, a number type that counts every add, subtract, multiply,
 divide and elementary function (sin, cos, sqrt, asin) as one operation;
 negation, ``fabs``, comparisons and selects are free, as they are operand
-modifiers or predicates on the card.  Then runs, on CarParking (FULL_DDP,
-regType 1) with random operands:
+modifiers or predicates on the card.  Then runs, on CarParking and on
+Cartpole (FULL_DDP, regType 1) with random operands:
 
 * ``backpass_lane`` (B1) and ``fused_lane`` (B3) over N steps and over
   2N steps, so that the difference is the work of N steps and the rest the
@@ -19,7 +19,8 @@ regType 1) with random operands:
   subtractions for ``dx``) and the cost sum, as ``rollout.cu`` does them.
 
 Prints one JSON object: operations per step, per lane and, for B2, per
-step of one trajectory.  ``tests/test_torch_count_ops.py`` holds the
+step of one trajectory, CarParking's under plain names and Cartpole's with
+the prefix ``cartpole_``.  ``tests/test_torch_count_ops.py`` holds the
 constants of ``chip_smoke.py`` to this count.
 """
 
@@ -66,10 +67,9 @@ inline bool is_finite(Op a) { return std::isfinite(a.v); }
 #include "backpass.cuh"
 #include "fused.cuh"
 #include "models/car_parking.cuh"
+#include "models/cartpole.cuh"
 
 using namespace ddp;
-using M = CarParking;
-constexpr int NX = M::NX, NU = M::NU;
 
 static unsigned long long g_seed = 12345;
 static double rnd() {  // uniform in [-1, 1)
@@ -77,24 +77,34 @@ static double rnd() {  // uniform in [-1, 1)
   return ((g_seed >> 11) * (1.0 / 9007199254740992.0)) * 2.0 - 1.0;
 }
 
-static const double kParams[M::NP] = {
-    2.0, 0.1, 0.01, 0.01, 0.01, 1.0, 0.1, 0.1, 1.0, 0.3,
-    0.01, 1e-4, 1e-3, 1e-3, 0.1, 0.1, -0.5, 0.5, -2.0, 2.0};
+// Each model's parameters in its flat order, and a nominal state.
+template <class M> struct Case;
+template <> struct Case<CarParking> {
+  static constexpr double params[CarParking::NP] = {
+      2.0, 0.1, 0.01, 0.01, 0.01, 1.0, 0.1, 0.1, 1.0, 0.3,
+      0.01, 1e-4, 1e-3, 1e-3, 0.1, 0.1, -0.5, 0.5, -2.0, 2.0};
+  static constexpr double x[4] = {1.0, 1.0, 4.7, 1.0};
+};
+template <> struct Case<Cartpole> {
+  static constexpr double params[Cartpole::NP] = {
+      1.0, 0.3, 0.5, 9.81, 0.02, 1e-4, 1e-3, 1.0, 20.0, 0.1, 0.1,
+      -15.0, 15.0};
+  static constexpr double x[4] = {0.0, 3.1, 0.0, 0.0};
+};
 
 // B3 on one lane over N steps: operations.
+template <class M>
 static long fused_ops(int N) {
+  constexpr int NX = M::NX, NU = M::NU;
   Op x[N * NX], u[N * NU], xf[NX], one(1.0), lam(1e-3), l[N * NU],
       L[N * NU * NX], dV[2], g[1], p[M::NP];
   bool failed[1], dok[1];
   for (int k = 0; k < N; ++k) {
-    x[k * NX + 0] = 1.0 + 0.3 * rnd();
-    x[k * NX + 1] = 1.0 + 0.3 * rnd();
-    x[k * NX + 2] = 4.7 + 0.3 * rnd();
-    x[k * NX + 3] = 1.0 + 0.5 * rnd();
+    for (int a = 0; a < NX; ++a) x[k * NX + a] = Case<M>::x[a] + 0.3 * rnd();
     for (int a = 0; a < NU; ++a) u[k * NU + a] = 0.3 * rnd();
   }
   for (int a = 0; a < NX; ++a) xf[a] = x[a];
-  for (int i = 0; i < M::NP; ++i) p[i] = kParams[i];
+  for (int i = 0; i < M::NP; ++i) p[i] = Case<M>::params[i];
   FusedArgs<Op> A{x, u, nullptr, nullptr, xf, &one, &one, &lam, nullptr,
                   nullptr, p, l, L, dV, g, failed, dok, N, 1};
   g_ops = 0;
@@ -103,6 +113,7 @@ static long fused_ops(int N) {
 }
 
 // B1 on one lane over N steps: operations.
+template <int NX, int NU>
 static long backpass_ops(int N) {
   constexpr int TX = NX * (NX + 1) / 2, TU = NU * (NU + 1) / 2;
   const int n[16] = {NX * NX, NX * NU, NX, NU, TX, TU, NX * NU, NX * TX,
@@ -141,9 +152,13 @@ static long backpass_ops(int N) {
 
 // One step of one rollout (rollout.cu: rollout_lane): the model calls
 // counted, the gains and the cost sum by their formula.
+template <class M>
 static long rollout_step_ops() {
-  Op x[NX] = {1.0, 1.0, 4.7, 1.0}, u[NU] = {0.1, -0.2}, p[M::NP], xn[NX];
-  for (int i = 0; i < M::NP; ++i) p[i] = kParams[i];
+  constexpr int NX = M::NX, NU = M::NU;
+  Op x[NX], u[NU], p[M::NP], xn[NX];
+  for (int a = 0; a < NX; ++a) x[a] = Case<M>::x[a];
+  for (int a = 0; a < NU; ++a) u[a] = 0.1 - 0.3 * a;
+  for (int i = 0; i < M::NP; ++i) p[i] = Case<M>::params[i];
   g_ops = 0;
   for (int i = 0; i < M::NH; ++i) {
     const Op s = static_cast<Op>(M::box_sign(i));
@@ -157,16 +172,26 @@ static long rollout_step_ops() {
   return g_ops + NX + NU * (2 * NX + 1) + 1;
 }
 
-int main() {
+// The counts of one model, as JSON members named with `prefix`.
+template <class M>
+static void print_counts(const char* prefix, const char* sep) {
   const int N = 40;
-  const long b3_1 = fused_ops(N), b3_2 = fused_ops(2 * N);
-  const long b1_1 = backpass_ops(N), b1_2 = backpass_ops(2 * N);
+  const long b3_1 = fused_ops<M>(N), b3_2 = fused_ops<M>(2 * N);
+  const long b1_1 = backpass_ops<M::NX, M::NU>(N),
+             b1_2 = backpass_ops<M::NX, M::NU>(2 * N);
   std::printf(
-      "{\"fused_per_step\": %ld, \"fused_per_lane\": %ld, "
-      "\"backpass_per_step\": %ld, \"backpass_per_lane\": %ld, "
-      "\"rollout_per_step\": %ld}\n",
-      (b3_2 - b3_1) / N, b3_1 - (b3_2 - b3_1), (b1_2 - b1_1) / N,
-      b1_1 - (b1_2 - b1_1), rollout_step_ops());
+      "\"%sfused_per_step\": %ld, \"%sfused_per_lane\": %ld, "
+      "\"%sbackpass_per_step\": %ld, \"%sbackpass_per_lane\": %ld, "
+      "\"%srollout_per_step\": %ld%s",
+      prefix, (b3_2 - b3_1) / N, prefix, b3_1 - (b3_2 - b3_1), prefix,
+      (b1_2 - b1_1) / N, prefix, b1_1 - (b1_2 - b1_1), prefix,
+      rollout_step_ops<M>(), sep);
+}
+
+int main() {
+  std::printf("{");
+  print_counts<CarParking>("", ", ");
+  print_counts<Cartpole>("cartpole_", "}\n");
   return 0;
 }
 """

@@ -3,8 +3,9 @@
 Covers every instantiation the solve at full width does not reach: B1 at
 each (n_x, n_u) pair of ``KERNEL_SHAPES`` with regType 1/2 and FULL_DDP
 on/off in float32 and float64, B2 in both modes with alpha 0 lanes and a
-lane whose rollout turns NaN, and B3 for every CUDA model of
-``KERNEL_MODELS`` with regType 1/2 and FULL_DDP on/off in both dtypes, with
+lane whose rollout turns NaN (CarParking and Cartpole), and B3 for every
+CUDA model of ``KERNEL_MODELS`` with regType 1/2 and FULL_DDP on/off in
+both dtypes, with
 a lane that fails and a lane whose derivatives are not finite.  ``B`` is
 not a multiple of the lanes per block, so the ragged last block is
 exercised; the ``*_ragged`` cases of B1, B2 and B3 also take ``B = G+3``,
@@ -26,7 +27,11 @@ import pytest
 import torch
 
 import ddp_generator_tpu_torch as ddp
-from ddp_generator_tpu_torch.models import brachistochrone, car_parking
+from ddp_generator_tpu_torch.models import (
+    brachistochrone,
+    car_parking,
+    cartpole,
+)
 from ddp_generator_tpu_torch.ops import cuda_backpass as cb
 from ddp_generator_tpu_torch.ops import cuda_fused as cf
 from ddp_generator_tpu_torch.ops import cuda_rollout as cr
@@ -147,21 +152,29 @@ def test_backpass_kernel_ragged(cuda, edge, dtype):
         _close(o, r, TOL[dtype], name)
 
 
-def _rollout_operands(dtype, dev, N=N, B=B):
-    problem = car_parking.car_parking()
+def _rollout_operands(dtype, dev, N=N, B=B, model="car_parking"):
     rng = np.random.default_rng(7)
-    p_np, x0, _ = car_parking.default_setup(T=N, seed=0)
+    if model == "car_parking":
+        problem = car_parking.car_parking()
+        p_np, x0, _ = car_parking.default_setup(T=N, seed=0)
+        x0s = np.tile(x0, (B, 1)) + 0.05 * rng.standard_normal((B, 4))
+        u0s = 0.1 * rng.standard_normal((B, N, 2))
+        x0s[5, 3], u0s[5, :, 0] = 1e4, 0.3  # lane 5: the rollout turns NaN
+    else:
+        problem = cartpole.cartpole()
+        p_np, x0, _ = cartpole.default_setup(T=N, seed=0)
+        x0s = np.tile(x0, (B, 1)) + 0.05 * rng.standard_normal((B, 4))
+        u0s = 10.0 * rng.standard_normal((B, N, 1))  # some past +-15
+        x0s[5, 1] = np.inf  # lane 5: sin(inf), the rollout turns NaN
+    n_u = problem.n_u
     p = ddp.params_from_jax(p_np, dtype, dev)
-    x0s = np.tile(x0, (B, 1)) + 0.05 * rng.standard_normal((B, 4))
-    u0s = 0.1 * rng.standard_normal((B, N, 2))
-    x0s[5, 3], u0s[5, :, 0] = 1e4, 0.3  # lane 5: the rollout turns NaN
     t = lambda v: torch.as_tensor(v, dtype=dtype, device=dev)
     m = ddp.init_multipliers(problem, B, N, dtype, dev)
     w = torch.ones(B, dtype=dtype, device=dev)
     nom = forward_pass(problem, t(x0s), None, t(u0s), None, None, 0.0, p,
                        m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, w, w)
-    l = t(0.1 * rng.standard_normal((B, N, 2)))
-    L = t(0.05 * rng.standard_normal((B, N, 2, 4)))
+    l = t(0.1 * rng.standard_normal((B, N, n_u)))
+    L = t(0.05 * rng.standard_normal((B, N, n_u, 4)))
     ctx = cr._LSCtx(problem, nom.xs[:, 0], nom.xs, nom.us, l, L, None, None,
                     m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, w, w)
     alphas = tuple(ddp.SolverOptions().alpha)
@@ -177,7 +190,19 @@ def _rollout_operands(dtype, dev, N=N, B=B):
                          ids=["f32", "f64"])
 @pytest.mark.parametrize("mode", ["multi", "selected", "selected_cost"])
 def test_rollout_kernel_matches_plain(cuda, mode, dtype):
-    ops, alpha_vec, p = _rollout_operands(dtype, cuda)
+    _check_rollout(cuda, mode, dtype, "car_parking")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("mode", ["multi", "selected", "selected_cost"])
+def test_rollout_kernel_matches_plain_cartpole(cuda, mode, dtype):
+    """Cartpole's instantiation of B2 (n_u = 1, sin/cos in f)."""
+    _check_rollout(cuda, mode, dtype, "cartpole")
+
+
+def _check_rollout(cuda, mode, dtype, model):
+    ops, alpha_vec, p = _rollout_operands(dtype, cuda, model=model)
     kw = dict(multi=mode == "multi", want_cost=mode == "selected_cost")
     av = None if mode == "multi" else alpha_vec
     before = dict(cr.rollout_call.launches)
@@ -244,6 +269,12 @@ def _fused_operands(model, dtype, dev, N=N, B=B):
         x0s[:, 3] += rng.uniform(0.5, 2.0, B)
         u0s = 0.3 * rng.standard_normal((B, N, 2))
         x0s[5, 3], u0s[5, :, 0] = 1e4, 0.3  # NaN rollout
+    elif model == "cartpole":
+        problem = cartpole.cartpole()
+        p_np, x0, _ = cartpole.default_setup(T=N, seed=0)
+        x0s = np.tile(x0, (B, 1)) + 0.3 * rng.standard_normal((B, 4))
+        u0s = 10.0 * rng.standard_normal((B, N, 1))  # some past +-15
+        x0s[5, 1] = np.inf  # sin(inf): NaN rollout
     else:
         problem = getattr(brachistochrone, model)()
         setup = (brachistochrone.default_setup if model == "brachistochrone"

@@ -5,7 +5,8 @@ PyTorch versions, float64.
 runs -- ``dual.cuh`` (forward-mode numbers), ``derivs.cuh`` (per-step and
 final derivatives, box limits), ``riccati.cuh`` (the backward step shared
 with B1), ``fused.cuh`` (one lane) and the CUDA models
-``models/car_parking.cuh`` and ``models/brachistochrone.cuh`` -- are built
+``models/car_parking.cuh``, ``models/cartpole.cuh`` and
+``models/brachistochrone.cuh`` -- are built
 here with ``g++`` into a small shared library in a temporary directory and
 called through ``ctypes``:
 
@@ -32,6 +33,7 @@ import ddp_generator_tpu_torch as td
 from ddp_generator_tpu_torch import _build
 from ddp_generator_tpu_torch.models import brachistochrone as tbr
 from ddp_generator_tpu_torch.models import car_parking as tcar
+from ddp_generator_tpu_torch.models import cartpole as tcp
 from ddp_generator_tpu_torch.ops.cm_derivs import (
     final_derivative_components,
     step_derivative_components,
@@ -47,6 +49,7 @@ SHIM = r"""
 #include "fused.cuh"
 #include "models/brachistochrone.cuh"
 #include "models/car_parking.cuh"
+#include "models/cartpole.cuh"
 #include "staged.cuh"
 
 using namespace ddp;
@@ -88,6 +91,7 @@ void lanes(int reg, int full, const FusedArgs<double>& a) {
   switch (model) {                                          \
     case 0: { using M = CarParking; __VA_ARGS__; }          \
     case 1: { using M = Brachistochrone; __VA_ARGS__; }     \
+    case 3: { using M = Cartpole; __VA_ARGS__; }            \
     default: { using M = BrachistochroneHli; __VA_ARGS__; } \
   }
 
@@ -249,7 +253,8 @@ extern "C" void host_lanes(int model, int staged, int reg, int full, int N,
 }
 """
 
-MODELS = {"car_parking": 0, "brachistochrone": 1, "brachistochrone_hli": 2}
+MODELS = {"car_parking": 0, "brachistochrone": 1, "brachistochrone_hli": 2,
+          "cartpole": 3}
 TOL = dict(rtol=1e-12, atol=1e-12)
 N, B = 12, 6
 
@@ -287,7 +292,7 @@ def _ptr(a: np.ndarray):
 
 
 def _problem(name):
-    return {"car_parking": tcar.car_parking,
+    return {"car_parking": tcar.car_parking, "cartpole": tcp.cartpole,
             "brachistochrone": tbr.brachistochrone,
             "brachistochrone_hli": tbr.brachistochrone_hli}[name]()
 
@@ -302,6 +307,10 @@ def _case(name, seed, N=N, B=B):
             (B, N + 1, 4))
         xs[..., 3] += rng.uniform(0.5, 2.0, (B, 1))  # nonzero speed
         us = 0.4 * rng.standard_normal((B, N, 2))  # some beyond the limits
+    elif name == "cartpole":
+        p, x0, _ = tcp.default_setup(T=N, seed=0)
+        xs = np.tile(x0, (B, N + 1, 1)) + rng.standard_normal((B, N + 1, 4))
+        us = 20.0 * rng.standard_normal((B, N, 1))  # some beyond +-15
     else:
         p, _, _ = (tbr.default_setup if name == "brachistochrone"
                    else tbr.default_setup_hli)(N)
@@ -466,10 +475,11 @@ def _host_lanes(lib, c, reg, full, staged=False):
     ("car_parking", 1, True), ("car_parking", 1, False),
     ("car_parking", 2, True), ("car_parking", 2, False),
     ("brachistochrone", 1, False), ("brachistochrone_hli", 2, True),
+    ("cartpole", 1, True), ("cartpole", 2, False),
 ])
 def test_fused_lane_matches_plain(lib, name, reg, full):
     c = _case(name, 5)
-    if name == "car_parking":
+    if name in ("car_parking", "cartpole"):
         c["lam"][1] = -1.0  # Quu - I indefinite: this lane fails
     bp, ok = fused_derivs_back_pass_plain(
         c["prob"], _t(c["xs"]), _t(c["us"]), _t(c["mu_le"]),
@@ -479,7 +489,7 @@ def test_fused_lane_matches_plain(lib, name, reg, full):
     l, L, dV, g, failed, dok = _host_lanes(lib, c, reg, full)
     np.testing.assert_array_equal(dok[0], ok.numpy())
     np.testing.assert_array_equal(failed[0], bp.failed.numpy())
-    if name == "car_parking":
+    if name in ("car_parking", "cartpole"):
         assert failed[0, 1] and not failed[0].all()
     for out, ref in ((np.transpose(l, (2, 0, 1)), bp.l),
                      (np.transpose(L, (2, 0, 1)).reshape(bp.L.shape), bp.L),
@@ -512,6 +522,8 @@ def test_staged_fused_equals_fused_lane(lib, name, reg, full):
     c["lam"][1] = -1e3  # Quu indefinite: this lane fails
     if name == "car_parking":
         c["xs"][5, :, 3] = 1e4  # asin of more than 1: NaN derivatives
+    elif name == "cartpole":
+        c["xs"][5, 3:, 1] = np.inf  # sin of inf: NaN derivatives
     else:
         c["xs"][5, 3:, 0] = 0.5  # sqrt(-y) of y > 0: NaN derivatives
     ref = _host_lanes(lib, c, reg, full)

@@ -102,17 +102,31 @@ def test_invalid_options_raise(bad):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(backpass_method="serial", linesearch_method="kernel"),
     dict(backpass_method="parallel", linesearch_method="kernel"),
-    dict(backpass_method="fused", linesearch_method="serial"),
-    dict(backpass_method="kernel", linesearch_method="serial"),
-    dict(backpass_method="kernel", linesearch_method="kernel",
-         lam_retry="inline"),
 ])
 def test_unported_paths_validate_then_raise(kw):
     opts = td.SolverOptions(**kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         td.StepwiseSolver(tcar.car_parking(), opts, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(backpass_method="serial", linesearch_method="kernel"),
+    dict(backpass_method="fused", linesearch_method="serial"),
+    dict(backpass_method="kernel", linesearch_method="serial"),
+    dict(backpass_method="kernel", linesearch_method="kernel",
+         lam_retry="inline"),
+    dict(inline_below=64),
+])
+def test_ported_paths_construct(kw):
+    """The serial path, every mix of it with the kernels, inline retries
+    and inline_below build a solver (they raised before they were
+    ported)."""
+    below = kw.pop("inline_below", 0)
+    opts = td.SolverOptions(**kw)
+    solver = td.StepwiseSolver(tcar.car_parking(), opts, device="cpu",
+                               inline_below=below)
+    assert solver.inline_below == below
 
 
 def test_fused_path_is_ported_and_ignores_the_emitter():
@@ -130,8 +144,7 @@ def test_fused_path_is_ported_and_ignores_the_emitter():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(pipeline_depth=2), dict(inline_below=64), dict(batch_params=True),
-    dict(mesh=object()),
+    dict(pipeline_depth=2), dict(batch_params=True), dict(mesh=object()),
 ])
 def test_unported_stepwise_levers_raise(kw):
     opts = td.SolverOptions(backpass_method="kernel",
