@@ -19,11 +19,15 @@ full width:
   iterations deep;
 * the Cartpole swing-up (B=2048, T=150, max_iter=150) twice: with the
   default options (serial, float64) and through B3 and B2 in float32
-  (tolFun 1e-5, as the main path).
+  (tolFun 1e-5, as the main path);
+* the main path's solve with per-lane params (``batch_params=True``,
+  ``limW`` from +-0.2 to +-0.5 over the lanes): emission + B1 and the
+  serial line search, beside the shared-params wall of the same run.
 
 The Cartpole instantiations of B1 (4, 1), B2 and B3 are held against their
 plain versions like CarParking's, and small float64 solves of the serial
-path and of the inline lambda retries are checked lane by lane.
+path, of the inline lambda retries and of per-lane params (CarParking and
+brachistochrone_hli, kernel and fused path) are checked lane by lane.
 
 Beside the checks it times B1, B2 and B3 at the widths the solver's
 compaction reaches (2048 down to 128 lanes), and puts each kernel's time
@@ -507,7 +511,8 @@ def per_lane_brachi():
                        x0s, u0s, p)
 
 
-def same_on_cpu(problem, opts, x0s, u0s, p, cost_rtol=1e-8):
+def same_on_cpu(problem, opts, x0s, u0s, p, cost_rtol=1e-8,
+                batch_params=False):
     """The solve on the GPU and on the CPU: equal status, iterations, body
     and stale calls per lane, cost to a relative ``cost_rtol``."""
     import torch
@@ -518,6 +523,7 @@ def same_on_cpu(problem, opts, x0s, u0s, p, cost_rtol=1e-8):
     for dev in ("cuda", "cpu"):
         t0 = time.time()
         sol = ddp.StepwiseSolver(problem, opts, min_compact_batch=4,
+                                 batch_params=batch_params,
                                  device=dev)(x0s, u0s, p)
         if dev == "cuda":
             torch.cuda.synchronize()
@@ -536,25 +542,105 @@ def same_on_cpu(problem, opts, x0s, u0s, p, cost_rtol=1e-8):
                 cpu_s=round(out["cpu"][1], 2))
 
 
-def reset_launches():
-    from ddp_generator_tpu_torch.ops import cuda_backpass as cb
-    from ddp_generator_tpu_torch.ops import cuda_fused as cf
-    from ddp_generator_tpu_torch.ops import cuda_rollout as cr
-
-    cb.back_pass_cm.launches = 0
-    cf.fused_derivs_back_pass.launches = 0
-    cr.rollout_call.launches = {"multi": 0, "selected": 0}
+def per_lane_params(p, B):
+    """``batch_params=True`` params: every leaf with a leading lane axis."""
+    return {k: np.tile(np.asarray(v), (B,) + (1,) * np.ndim(v))
+            for k, v in p.items()}
 
 
-def read_launches():
-    from ddp_generator_tpu_torch.ops import cuda_backpass as cb
-    from ddp_generator_tpu_torch.ops import cuda_fused as cf
-    from ddp_generator_tpu_torch.ops import cuda_rollout as cr
+def car_limw_per_lane(p, B):
+    """CarParking params with the wheel-angle limit ``limW`` from +-0.2 to
+    +-0.5 over the lanes; returns ``(params, lim (B,))``."""
+    pb = per_lane_params(p, B)
+    lim = np.linspace(0.2, 0.5, B).astype(pb["limW"].dtype)
+    pb["limW"] = np.stack([-lim, lim], axis=1)
+    return pb, lim
 
-    return {"backpass": cb.back_pass_cm.launches,
-            "fused": cf.fused_derivs_back_pass.launches,
-            "rollout_multi": cr.rollout_call.launches["multi"],
-            "rollout_selected": cr.rollout_call.launches["selected"]}
+
+def batch_params_per_lane():
+    """Phase 5d: per-lane params (``batch_params=True``), 16 lanes, float64,
+    GPU against CPU: CarParking (T=100) with ``limW`` per lane and
+    brachistochrone_hli (n=100, seed 14 as per_lane_brachi) with its floor
+    ``ymin`` shifted per lane, each through the kernel path (emission + B1,
+    the serial line search) and the fused path (which per-lane params send
+    down the serial path)."""
+    import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch.models import brachistochrone, car_parking
+
+    p, x0s, u0s = bench_inputs(16, 100, np.float64, seed=3)
+    x0s = x0s + 0.05 * np.random.default_rng(4).standard_normal(x0s.shape)
+    car_p, _ = car_limw_per_lane(p, 16)
+    p, bx0s, bu0s = brachi_inputs(16, 100, seed=14)
+    brachi_p = per_lane_params(p, 16)
+    brachi_p["ymin"] = brachi_p["ymin"] + np.linspace(-0.3, 0.3, 16)[:, None]
+    out = {}
+    for backpass in ("kernel", "fused"):
+        opts = ddp.SolverOptions(max_iter=100, dtype="float64", debug_level=0,
+                                 backpass_method=backpass,
+                                 linesearch_method="kernel")
+        out[f"car_parking_{backpass}"] = same_on_cpu(
+            car_parking.car_parking(), opts, x0s, u0s, car_p,
+            batch_params=True)
+        out[f"brachistochrone_hli_{backpass}"] = same_on_cpu(
+            brachistochrone.brachistochrone_hli(),
+            brachi_options(dtype="float64", backpass_method=backpass),
+            bx0s, bu0s, brachi_p, batch_params=True)
+    return out
+
+
+def batch_params_path(problem, shared_wall):
+    """Phase 11: this slice at full width.  bench.py's CarParking solve
+    (B=2048, T=500, max_iter=200, float32, StepwiseSolver with chunk 10,
+    compact_levels 4, min_compact_batch 128) with ``limW`` per lane from
+    +-0.2 to +-0.5, ``backpass_method="kernel"`` and
+    ``linesearch_method="kernel"``: emission + B1, and the serial line
+    search, as per-lane params take it.  Every lane keeps its own box
+    limits; B1 runs, B2 does not.  ``shared_wall`` is the main path's wall
+    in this run: the price of the fallback at equal B."""
+    import ddp_generator_tpu_torch as ddp
+
+    p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float32)
+    pb, lim = car_limw_per_lane(p, B_MAIN)
+    opts = ddp.SolverOptions(max_iter=MAX_ITER_MAIN, dtype="float32",
+                             tolFun=1e-5, debug_level=0,
+                             backpass_method="kernel",
+                             linesearch_method="kernel")
+    solver = ddp.StepwiseSolver(problem, opts, chunk=10, batch_params=True,
+                                compact_levels=4, min_compact_batch=128,
+                                device="cuda")
+    s, wall, launches = timed_solve(solver, x0s, u0s, pb)
+    if launches["backpass"] <= 0:
+        fail("batch_params_path: kernel backpass was never launched")
+    for name in ("fused", "rollout_multi", "rollout_selected"):
+        if launches[name] != 0:
+            fail(f"batch_params_path: kernel {name} was launched "
+                 f"{launches[name]} times; per-lane params bypass it")
+    if s.xs.shape != (B_MAIN, T_MAIN + 1, 4) or s.us.shape != (
+            B_MAIN, T_MAIN, 2):
+        fail(f"batch_params_path: shapes {s.xs.shape} {s.us.shape}")
+    if not np.all(np.isfinite(s.cost)):
+        fail("batch_params_path: non-finite costs")
+    w_over = float((np.abs(s.us[..., 0]).max(axis=1) - lim).max())
+    a_over = float(np.abs(s.us[..., 1]).max() - p["limA"][1])
+    if not (w_over <= 1e-6 and a_over <= 1e-6):
+        fail(f"batch_params_path: a lane leaves its box: max |w| - limW "
+             f"{w_over:.3g}, max |a| - limA {a_over:.3g}")
+    solved = np.isin(s.status, (1, 2))
+    return dict(B=B_MAIN, T=T_MAIN, max_iter=MAX_ITER_MAIN,
+                limW="linspace(0.2,0.5)", wall_s=wall,
+                solves_per_s=B_MAIN / wall,
+                shared_main_path_wall_s=shared_wall,
+                wall_vs_shared=wall / shared_wall,
+                solved_pct=100 * float(solved.mean()),
+                exhausted_pct=100 * float((s.status == 7).mean()),
+                solved_pct_tightest_quarter=100 * float(
+                    solved[:B_MAIN // 4].mean()),
+                mean_iters=float(s.iterations.mean()),
+                max_iters=int(s.iterations.max()),
+                mean_body_calls=float(s.body_calls.mean()),
+                max_body_calls=int(s.body_calls.max()),
+                max_w_minus_limW=w_over, max_a_minus_limA=a_over,
+                mean_cost=float(s.cost.mean()), launches=launches)
 
 
 def timed_solve(solver, x0s, u0s, p):
@@ -563,6 +649,7 @@ def timed_solve(solver, x0s, u0s, p):
     import torch
 
     import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch.launches import read_launches, reset_launches
 
     reset_launches()
     torch.cuda.synchronize()
@@ -944,6 +1031,9 @@ def main() -> int:
     line("per_lane_serial", model="cartpole", **pole_lanes)
     line("per_lane_serial", model="car_parking", path="kernel_inline",
          **per_lane_inline())
+    # 5d. per-lane params (batch_params=True), GPU vs CPU
+    for what, d in batch_params_per_lane().items():
+        line("batch_params_per_lane", case=what, **d)
 
     # 6. the main path: emission + B1, B2
     stats = main_path(problem)
@@ -973,6 +1063,12 @@ def main() -> int:
         claunches = cstats.pop("launches")
         line("cartpole_path", path="serial" if serial else "fused",
              **cstats, **{f"launches_{k}": v for k, v in claunches.items()})
+
+    # 11. per-lane params at full width: emission + B1, serial line search
+    pstats = batch_params_path(problem, stats["wall_s"])
+    plaunches = pstats.pop("launches")
+    line("batch_params_path", **pstats, **{f"launches_{k}": v
+                                           for k, v in plaunches.items()})
 
     def entry(name, source, replaces, n, d, model="car_parking"):
         # no single PyTorch call computes any of these: library_ms is null

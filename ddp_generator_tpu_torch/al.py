@@ -15,7 +15,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from .problem import Problem
+from .problem import Problem, step_index
 
 Tensor = torch.Tensor
 
@@ -116,7 +116,7 @@ def update_multipliers(
     dtype, dev = us.dtype, us.device
     x_cm = xs[:, :N].permute(2, 1, 0)  # (n_x, N, B)
     u_cm = us.permute(2, 1, 0)
-    k = torch.arange(N, device=dev)[:, None]
+    k = step_index(p, N, dev)
     hle_all = _stack_or_empty(
         [fn(x_cm, u_cm, p, k).expand(N, B).T for fn in problem.hle],
         (B, N), dtype, dev)  # (B, N, n_hle)

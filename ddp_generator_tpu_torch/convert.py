@@ -12,7 +12,9 @@ import torch
 def params_from_jax(p_numpy: dict, dtype: torch.dtype,
                     device: "torch.device | str") -> dict:
     """A JAX-package params dict with numpy or scalar leaves -> dict of
-    tensors of ``dtype`` on ``device`` (integer leaves keep their type)."""
+    tensors of ``dtype`` on ``device`` (integer leaves keep their type).
+    Shapes are kept: per-lane params stay batch-major ``(B, *leaf_shape)``,
+    the JAX convention; only the solver casts them to lanes-last."""
     return to_torch(dict(p_numpy), dtype, device)
 
 

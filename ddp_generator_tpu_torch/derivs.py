@@ -88,7 +88,8 @@ def calc_derivs(
 
 def batched_calc_derivs(problem, xs, us, p, mu_le, mu_li, mu_fe, mu_fi,
                         w_pen_l, w_pen_f, full_ddp) -> DerivBundle:
-    """:func:`calc_derivs` of every lane (shared params), step-major:
+    """:func:`calc_derivs` of every lane (params shared, or per lane as
+    :class:`.problem.LaneParams`), step-major:
     ``xs (B, N+1, n_x)``, ``us (B, N, n_u)``, ``mu_le (B, N, n_hle)``,
     ``mu_fe (B, n_hfe)``, ``w_pen_* (B,)``; every field gains a leading
     ``B``."""

@@ -28,7 +28,7 @@ from typing import Any
 import torch
 
 from ..al import _eq_penalty, _ineq_penalty
-from ..problem import Problem
+from ..problem import Problem, step_index
 from .cuda_backpass import BackPassResult, back_pass_cm, result_from_cm
 
 Tensor = torch.Tensor
@@ -183,13 +183,14 @@ def batched_calc_derivs_cm(problem: Problem, xs, us, params, mu_le, mu_li,
     """Batched ``calc_derivs`` with packed component-major output.
 
     ``xs (B, N+1, n_x)``, ``us (B, N, n_u)``, ``mu_le (B, N, n_hle)``,
-    ``mu_fe (B, n_hfe)``, ``w_pen_* (B,)``; shared ``params``.  Returns
+    ``mu_fe (B, n_hfe)``, ``w_pen_* (B,)``; ``params`` shared, or per lane
+    as :class:`~..problem.LaneParams`.  Returns
     ``(sd_cm, final_cx (n_x, B), final_cxx (n_x*n_x, B), ok (B,))`` -- the
     contract of JAX's ``batched_calc_derivs_cm``."""
     B, Np1, _ = xs.shape
     N = Np1 - 1
     to_cm = lambda a: a.permute(2, 1, 0).contiguous()  # (B,N,c) -> (c,N,B)
-    k = torch.arange(N, device=xs.device)[:, None]
+    k = step_index(params, N, xs.device)
     sd_cm = step_derivative_components(
         problem, to_cm(xs[:, :N]), to_cm(us), params, k, to_cm(mu_le),
         to_cm(mu_li), w_pen_l, full_ddp)

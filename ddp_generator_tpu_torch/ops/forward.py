@@ -17,7 +17,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ..al import augmented_F, augmented_L
-from ..problem import Problem, clamp_u
+from ..problem import Problem, clamp_u, step_index
 from .small import mv
 
 Tensor = torch.Tensor
@@ -90,7 +90,7 @@ def cost_only(problem: Problem, xs: Tensor, us: Tensor, p: Any, mu_le, mu_li,
     N = us.shape[1]
     x_cm = xs[:, :N].permute(2, 1, 0)  # (n_x, N, B)
     u_cm = us.permute(2, 1, 0)
-    k = torch.arange(N, device=us.device)[:, None]
+    k = step_index(p, N, us.device)
     cs = augmented_L(problem, x_cm, u_cm, p, k, mu_le.permute(2, 1, 0),
                      mu_li.permute(2, 1, 0), w_pen_l)  # (N, B)
     cf = augmented_F(problem, xs[:, N].T, p, N, mu_fe.T, mu_fi.T, w_pen_f)

@@ -14,6 +14,7 @@ from typing import Any, NamedTuple, Sequence
 
 import torch
 
+from ..problem import LaneParams
 from .forward import forward_pass
 
 Tensor = torch.Tensor
@@ -54,13 +55,16 @@ def line_search(problem, alphas: Sequence[float], x0, xs_nom, us_nom, l,
     """Serial line search of every lane: batch-major operands as
     :func:`.cuda_rollout.kernel_line_search` takes them (``x0 (B, n_x)``,
     ``xs_nom (B, N+1, n_x)``, ``L_gain (B, N, n_u, n_x)``, ``dV (B, 2)``,
-    ``cost (B,)``)."""
+    ``cost (B,)``); ``p`` shared, or per lane as
+    :class:`~..problem.LaneParams`."""
     A, B = len(alphas), x0.shape[0]
     al = torch.tensor(alphas, dtype=us_nom.dtype, device=us_nom.device)
 
     def rep(t):  # (B, ...) -> (A*B, ...), alpha-major
         return t.expand((A,) + t.shape).reshape((A * B,) + t.shape[1:])
 
+    if isinstance(p, LaneParams):  # lane a*B + b reads lane b's params
+        p = p.take(torch.arange(A * B, device=x0.device) % B)
     r = forward_pass(problem, rep(x0), rep(xs_nom), rep(us_nom), rep(l),
                      rep(L_gain), al.repeat_interleave(B), p, rep(mu_le),
                      rep(mu_li), rep(mu_fe), rep(mu_fi), rep(w_pen_l),

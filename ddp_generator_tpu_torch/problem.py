@@ -17,6 +17,14 @@ and ``u`` ``(n_u, *batch)``, so ``x[0]`` is a lane tensor of shape
 ``(N, B)`` plane of a whole batched trajectory.  ``p`` is a dict of tensors
 (:func:`convert.params_from_jax`).
 
+Per-lane parameters (``batch_params=True``) reach the functions as a
+:class:`LaneParams` dict whose leaves are lanes-last, ``(*leaf_shape, B)``:
+``p["cu"][0]`` is then a ``(B,)`` tensor that broadcasts against the lane
+axis of ``x[0]`` exactly as the shared 0-d value does.  On the ``(N, B)``
+plane the step ``k`` is an ``(N, 1)`` tensor in both layouts
+(:func:`step_index`); indexing a per-lane leaf with it, ``p["ymin"][k]``,
+gives ``(N, B)``, as the shared ``(N + 1,)`` leaf gives ``(N, 1)``.
+
 A problem may name the hand-written CUDA model that mirrors its functions
 (:class:`CudaModel`): the rollout kernel cannot trace Python, so on a CUDA
 device it runs the model's ``__device__`` functions instead.
@@ -50,6 +58,53 @@ class BoxConstraint:
     fn: Callable
     u_index: int
     sign: float  # +1.0 => upper bound on u[u_index]; -1.0 => lower bound
+
+
+class LaneParams(dict):
+    """Per-lane parameters: every leaf lanes-last, ``(*leaf_shape, B)``
+    (the solver casts the JAX convention's batch-major ``(B, *leaf_shape)``
+    leaves once, :func:`lanes_last`)."""
+
+    def take(self, idx: Tensor) -> "LaneParams":
+        """The lanes ``idx`` of every leaf (a working set, or the alpha-major
+        replication of the line search)."""
+        return LaneParams({k: v[..., idx] for k, v in self.items()})
+
+
+def lanes_last(params: dict, B: int) -> LaneParams:
+    """Batch-major leaves ``(B, *leaf_shape)`` -> :class:`LaneParams`."""
+    out = LaneParams()
+    for key, v in params.items():
+        if v.dim() == 0 or v.shape[0] != B:
+            raise ValueError(
+                f"batch_params=True: param {key!r} has shape "
+                f"{tuple(v.shape)}; every leaf needs a leading lane axis of "
+                f"{B}")
+        out[key] = v.movedim(0, -1).contiguous()
+    return out
+
+
+class _StepIndex(Tensor):
+    """``k`` on the ``(N, B)`` plane for :class:`LaneParams`: ``(N, 1)`` in
+    arithmetic, but an index into a lanes-last leaf takes the step axis
+    alone, so ``ymin[k]`` is ``(N, B)`` and not ``(N, 1, B)``."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if func is Tensor.__getitem__ and not isinstance(args[0], cls):
+            leaf, idx = args
+            idx = tuple(i.as_subclass(Tensor)[:, 0] if isinstance(i, cls)
+                        else i
+                        for i in (idx if isinstance(idx, tuple) else (idx,)))
+            return leaf[idx]
+        with torch._C.DisableTorchFunctionSubclass():
+            return func(*args, **(kwargs or {}))
+
+
+def step_index(p, N: int, device) -> Tensor:
+    """The step ``k (N, 1)`` of the ``(N, B)`` plane for params ``p``."""
+    k = torch.arange(N, device=device)[:, None]
+    return k.as_subclass(_StepIndex) if isinstance(p, LaneParams) else k
 
 
 #: Length of a ``[k]``-indexed parameter in :attr:`CudaModel.param_order`:

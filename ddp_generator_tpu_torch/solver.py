@@ -19,6 +19,13 @@ Two loops share the body: :func:`make_batched_solver` loops until no lane
 is active; :class:`StepwiseSolver` runs chunks of iterations with active-
 lane compaction.  Per-lane results are identical between them and with
 compaction on or off.
+
+``batch_params=True`` gives every lane its own params (the JAX convention:
+each leaf ``(B, *leaf_shape)``), cast once to lanes-last
+:class:`~.problem.LaneParams`.  As in the JAX package, the kernels that read
+one flat shared param vector are then bypassed: ``"fused"`` takes the serial
+derivatives and backward pass, the kernel line search the serial one;
+``"kernel"`` keeps emission + B1 (B1 reads no params).
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ from .ops.cuda_rollout import kernel_line_search, kernel_line_search_staged
 from .ops.forward import cost_only, forward_pass
 from .ops.linesearch import line_search
 from .options import SolverOptions
-from .problem import Problem
+from .problem import Problem, lanes_last
 from .solution import Solution
 
 Tensor = torch.Tensor
@@ -188,14 +195,18 @@ def _check_device(tree, device: torch.device, what: str) -> None:
             _check_device(v, device, what)
 
 
-def _make_parts(problem: Problem, options: SolverOptions, device):
-    """Build ``(init_fn, body_fn, finalize_fn)`` on batched carries.
+def _make_parts(problem: Problem, options: SolverOptions, device,
+                batch_params: bool = False):
+    """Build ``(init_fn, body_fn, finalize_fn, cast_params)`` on batched
+    carries.
 
     * ``init_fn(x0s, u0s, params) -> _Carry``: initial open-loop rollout and
       multiplier recording (``iLQG_mex.c:113-116``, ``iLQG.c:237``);
     * ``body_fn(carry, params) -> _Carry``: one outer iteration of every
       lane (the caller keeps the carry of lanes whose loop is over);
-    * ``finalize_fn(carry) -> Solution``.
+    * ``finalize_fn(carry) -> Solution``;
+    * ``cast_params(params, B)``: the params in the solve's dtype and
+      layout (:class:`~.problem.LaneParams` with ``batch_params``).
     """
     o = options
     _check_ported(problem, o)
@@ -209,6 +220,11 @@ def _make_parts(problem: Problem, options: SolverOptions, device):
               + problem.n_hfi) > 0
     hyper = _boxqp_hyper(o)
     inline = o.lam_retry == "inline"
+    # B3 and B2 read one flat shared param vector: per-lane params take the
+    # serial methods there (jax:solver.py:366-371, :458-462)
+    backpass = ("serial" if batch_params and o.backpass_method == "fused"
+                else o.backpass_method)
+    linesearch = "serial" if batch_params else o.linesearch_method
     i32 = torch.int32
 
     def full(B, v, dt=dtype):
@@ -220,7 +236,7 @@ def _make_parts(problem: Problem, options: SolverOptions, device):
         ``bp_call(lam)`` re-runs only the backward pass on the same
         derivatives (the inline lambda retries)."""
         m = c.mult
-        if o.backpass_method == "fused":
+        if backpass == "fused":
             # B3 re-derives the bundle per attempt (it never exists in
             # memory): a retry re-launches the kernel on unchanged inputs.
             def bp_call(lam):
@@ -229,7 +245,7 @@ def _make_parts(problem: Problem, options: SolverOptions, device):
                     w_pen_l_d, w_pen_f_d, lam, params, o.regType, o.full_ddp)
             bp, d_ok = bp_call(c.lam)
             return lambda lam: bp_call(lam)[0], bp, d_ok
-        if o.backpass_method == "kernel":
+        if backpass == "kernel":
             # emission once; a retry re-runs B1 on the same bundle
             sd_cm, fcx, fcxx, us_cm, d_ok = cm_emit(
                 problem, c.xs, c.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi,
@@ -354,7 +370,7 @@ def _make_parts(problem: Problem, options: SolverOptions, device):
         ls_args = (problem, alphas, c.xs[:, 0], c.xs, c.us, bp.l, bp.L, bp.dV,
                    c.cost, o.zMin, params, c.mult.mu_le, c.mult.mu_li,
                    c.mult.mu_fe, c.mult.mu_fi, c.w_pen_l, c.w_pen_f)
-        if o.linesearch_method == "serial":
+        if linesearch == "serial":
             ls = line_search(*ls_args)
         elif o.linesearch_staged:
             ls = kernel_line_search_staged(*ls_args, alive=ls_alive)
@@ -418,6 +434,10 @@ def _make_parts(problem: Problem, options: SolverOptions, device):
         status = where(lammax_exit, sol.STATUS_EXIT_LAMBDA_MAX, status)
         done = status != sol.STATUS_RUNNING
         halt = done | retrying
+        if o.debug_level >= 3:
+            _print_iteration(~c.done & (c.it < o.max_iter), c.it + 1,
+                             accepted, cost, ls.dcost, g_norm, ls.z, lam,
+                             w_pen_l, w_pen_f)
         return _Carry(
             xs=xs, us=us, cost=cost, mult=mult, lam=lam, dlam=dlam,
             w_pen_l=w_pen_l, w_pen_f=w_pen_f, w_pen_l_d=w_pen_l_d,
@@ -452,12 +472,30 @@ def _make_parts(problem: Problem, options: SolverOptions, device):
             bp_retry_calls=final.bp_retry_calls,
         )
 
-    def cast_params(params):
+    def cast_params(params, B: int):
         # All floating params in the solve dtype, on the solve device.
         _check_device(params, device, "params")
-        return to_torch(dict(params), dtype, device)
+        p = to_torch(dict(params), dtype, device)
+        return lanes_last(p, B) if batch_params else p
 
     return init_fn, body_fn, finalize_fn, cast_params
+
+
+def _print_iteration(run, it, accepted, cost, dcost, g_norm, z, lam,
+                     w_pen_l, w_pen_f) -> None:
+    """``debug_level >= 3``: one line per running lane, the fields of the
+    JAX body's print (``jax:solver.py:755-763``); ``lane`` is the index in
+    the working set.  Reads the device: a host sync per body call."""
+    lanes = run.nonzero()[:, 0]
+    log_lam = torch.log10(torch.clamp(lam, min=1e-300))
+    cols = [t[lanes].tolist() for t in (it, accepted, cost, dcost, g_norm, z,
+                                        log_lam, w_pen_l, w_pen_f)]
+    for b, (i, a, c, d, g, zz, ll, wl, wf) in zip(lanes.tolist(),
+                                                  zip(*cols)):
+        print(f"lane: {b}  iter: {i}  accepted: {a}  cost: {c:.6g}"
+              f"  reduction: {d:.3g}  gradient: {g:.3g}  z: {zz:.3g}"
+              f"  log10(lam): {ll:.1f}  w_pen_l: {wl:.3g} w_pen_f: {wf:.3g}",
+              flush=True)
 
 
 def _running(c: _Carry, max_iter: int) -> Tensor:
@@ -480,17 +518,14 @@ def make_batched_solver(problem: Problem,
                         batch_params: bool = False, *, device):
     """Batched solver ``(x0s (B, n_x), u0s (B, N, n_u), params) -> Solution``
     looping until no lane is active (JAX: ``vmap`` of the whole solve).
-    ``params`` are shared by all lanes.  ``device`` is where the solve runs;
+    ``params`` are shared by all lanes, or with ``batch_params`` per lane,
+    every leaf ``(B, *leaf_shape)``.  ``device`` is where the solve runs;
     tensor inputs on another device raise."""
-    if batch_params:
-        raise NotImplementedError(
-            "batch_params=True is not ported yet (ROADMAP.md queue A item "
-            "6); the kernels take shared params")
     init_fn, body_fn, finalize_fn, cast_params = _make_parts(
-        problem, options, device)
+        problem, options, device, batch_params)
 
     def solve_fn(x0s, u0s, params) -> Solution:
-        p = cast_params(params)
+        p = cast_params(params, len(u0s))
         c = init_fn(x0s, u0s, p)
         # each lane runs at most max_iter*(1+n_lam_steps) body calls
         c = _masked_steps(body_fn, c, p, options.max_iter,
@@ -541,8 +576,13 @@ class StepwiseSolver:
     the same either way, only ``bp_retry_calls`` counts backward-pass
     attempts in inline calls.  0 disables.
 
-    ``device`` is where the solve runs; tensor inputs on another device
-    raise.  ``mesh``, ``pipeline_depth > 1`` and ``batch_params`` are not
+    ``batch_params``: every params leaf carries a leading lane axis; each
+    compaction gathers the working set's params with the carry's index.
+
+    The positional parameters are the JAX package's.  ``donate`` is
+    accepted and does nothing: torch has no buffer donation.  ``device``
+    (keyword only) is where the solve runs; tensor inputs on another device
+    raise.  ``mesh`` (with ``mesh_axis``) and ``pipeline_depth > 1`` are not
     ported yet and raise ``NotImplementedError``.
     """
 
@@ -552,9 +592,11 @@ class StepwiseSolver:
         options: SolverOptions = SolverOptions(),
         chunk: int = 10,
         batch_params: bool = False,
+        donate: bool = True,
         compact_levels: int = 4,
         min_compact_batch: int = 128,
         mesh=None,
+        mesh_axis: str = "batch",
         pipeline_depth: int = 1,
         inline_below: int = 0,
         *,
@@ -565,7 +607,6 @@ class StepwiseSolver:
              "torch.distributed)"),
             (pipeline_depth > 1,
              "pipeline_depth > 1 (ROADMAP.md queue A item 3)"),
-            (batch_params, "batch_params=True (ROADMAP.md queue A item 6)"),
         ]
         for cond, what in not_ported:
             if cond:
@@ -575,14 +616,19 @@ class StepwiseSolver:
         self.chunk = chunk
         self.compact_levels = compact_levels
         self.min_compact_batch = min_compact_batch
+        self.batch_params = batch_params
+        self.mesh = mesh
+        self.pipeline_depth = max(1, pipeline_depth)
         self.inline_below = inline_below
         self.device = torch.device(device)
         (self._init, self._body, self._finalize,
-         self._cast_params) = _make_parts(problem, options, self.device)
+         self._cast_params) = _make_parts(problem, options, self.device,
+                                          batch_params)
         self._body_inline = self._body
         if inline_below > 0 and options.lam_retry != "inline":
             self._body_inline = _make_parts(
-                problem, options.replace(lam_retry="inline"), self.device)[1]
+                problem, options.replace(lam_retry="inline"), self.device,
+                batch_params)[1]
 
     def precompile(self, x0s, u0s, params, max_workers: int = 8) -> float:
         raise NotImplementedError(
@@ -619,7 +665,7 @@ class StepwiseSolver:
     def __call__(self, x0s, u0s, params) -> Solution:
         t_start = time.time()
         o = self.options
-        p = self._cast_params(params)
+        p_full = p = self._cast_params(params, len(u0s))
         full = self._init(x0s, u0s, p)
         B = int(full.cost.shape[0])
         small, idx, size = full, None, B
@@ -648,6 +694,8 @@ class StepwiseSolver:
                     full, small, idx = self._compact(small, None, None, size)
                 else:
                     full, small, idx = self._compact(full, small, idx, size)
+                if self.batch_params:
+                    p = p_full.take(idx)
         if exhausted and bool(_running(small, o.max_iter).any()):
             raise RuntimeError(
                 f"StepwiseSolver: lanes still active after {n_calls} chunk "
@@ -687,6 +735,8 @@ def make_stepwise_solver(problem: Problem,
                          mesh=None, pipeline_depth: int = 1,
                          inline_below: int = 0,
                          *, device) -> StepwiseSolver:
+    """:class:`StepwiseSolver` with the JAX package's positional order
+    (``jax:solver.py:1338-1350``)."""
     return StepwiseSolver(problem, options, chunk=chunk,
                           batch_params=batch_params, mesh=mesh,
                           pipeline_depth=pipeline_depth,

@@ -71,7 +71,8 @@ def profile_path(backpass: str, calls: int, dtype: str) -> dict:
     init_fn, body_fn, _, cast = slv._make_parts(problem, o, "cuda")
     np_dtype = np.float32 if dtype == "float32" else np.float64
     p_np, x0s, u0s = cs.bench_inputs(cs.B_MAIN, cs.T_MAIN, np_dtype)
-    p = cast(ddp.params_from_jax(p_np, getattr(torch, dtype), "cuda"))
+    p = cast(ddp.params_from_jax(p_np, getattr(torch, dtype), "cuda"),
+             cs.B_MAIN)
     c = init_fn(torch.as_tensor(x0s, device="cuda"),
                 torch.as_tensor(u0s, device="cuda"), p)
     alphas = tuple(float(a) for a in o.alpha)
@@ -119,7 +120,7 @@ def profile_path(backpass: str, calls: int, dtype: str) -> dict:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    cs.reset_launches()
+    reset_launches()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
@@ -127,7 +128,7 @@ def profile_path(backpass: str, calls: int, dtype: str) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     launches = {f"{k}_launches_per_call": v / calls
-                for k, v in cs.read_launches().items()}
+                for k, v in read_launches().items()}
     dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy_ms = sum(e.device_time_total for e in dev) / 1e3
     med = statistics.median

@@ -1,5 +1,5 @@
-"""The PyTorch port imports no JAX, and ``chip_smoke.py`` refuses to run
-without a GPU."""
+"""The PyTorch port (the package, ``chip_smoke.py`` and ``bench_torch.py``)
+imports no JAX, and ``chip_smoke.py`` refuses to run without a GPU."""
 
 import ast
 import os
@@ -24,7 +24,8 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
-    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+    ROOT / "chip_smoke.py", ROOT / "bench_torch.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
     for mod in _imports(path):
         top = mod.split(".")[0]

@@ -138,13 +138,14 @@ def test_fused_path_is_ported_and_ignores_the_emitter():
     with pytest.raises(NotImplementedError, match="shared"):
         td.StepwiseSolver(tcar.car_parking(), dataclasses.replace(
             opts, backpass_method="kernel"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        td.StepwiseSolver(tcar.car_parking(), opts, batch_params=True,
-                          device="cpu")
+    # per-lane params: the fused path takes the serial one (no emitter)
+    assert td.StepwiseSolver(tcar.car_parking(), opts, batch_params=True,
+                             device="cpu").batch_params
 
 
 @pytest.mark.parametrize("kw", [
-    dict(pipeline_depth=2), dict(batch_params=True), dict(mesh=object()),
+    dict(pipeline_depth=2), dict(batch_params=True, pipeline_depth=3),
+    dict(mesh=object()),
 ])
 def test_unported_stepwise_levers_raise(kw):
     opts = td.SolverOptions(backpass_method="kernel",
