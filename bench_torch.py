@@ -11,8 +11,11 @@ path: ``backpass_method="kernel"`` (emission + kernel B1) and
 ``--cpu`` runs on the CPU, the kernels' plain versions; without it and
 without a CUDA device the script exits nonzero.
 
-The kernel build and one untimed solve come first; the wall is the least
-of ``--repeats`` timed solves, each ended by a synchronize.  ``vs_baseline``
+The kernel build, ``StepwiseSolver.precompile`` (every working width's
+body call captured as a CUDA graph; ``--no-precompile`` leaves each width
+to its first use, as ``bench.py``'s flag does) and one untimed solve come
+first; the wall is the least of ``--repeats`` timed solves, each ended by
+a synchronize.  ``vs_baseline``
 divides solves/s by the reference C solver's 0.625 solves/s (200
 iterations x 8 ms, ``bench.py``'s baseline).  Prints exactly ONE JSON line
 on stdout; everything else goes to stderr.  Imports no JAX.
@@ -54,6 +57,9 @@ def parse_args(argv=None):
                     choices=["serial", "kernel"])
     ap.add_argument("--no-staged-ls", action="store_true",
                     help="kernel line search without the alpha[0] fast path")
+    ap.add_argument("--no-precompile", action="store_true",
+                    help="skip StepwiseSolver.precompile before the first "
+                    "solve (widths are captured at first use)")
     ap.add_argument("--debug", type=int, default=0,
                     help="solver debug_level (>= 1 syncs once per chunk "
                     "inside the timed solve)")
@@ -110,6 +116,8 @@ def main(argv=None) -> int:
     u0s = (0.1 * rng.standard_normal((B, args.T, 2))).astype(np_dtype)
     p = {k: np.asarray(v, np_dtype) for k, v in p.items()}
 
+    if not args.no_precompile:
+        log(f"precompile: {solver.precompile(x0s, u0s, p):.2f}s")
     t0 = time.time()
     solver(x0s, u0s, p)
     sync()
@@ -124,6 +132,10 @@ def main(argv=None) -> int:
         times.append(time.time() - t0)
     launches = read_launches()
     dt = min(times)
+    st = solver.last_stats
+    log(f"loop: {st.body_calls} body calls, {st.replays} graph replays, "
+        f"{st.host_reads} host reads; graphed widths {st.graphed}, eager "
+        f"widths {st.eager}")
 
     s = ddp.to_numpy(sol)
     solved = np.isin(s.status, (1, 2))

@@ -9,7 +9,12 @@ full width:
 
 * the main path, the batched CarParking solve of ``bench.py`` (B=2048,
   T=500, max_iter=200, float32) through ``StepwiseSolver`` with kernels B1
-  (backward pass) and B2 (line-search rollouts);
+  (backward pass) and B2 (line-search rollouts), precompiled: every
+  working width's body call is a CUDA graph replay;
+* that solve on the kernel and the fused path, graphed against the eager
+  route (``make_batched_solver``): every Solution field bit for bit, the
+  same launches, precompile seconds, peak memory, replays and host reads;
+  and derivative emission with each ``derivs_emitter``;
 * the same solve with ``backpass_method="fused"``: kernel B3 (derivatives
   and backward pass in one kernel) in place of emission + B1;
 * the Brachistochrone with its moving floor (``brachistochrone_hli``,
@@ -17,9 +22,10 @@ full width:
 * the serial path (``SolverOptions()``'s own methods: eager PyTorch, no
   kernel) against the kernel path on CarParking at full width, three
   iterations deep;
-* the Cartpole swing-up (B=2048, T=150, max_iter=150) twice: with the
-  default options (serial, float64) and through B3 and B2 in float32
-  (tolFun 1e-5, as the main path);
+* the Cartpole swing-up (B=2048, T=150) twice: with the default options
+  (serial, float64), cut to max_iter=20 and its first lanes held against
+  the CPU, and through B3 and B2 in float32 (max_iter=150, tolFun 1e-5,
+  as the main path);
 * the main path's solve with per-lane params (``batch_params=True``,
   ``limW`` from +-0.2 to +-0.5 over the lanes): emission + B1 and the
   serial line search, beside the shared-params wall of the same run.
@@ -75,6 +81,11 @@ TOL_B3 = {"car_parking float32": 1e-1, "car_parking float64": 5e-12,
 SOLVED_MIN = 0.90
 N_BRACHI = 500
 T_POLE, MAX_ITER_POLE = 150, 150  # cartpole.default_setup's horizon
+# The serial Cartpole solve at full width is cut to the depth of the
+# per-lane serial check (SolverOptions' default max_iter 20): the whole
+# eager solve took 164-252 s on an H100; its first lanes are held against
+# the CPU's solve of per_lane_serial.
+MAX_ITER_POLE_SERIAL = 20
 # The Cartpole swing-up from x0 = [0, pi, 0, 0] + 0.05 normal: the JAX
 # package (float64, serial, on the CPU, max_iter 150) solves 98.4% of the
 # first 64 lanes of cartpole_inputs and 98.2% of the first 512, so the 90%
@@ -512,9 +523,10 @@ def per_lane_brachi():
 
 
 def same_on_cpu(problem, opts, x0s, u0s, p, cost_rtol=1e-8,
-                batch_params=False):
+                batch_params=False, with_cpu=False):
     """The solve on the GPU and on the CPU: equal status, iterations, body
-    and stale calls per lane, cost to a relative ``cost_rtol``."""
+    and stale calls per lane, cost to a relative ``cost_rtol``.  With
+    ``with_cpu`` also returns the CPU solution."""
     import torch
 
     import ddp_generator_tpu_torch as ddp
@@ -529,17 +541,24 @@ def same_on_cpu(problem, opts, x0s, u0s, p, cost_rtol=1e-8,
             torch.cuda.synchronize()
         out[dev] = (ddp.to_numpy(sol), time.time() - t0)
     g, c = out["cuda"][0], out["cpu"][0]
+    res = dict(lanes=x0s.shape[0], T=u0s.shape[1],
+               status=np.bincount(g.status).tolist(),
+               cost_rel_err=check_lanes("per-lane check", g, c, cost_rtol),
+               gpu_s=round(out["cuda"][1], 2), cpu_s=round(out["cpu"][1], 2))
+    return (res, c) if with_cpu else res
+
+
+def check_lanes(what, g, c, cost_rtol):
+    """Equal status, iterations, body and stale calls per lane of two
+    solutions (numpy), cost to a relative ``cost_rtol``."""
     for f in ("status", "iterations", "body_calls", "stale_calls"):
         if not np.array_equal(getattr(g, f), getattr(c, f)):
-            fail(f"per-lane check: {f} differs: gpu {getattr(g, f)} "
+            fail(f"{what}: {f} differs: gpu {getattr(g, f)} "
                  f"cpu {getattr(c, f)}")
     cost_rel = float(np.max(np.abs(g.cost - c.cost) / np.abs(c.cost)))
     if not cost_rel <= cost_rtol:
-        fail(f"per-lane check: cost rel err {cost_rel:.3g} > {cost_rtol}")
-    return dict(lanes=x0s.shape[0], T=u0s.shape[1],
-                status=np.bincount(g.status).tolist(),
-                cost_rel_err=cost_rel, gpu_s=round(out["cuda"][1], 2),
-                cpu_s=round(out["cpu"][1], 2))
+        fail(f"{what}: cost rel err {cost_rel:.3g} > {cost_rtol}")
+    return cost_rel
 
 
 def per_lane_params(p, B):
@@ -660,20 +679,50 @@ def timed_solve(solver, x0s, u0s, p):
     return ddp.to_numpy(sol), wall, read_launches()
 
 
-def main_path(problem, backpass="kernel"):
-    """Phase 6 (and 7 with ``backpass="fused"``): bench.py's batched
-    CarParking solve through the kernels of that path."""
+def main_options(backpass="kernel"):
+    """bench.py's solve options (float32, tolFun 1e-5) on a path."""
     import ddp_generator_tpu_torch as ddp
 
-    what = "main path" if backpass == "kernel" else "fused path"
-    p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float32)
-    opts = ddp.SolverOptions(max_iter=MAX_ITER_MAIN, dtype="float32",
+    return ddp.SolverOptions(max_iter=MAX_ITER_MAIN, dtype="float32",
                              tolFun=1e-5, debug_level=0,
                              backpass_method=backpass,
                              linesearch_method="kernel")
-    solver = ddp.StepwiseSolver(problem, opts, chunk=10, compact_levels=4,
-                                min_compact_batch=128, device="cuda")
+
+
+def main_solver(problem, backpass="kernel"):
+    """bench.py's StepwiseSolver (chunk 10, compact_levels 4,
+    min_compact_batch 128) on a path."""
+    import ddp_generator_tpu_torch as ddp
+
+    return ddp.StepwiseSolver(problem, main_options(backpass), chunk=10,
+                              compact_levels=4, min_compact_batch=128,
+                              device="cuda")
+
+
+def check_graphed(what, solver):
+    """Fail unless the solver's last call replayed a graph at every width
+    and read the host at most once every ``chunk`` replays; returns its
+    loop stats as a dict."""
+    st = solver.last_stats
+    if not st.graphed or st.eager or st.replays != st.body_calls:
+        fail(f"{what}: body calls did not all run graphed: {st}")
+    if st.host_reads > st.replays // solver.chunk + 1:
+        fail(f"{what}: {st.host_reads} host reads for {st.replays} "
+             f"replays at chunk {solver.chunk}")
+    return dict(replays=st.replays, host_reads=st.host_reads,
+                graphed_widths="/".join(map(str, st.graphed)))
+
+
+def main_path(problem, backpass="kernel"):
+    """Phase 6 (and 7 with ``backpass="fused"``): bench.py's batched
+    CarParking solve through the kernels of that path, precompiled (every
+    width's body call captured as a CUDA graph before the timed solve)."""
+    what = "main path" if backpass == "kernel" else "fused path"
+    p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float32)
+    solver = main_solver(problem, backpass)
+    precompile_s = solver.precompile(x0s, u0s, p)
     s, wall, launches = timed_solve(solver, x0s, u0s, p)
+    loop = check_graphed(what, solver)
     used = ("backpass" if backpass == "kernel" else "fused",
             "rollout_multi", "rollout_selected")
     for name in used:
@@ -702,8 +751,96 @@ def main_path(problem, backpass="kernel"):
                  stale_pct=100 * float(s.stale_calls.sum())
                  / max(1, int(s.body_calls.sum())),
                  mean_cost=float(s.cost.mean()),
-                 launches=launches)
+                 precompile_s=precompile_s, **loop, launches=launches)
     return stats
+
+
+def graphs_phase(problem):
+    """Phase 6b: the precompiled graphed StepwiseSolver against the eager
+    route, ``make_batched_solver`` (one host read per body call, no
+    compaction), at bench.py's CarParking solve (B=2048, T=500, float32)
+    on the kernel and the fused path: every Solution field bit for bit and
+    the same launch counts.  Prints precompile seconds, the peak device
+    memory of precompile + solve, replays and host reads per solve, and
+    the wall of each route."""
+    import torch
+
+    import ddp_generator_tpu_torch as ddp
+
+    p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float32)
+    out = {}
+    for backpass in ("kernel", "fused"):
+        what = f"graphs {backpass}"
+        solver = main_solver(problem, backpass)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        precompile_s = solver.precompile(x0s, u0s, p)
+        g, g_wall, g_launches = timed_solve(solver, x0s, u0s, p)
+        peak = torch.cuda.max_memory_allocated()
+        loop = check_graphed(what, solver)
+        eager = ddp.make_batched_solver(problem, main_options(backpass),
+                                        device="cuda")
+        e, e_wall, e_launches = timed_solve(eager, x0s, u0s, p)
+        for f in g._fields:
+            a, b = getattr(g, f), getattr(e, f)
+            if a.shape != b.shape or not np.array_equal(
+                    a, b, equal_nan=a.dtype.kind == "f"):
+                fail(f"{what}: Solution.{f} differs from the eager route "
+                     f"in {int((a != b).sum())} entries")
+        if g_launches != e_launches:
+            fail(f"{what}: launches {g_launches} graphed, {e_launches} "
+                 "eager")
+        out[backpass] = dict(
+            B=B_MAIN, T=T_MAIN, precompile_s=precompile_s,
+            peak_mem_gib=peak / 2**30, graphed_wall_s=g_wall,
+            eager_wall_s=e_wall, eager_over_graphed=e_wall / g_wall,
+            **loop, solved_pct=100 * float(np.isin(g.status, (1, 2)).mean()),
+            fields_equal=len(g._fields),
+            **{f"launches_{k}": v for k, v in g_launches.items()})
+    return out
+
+
+def emitter_launches(problem):
+    """Phase 6c: derivative emission at the main path's first body call
+    (B=2048, T=500, float32) with each ``derivs_emitter``: device kernels
+    per emission (``torch.profiler``), its wall (host clock between two
+    synchronizes, after a warm-up call), and the largest gap between the
+    two bundles relative to each component's largest value."""
+    import torch
+
+    from ddp_generator_tpu_torch.ops.cm_derivs import cm_emit
+
+    p, r, m, w = nominal_bundle(problem, B_MAIN, T_MAIN, torch.float32,
+                                "cuda")[:4]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    out, bundles = {}, {}
+    for shared in (False, True):
+
+        def emit():
+            return cm_emit(problem, r.xs, r.us, m.mu_le, m.mu_li, m.mu_fe,
+                           m.mu_fi, w, w, p, True, shared)
+
+        emit()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        bundles[shared] = emit()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        with torch.profiler.profile(activities=acts) as prof:
+            emit()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type.name == "CUDA"]
+        name = "shared" if shared else "per_family"
+        out[f"{name}_device_events"] = len(kernels)
+        out[f"{name}_ms"] = 1e3 * wall
+    worst = 0.0
+    for key, a in bundles[True][0].items():
+        b = bundles[False][0][key]
+        if a.numel():
+            worst = max(worst, max_rel_err(a, b)[1])
+    out["max_rel_gap"] = worst
+    return out
 
 
 def brachi_path():
@@ -750,7 +887,9 @@ def brachi_path():
 def per_lane_serial():
     """Phase 5b: the default options (serial backward pass and line search,
     float64, max_iter 20) on 16 lanes, GPU against CPU: CarParking T=100
-    and Cartpole T=150."""
+    and Cartpole T=150.  Returns the lines and the Cartpole CPU solution
+    (cartpole_path holds its full-width serial solve's first lanes to
+    it)."""
     import ddp_generator_tpu_torch as ddp
     from ddp_generator_tpu_torch.models import car_parking, cartpole
 
@@ -764,9 +903,9 @@ def per_lane_serial():
     # CPU's): a one-ulp change of lane 9's th0 moves its cost by 3.6e-8 on
     # the CPU (the other lanes' by at most 5e-12), and the card's largest
     # gap was 1.4e-8 on an H100; the counts are held equal all the same.
-    pole = same_on_cpu(cartpole.cartpole(), opts, x0s, u0s, p,
-                       cost_rtol=1e-6)
-    return car, pole
+    pole, pole_cpu = same_on_cpu(cartpole.cartpole(), opts, x0s, u0s, p,
+                                 cost_rtol=1e-6, with_cpu=True)
+    return car, pole, pole_cpu
 
 
 def per_lane_inline():
@@ -859,21 +998,24 @@ def serial_vs_kernel(problem):
                 status=np.bincount(a.status).tolist(), **res)
 
 
-def cartpole_path(serial: bool):
-    """Phase 10: the Cartpole swing-up at full width (B=2048, T=150,
-    max_iter=150): with the default options (serial, float64), or through
-    B3 and B2 in float32 (tolFun 1e-5).  Solved lanes must end in the
-    upright basin at the reference's share and within the force limits."""
+def cartpole_path(serial: bool, cpu_lanes=None):
+    """Phase 10: the Cartpole swing-up at full width (B=2048, T=150),
+    through B3 and B2 in float32 (tolFun 1e-5, max_iter=150): solved lanes
+    must end in the upright basin at the reference's share and within the
+    force limits.  Or with the default options (serial, float64), cut to
+    max_iter=20: every lane within the force limits, and the first lanes
+    equal to ``cpu_lanes``, per_lane_serial's CPU solve of the same lanes
+    (cartpole_inputs makes a lane's inputs independent of the width)."""
     import ddp_generator_tpu_torch as ddp
     from ddp_generator_tpu_torch.models import cartpole
 
     what = "cartpole serial" if serial else "cartpole fused"
     # float32 takes tolFun=1e-5, as the main path does: a float32 cost of
     # ~0.3 moves by ~3e-8 a rounding, below the 1e-7 of float64's default
-    kw = (dict() if serial else
-          dict(dtype="float32", tolFun=1e-5, backpass_method="fused",
-               linesearch_method="kernel"))
-    opts = ddp.SolverOptions(max_iter=MAX_ITER_POLE, debug_level=0, **kw)
+    kw = (dict(max_iter=MAX_ITER_POLE_SERIAL) if serial else
+          dict(max_iter=MAX_ITER_POLE, dtype="float32", tolFun=1e-5,
+               backpass_method="fused", linesearch_method="kernel"))
+    opts = ddp.SolverOptions(debug_level=0, **kw)
     np_dtype = np.float64 if serial else np.float32
     p, x0s, u0s = cartpole_inputs(B_MAIN, T_POLE, np_dtype)
     solver = ddp.StepwiseSolver(cartpole.cartpole(), opts, device="cuda")
@@ -890,16 +1032,25 @@ def cartpole_path(serial: bool):
     solved = float(ok.mean())
     upright = np.cos(s.xs[:, -1, 1]) > 0.98
     upright_share = float(upright[ok].mean()) if ok.any() else 0.0
-    u_max = float(np.abs(s.us[ok]).max()) if ok.any() else 0.0
-    if solved < SOLVED_MIN:
-        fail(f"{what}: solved share {solved:.4f} < {SOLVED_MIN}")
-    if upright_share < UPRIGHT_MIN:
-        fail(f"{what}: upright share of solved lanes {upright_share:.4f} < "
-             f"{UPRIGHT_MIN}")
+    u_max = float(np.abs(s.us).max())
+    extra = {}
+    if serial:
+        n = len(cpu_lanes.cost)
+        head = type(s)(*(f[:n] for f in s))
+        # the CPU tolerance of per_lane_serial: lane 9 moves 3.6e-8 an ulp
+        extra["first_lanes_cost_rel_err"] = check_lanes(
+            f"{what}: first {n} lanes against the CPU", head, cpu_lanes,
+            1e-6)
+    else:
+        if solved < SOLVED_MIN:
+            fail(f"{what}: solved share {solved:.4f} < {SOLVED_MIN}")
+        if upright_share < UPRIGHT_MIN:
+            fail(f"{what}: upright share of solved lanes "
+                 f"{upright_share:.4f} < {UPRIGHT_MIN}")
     if u_max > 15.0 * (1 + 1e-6):
         fail(f"{what}: |u| reaches {u_max} > 15")
     body = int(s.body_calls.max())
-    return dict(B=B_MAIN, T=T_POLE, max_iter=MAX_ITER_POLE,
+    return dict(B=B_MAIN, T=T_POLE, max_iter=opts.max_iter, **extra,
                 dtype=opts.dtype, wall_s=wall, solves_per_s=B_MAIN / wall,
                 solved_pct=100 * solved,
                 exhausted_pct=100 * float((s.status == 7).mean()),
@@ -1026,7 +1177,7 @@ def main() -> int:
     line("per_lane_fused", **per_lane_check(problem, "fused"))
     line("per_lane_fused_brachi", **per_lane_brachi())
     # 5b. the serial path (default options), GPU vs CPU; inline retries
-    car, pole_lanes = per_lane_serial()
+    car, pole_lanes, pole_cpu = per_lane_serial()
     line("per_lane_serial", model="car_parking", **car)
     line("per_lane_serial", model="cartpole", **pole_lanes)
     line("per_lane_serial", model="car_parking", path="kernel_inline",
@@ -1040,6 +1191,11 @@ def main() -> int:
     launches = stats.pop("launches")
     line("main_path", **stats, **{f"launches_{k}": v
                                   for k, v in launches.items()})
+
+    # 6b. graphed against eager, both paths; 6c. the two emitters
+    for backpass, d in graphs_phase(problem).items():
+        line("graphs", path=backpass, **d)
+    line("emitters", **emitter_launches(problem))
 
     # 7. the fused path at full width: B3, B2
     fstats = main_path(problem, "fused")
@@ -1056,10 +1212,10 @@ def main() -> int:
     # 9. the serial path against the kernel path at full width, 3 deep
     line("serial_vs_kernel", **serial_vs_kernel(problem))
 
-    # 10. the Cartpole swing-up at full width: serial float64, then B3 + B2
-    # in float32
+    # 10. the Cartpole swing-up at full width: serial float64 (cut to
+    # max_iter 20, its first lanes against the CPU), then B3 + B2 in float32
     for serial in (True, False):
-        cstats = cartpole_path(serial)
+        cstats = cartpole_path(serial, pole_cpu)
         claunches = cstats.pop("launches")
         line("cartpole_path", path="serial" if serial else "fused",
              **cstats, **{f"launches_{k}": v for k, v in claunches.items()})

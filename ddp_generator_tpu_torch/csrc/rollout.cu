@@ -164,6 +164,7 @@ template <class M, typename T, bool MULTI, bool WANT_COST>
 __global__ void __launch_bounds__(Shape<M, T, MULTI, WANT_COST>::kMaxThreads,
                                   1)
     rollout_kernel(const RolloutArgs<T> A) {
+  if (rollout_skipped(A)) return;  // the whole block: before any barrier
   with_params<M>(A.params, [&](const T* p) {
     rollout_block<M, T, MULTI, WANT_COST>(A, p);
   });
@@ -229,6 +230,7 @@ int launch(const char* model, bool multi, bool want_cost, int N, int B,
   a.cost = out(13);
   a.ok = static_cast<bool*>(p[14]);
   a.xs = out(15); a.xf = out(16); a.us = out(17);
+  a.run = static_cast<const int*>(p[18]);
   a.N = N;
   a.B = B;
   a.A = A;
@@ -252,7 +254,9 @@ int launch(const char* model, bool multi, bool want_cost, int N, int B,
 //
 // ptrs: xnom, unom, l, L, mu_le, mu_li, x0, w_pen_l, w_pen_f, mu_fe, mu_fi,
 // alpha, params, then the outputs cost, ok, xs, xf, us (NULL where a mode
-// or an empty AL family has none).  model: a CUDA model name
+// or an empty AL family has none), then the stage flag run (NULL: always
+// run; else a device int, 0 = return at entry, writing nothing).  model: a
+// CUDA model name
 // ("car_parking", "cartpole", "brachistochrone", "brachistochrone_hli").
 // dtype: 0 float32, 1 float64.  block: checked and otherwise unused; the
 // block's shape follows from the tile constants (rollout.cuh).  Launches on

@@ -6,7 +6,8 @@
 // warp makes (the copy itself passed in: cp.async on the card, a plain
 // loop on the host), chain_tile the chain thread's share of a time tile,
 // cost_items, cost_sum and store_tile the cost warps' share, and
-// rollout_finish the final cost.
+// rollout_finish the final cost; rollout_skipped is the entry test of the
+// staged line search's stage flag.
 //
 // A step of a rollout has one true recurrence, x -> dx -> u -> clamp ->
 // f -> x, and three things that are not on it: the step's operands (the
@@ -48,8 +49,21 @@ struct RolloutArgs {
   T* xs;           // (N, NX, B)   selected only
   T* xf;           // (NX, B)      selected only
   T* us;           // (N, NU, B)   selected only
+  // The staged line search's stage flag (ops/cuda_rollout.py): NULL, or a
+  // device int that is 0 when no live lane needs this rollout.
+  const int* run;
   int N, B, A;
 };
+
+// A rollout whose stage flag is 0 reads and writes nothing: every block
+// returns at entry, so a stage the line search does not need costs one
+// launch and no work, and the flag is decided on the device (the body call
+// holds no host read and can be captured in a CUDA graph).
+template <typename T>
+__host__ __device__ __forceinline__ bool rollout_skipped(
+    const RolloutArgs<T>& A) {
+  return A.run != nullptr && *A.run == 0;
+}
 
 // The operands of one step that do not depend on the state.
 template <class M, typename T>

@@ -19,6 +19,12 @@ ports ``ddp_generator_tpu.ops.pallas_fused.step_derivative_components`` and
 reverse mode here because ``torch.func``'s nested forward mode costs ~8x
 more host time per call).  This is torch code, not a hand kernel.  Unlike
 the JAX version there is no 128-lane padding.
+
+``derivs_emitter="shared"`` takes :func:`step_derivative_components_shared`
+instead (JAX's ``step_derivative_components_shared``): one primal trace of
+``(f, L)`` and every column of an order in one batched autograd call.
+Both emitters give the same bundle to rounding; which is faster is a
+question of scheduling (PERF.md records the launches of each).
 """
 
 from __future__ import annotations
@@ -135,7 +141,12 @@ def step_derivative_components(problem: Problem, x, u, p, k, mu_le, mu_li,
                       for a in range(NX) for b in range(NU)]
     else:
         out["fxx"] = out["fuu"] = out["fxu"] = []
+    return _packed(problem, x, u, p, k, out)
 
+
+def _packed(problem: Problem, x, u, p, k, out: dict) -> dict:
+    """``out`` (lists of ``(N, B)`` planes) with the box limits added,
+    each stacked into a ``(C, N, B)`` tensor."""
     lower, upper, lo_hx, up_hx, lo_s, up_s = _box_limit_components(
         problem, x, u, p, k)
     out["lower"], out["upper"] = lower, upper
@@ -148,6 +159,73 @@ def step_derivative_components(problem: Problem, x, u, p, k, mu_le, mu_li,
               else torch.zeros((0, N, B), dtype=x.dtype, device=x.device))
         for key, v in out.items()
     }
+
+
+def step_derivative_components_shared(problem: Problem, x, u, p, k, mu_le,
+                                      mu_li, wpl, full_ddp: bool) -> dict:
+    """:func:`step_derivative_components` from ONE primal trace of ``f``
+    and ``L`` together (port of JAX's
+    ``pallas_fused.step_derivative_components_shared``).
+
+    The outputs ``Y = [f_0 .. f_{n_x-1}, L]`` are traced once; one batched
+    vector-Jacobian product (``is_grads_batched``, a one-hot cotangent per
+    output) gives every first-order column ``J[r][a] = dY_r / d dir_a``,
+    and one more over the columns that have a second order (all with
+    ``full_ddp``, else ``L``'s) gives ``d J[r][a] / d dir_b``: two autograd
+    calls where the per-family emitter makes ``(n_x + 1) (1 + n_x + n_u)``.
+    Same contract; values agree to rounding (the association differs where
+    a vmapped backward sums in another order)."""
+    NX, NU = problem.n_x, problem.n_u
+    D, R = NX + NU, NX + 1
+    N, B = x.shape[1], x.shape[2]
+
+    def onehot(m):  # (m, m, N, B) one-hot cotangents, stride 0 over (N, B)
+        eye = torch.eye(m, dtype=x.dtype, device=x.device)
+        return eye[:, :, None, None].expand(m, m, N, B)
+
+    def columns(y, xx, uu, create_graph):  # (m, N, B) -> (m, D, N, B)
+        gs = torch.autograd.grad(y, (xx, uu), onehot(y.shape[0]),
+                                 create_graph=create_graph, allow_unused=True,
+                                 is_grads_batched=True)
+        gx, gu = (torch.zeros((y.shape[0],) + t.shape, dtype=x.dtype,
+                              device=x.device) if g is None else g
+                  for g, t in zip(gs, (xx, uu)))
+        return torch.cat([gx, gu], 1)
+
+    with torch.enable_grad():
+        xx = x.detach().requires_grad_(True)
+        uu = u.detach().requires_grad_(True)
+        c = problem.L(xx, uu, p, k)
+        for i, fn in enumerate(problem.hle):
+            c = c + _eq_penalty(mu_le[i], fn(xx, uu, p, k), wpl)
+        for i, fn in enumerate(problem.hli):
+            c = c + _ineq_penalty(mu_li[i], fn(xx, uu, p, k), wpl)
+        Y = torch.cat([problem.f(xx, uu, p, k), c.expand(N, B)[None]])
+        J = columns(Y, xx, uu, True)  # (R, D, N, B)
+        rows = J if full_ddp else J[NX:]  # the outputs with a 2nd order
+        H = columns(rows.reshape(-1, N, B), xx, uu, False)
+        H = H.reshape(rows.shape[0], D, D, N, B)
+    C2 = H[-1]  # L's: C2[a][b] = d2L / d dir_a d dir_b
+    out = {
+        "fx": [J[i, j] for i in range(NX) for j in range(NX)],
+        "fu": [J[i, NX + j] for i in range(NX) for j in range(NU)],
+        "cx": [J[NX, a] for a in range(NX)],
+        "cu": [J[NX, NX + a] for a in range(NU)],
+        "cxx": [C2[a, b] for a in range(NX) for b in range(a, NX)],
+        "cuu": [C2[NX + a, NX + b] for a in range(NU)
+                for b in range(a, NU)],
+        "cxu": [C2[a, NX + b] for a in range(NX) for b in range(NU)],
+    }
+    if full_ddp:
+        out["fxx"] = [H[i, a, b] for i in range(NX)
+                      for a in range(NX) for b in range(a, NX)]
+        out["fuu"] = [H[i, NX + a, NX + b] for i in range(NX)
+                      for a in range(NU) for b in range(a, NU)]
+        out["fxu"] = [H[i, a, NX + b] for i in range(NX)
+                      for a in range(NX) for b in range(NU)]
+    else:
+        out["fxx"] = out["fuu"] = out["fxu"] = []
+    return _packed(problem, x, u, p, k, out)
 
 
 def final_derivative_components(problem: Problem, xF, p, N: int, mu_fe,
@@ -179,19 +257,23 @@ _FINITE_KEYS = ("fx", "fu", "cx", "cu", "cxx", "cuu", "cxu", "fxx", "fuu",
 
 
 def batched_calc_derivs_cm(problem: Problem, xs, us, params, mu_le, mu_li,
-                           mu_fe, mu_fi, w_pen_l, w_pen_f, full_ddp: bool):
+                           mu_fe, mu_fi, w_pen_l, w_pen_f, full_ddp: bool,
+                           shared: bool = False):
     """Batched ``calc_derivs`` with packed component-major output.
 
     ``xs (B, N+1, n_x)``, ``us (B, N, n_u)``, ``mu_le (B, N, n_hle)``,
     ``mu_fe (B, n_hfe)``, ``w_pen_* (B,)``; ``params`` shared, or per lane
     as :class:`~..problem.LaneParams`.  Returns
     ``(sd_cm, final_cx (n_x, B), final_cxx (n_x*n_x, B), ok (B,))`` -- the
-    contract of JAX's ``batched_calc_derivs_cm``."""
+    contract of JAX's ``batched_calc_derivs_cm``; ``shared`` is its
+    ``shared_primal`` (the single-trace emitter)."""
     B, Np1, _ = xs.shape
     N = Np1 - 1
     to_cm = lambda a: a.permute(2, 1, 0).contiguous()  # (B,N,c) -> (c,N,B)
     k = step_index(params, N, xs.device)
-    sd_cm = step_derivative_components(
+    step = (step_derivative_components_shared if shared
+            else step_derivative_components)
+    sd_cm = step(
         problem, to_cm(xs[:, :N]), to_cm(us), params, k, to_cm(mu_le),
         to_cm(mu_li), w_pen_l, full_ddp)
     final_cx, final_cxx = final_derivative_components(
@@ -206,23 +288,24 @@ def batched_calc_derivs_cm(problem: Problem, xs, us, params, mu_le, mu_li,
 
 
 def cm_emit(problem: Problem, xs, us, mu_le, mu_li, mu_fe, mu_fi, w_pen_l,
-            w_pen_f, params, full_ddp: bool):
+            w_pen_f, params, full_ddp: bool, shared: bool = False):
     """Emit the packed CM bundle.  Returns ``(sd_cm, final_cx, final_cxx,
     us_cm (n_u, N, B), ok (B,))``: the emission half of the backward pass,
     split out so a lambda retry could re-run only the kernel on a frozen
-    bundle (``iLQG.c:261-284``)."""
+    bundle (``iLQG.c:261-284``).  ``shared``: the single-trace emitter."""
     sd_cm, final_cx, final_cxx, ok = batched_calc_derivs_cm(
         problem, xs, us, params, mu_le, mu_li, mu_fe, mu_fi, w_pen_l,
-        w_pen_f, full_ddp)
+        w_pen_f, full_ddp, shared)
     us_cm = us.permute(2, 1, 0).contiguous()
     return sd_cm, final_cx, final_cxx, us_cm, ok
 
 
 def cm_back_pass_from_bundle(sd_cm: dict, final_cx, final_cxx, us_cm, lam,
-                             n_x: int, reg_type: int,
-                             full_ddp: bool) -> BackPassResult:
+                             n_x: int, reg_type: int, full_ddp: bool,
+                             when: Tensor | None = None) -> BackPassResult:
     """Run the backward pass (kernel B1, or its plain version on the CPU)
-    on an emitted bundle; returns the batch-major result."""
+    on an emitted bundle; returns the batch-major result.  ``when``: the
+    launch-count predicate of :func:`.cuda_backpass.back_pass_cm`."""
     return result_from_cm(*back_pass_cm(
         sd_cm, final_cx, final_cxx, us_cm, lam[None, :], n_x,
-        reg_type=reg_type, full_ddp=full_ddp))
+        reg_type=reg_type, full_ddp=full_ddp, when=when))

@@ -40,7 +40,7 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, launches
 from .backpass import BackPassResult
 from .boxqp import _patterns
 
@@ -381,7 +381,7 @@ def _bundle_shapes(n_x, n_u, full_ddp):
 
 
 def back_pass_cm(sd_cm: dict, final_cx, final_cxx, us_cm, lam, n_x: int,
-                 reg_type: int, full_ddp: bool):
+                 reg_type: int, full_ddp: bool, when: Tensor | None = None):
     """Backward pass on a packed component-outer bundle.
 
     ``sd_cm`` maps ``StepDerivs`` field names to ``(C, N, B)`` tensors;
@@ -390,8 +390,10 @@ def back_pass_cm(sd_cm: dict, final_cx, final_cxx, us_cm, lam, n_x: int,
     dV (2, B), g_norm (1, B), failed (1, B) bool)``.
 
     CPU tensors run :func:`back_pass_cm_plain`; CUDA tensors launch kernel
-    B1 (``csrc/backpass.cu``) and count the launch in
-    ``back_pass_cm.launches``; anything else raises."""
+    B1 (``csrc/backpass.cu``) and count the launch (:mod:`..launches`: in
+    ``back_pass_cm.launches``, or on the device inside a capture or with
+    the predicate ``when``, which the solver sets to "some lane of this
+    body call runs"); anything else raises."""
     n_u, N, B = us_cm.shape
     dev = us_cm.device
     if dev.type == "cpu":
@@ -434,7 +436,8 @@ def back_pass_cm(sd_cm: dict, final_cx, final_cxx, us_cm, lam, n_x: int,
             0 if dtype == torch.float32 else 1, n_x, n_u, reg_type,
             int(full_ddp), N, B, ptrs, stream)
     _build.check(lib, rc, "backpass")
-    back_pass_cm.launches += 1
+    if not launches.on_device("backpass", dev, when):
+        back_pass_cm.launches += 1
     return l_out, L_out, dV, g_norm, failed
 
 

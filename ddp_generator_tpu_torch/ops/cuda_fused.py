@@ -45,7 +45,7 @@ from typing import Any
 
 import torch
 
-from .. import _build
+from .. import _build, launches
 from ..problem import Problem
 from .cm_derivs import cm_emit
 from .cuda_backpass import (
@@ -79,7 +79,8 @@ def fused_derivs_back_pass_plain(problem: Problem, xs, us, mu_le, mu_li,
 
 def fused_derivs_back_pass(problem: Problem, xs, us, mu_le, mu_li, mu_fe,
                            mu_fi, w_pen_l, w_pen_f, lam, params: Any,
-                           reg_type: int, full_ddp: bool
+                           reg_type: int, full_ddp: bool,
+                           when: Tensor | None = None
                            ) -> tuple[BackPassResult, Tensor]:
     """Derivatives and backward pass of every lane in one call.
 
@@ -89,7 +90,8 @@ def fused_derivs_back_pass(problem: Problem, xs, us, mu_le, mu_li, mu_fe,
     all lanes.  Returns ``(BackPassResult, derivs_ok (B,) bool)``.
 
     CPU tensors run :func:`fused_derivs_back_pass_plain`; CUDA tensors
-    launch kernel B3 and count it in ``fused_derivs_back_pass.launches``;
+    launch kernel B3 and count it as B1's wrapper does (``when`` the same
+    predicate; host count ``fused_derivs_back_pass.launches``);
     anything else raises, as do a problem without a CUDA model of
     :data:`KERNEL_MODELS`, ``n_u > 3`` and a dtype other than float32/64."""
     B, Np1, n_x = xs.shape
@@ -160,7 +162,8 @@ def fused_derivs_back_pass(problem: Problem, xs, us, mu_le, mu_li, mu_fe,
                            model.name.encode(), reg_type, int(full_ddp), N,
                            B, ptrs, stream)
     _build.check(lib, rc, "fused")
-    fused_derivs_back_pass.launches += 1
+    if not launches.on_device("fused", dev, when):
+        fused_derivs_back_pass.launches += 1
     return result_from_cm(l_out, L_out, dV, g_norm, failed), derivs_ok[0]
 
 

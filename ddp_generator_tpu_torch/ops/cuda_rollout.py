@@ -43,17 +43,23 @@ schedule against it on the host, bit for bit.
 
 The plain PyTorch version is :func:`rollout_plain`; :func:`rollout_call`
 takes it for CPU tensors only.
+
+Every rollout takes an optional stage flag ``run``, a one-element device
+``int32``: 0 makes the kernel return at entry, writing nothing (the plain
+version fills its outputs with NaN instead).  The staged line search
+decides its stages with such flags on the device, so a body call holds no
+host read and can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Any, Sequence
+from typing import Any
 
 import torch
 
-from .. import _build
+from .. import _build, launches
 from ..al import _eq_penalty, _ineq_penalty
 from ..problem import Problem
 from .linesearch import LineSearchResult, first_accept
@@ -70,18 +76,43 @@ KERNEL_MODELS = ("car_parking", "cartpole", "brachistochrone",
 BLOCK = 64
 
 
-def rollout_plain(problem: Problem, alphas: Sequence[float], xnom_cm,
-                  unom_cm, l_cm, L_cm, mu_le_cm, mu_li_cm, x0_cm, w_pen_l,
-                  w_pen_f, mu_fe_cm, mu_fi_cm, alpha_vec, params: Any,
-                  multi: bool, want_cost: bool = False):
+def _alpha_tensor(alphas, like: Tensor) -> Tensor:
+    """The alpha schedule ``(A,)`` in ``like``'s dtype and device: as given
+    when it is a tensor (the solver builds it once, outside any capture;
+    a copy from host memory cannot be captured), else made here."""
+    if isinstance(alphas, Tensor):
+        return alphas
+    return torch.tensor(alphas, dtype=like.dtype, device=like.device)
+
+
+def rollout_plain(problem: Problem, alphas, xnom_cm, unom_cm, l_cm, L_cm,
+                  mu_le_cm, mu_li_cm, x0_cm, w_pen_l, w_pen_f, mu_fe_cm,
+                  mu_fi_cm, alpha_vec, params: Any, multi: bool,
+                  want_cost: bool = False, run: Tensor | None = None):
     """Plain PyTorch version of kernel B2 on the same operands: a Python
-    loop over time on ``(comp, A, B)`` (multi) or ``(comp, B)`` lanes."""
+    loop over time on ``(comp, A, B)`` (multi) or ``(comp, B)`` lanes.
+    With a stage flag ``run`` of 0 every output is NaN (``ok`` False), the
+    stand-in for the kernel's unwritten outputs; the flag is never read on
+    the host."""
+    out = _rollout_plain(problem, alphas, xnom_cm, unom_cm, l_cm, L_cm,
+                         mu_le_cm, mu_li_cm, x0_cm, w_pen_l, w_pen_f,
+                         mu_fe_cm, mu_fi_cm, alpha_vec, params, multi,
+                         want_cost)
+    if run is None:
+        return out
+    keep = run.reshape(()) != 0
+    return tuple(torch.where(keep, t, False if t.dtype == torch.bool
+                             else float("nan")) for t in out)
+
+
+def _rollout_plain(problem, alphas, xnom_cm, unom_cm, l_cm, L_cm, mu_le_cm,
+                   mu_li_cm, x0_cm, w_pen_l, w_pen_f, mu_fe_cm, mu_fi_cm,
+                   alpha_vec, params, multi, want_cost):
     N, n_x, B = xnom_cm.shape
     n_u = unom_cm.shape[1]
     p = params
     if multi:
-        alpha = torch.tensor(alphas, dtype=xnom_cm.dtype,
-                             device=xnom_cm.device)[:, None]  # (A, 1)
+        alpha = _alpha_tensor(alphas, xnom_cm)[:, None]  # (A, 1)
         x = x0_cm[:, None, :].expand(n_x, len(alphas), B)
         lane = lambda v: v[..., None, :]  # (c, B) -> (c, 1, B)
     else:
@@ -140,11 +171,17 @@ def rollout_plain(problem: Problem, alphas: Sequence[float], xnom_cm,
     return res
 
 
-def rollout_call(problem: Problem, alphas: Sequence[float], xnom_cm, unom_cm,
-                 l_cm, L_cm, mu_le_cm, mu_li_cm, x0_cm, w_pen_l, w_pen_f,
-                 mu_fe_cm, mu_fi_cm, alpha_vec, params: Any, multi: bool,
-                 want_cost: bool = False):
+def rollout_call(problem: Problem, alphas, xnom_cm, unom_cm, l_cm, L_cm,
+                 mu_le_cm, mu_li_cm, x0_cm, w_pen_l, w_pen_f, mu_fe_cm,
+                 mu_fi_cm, alpha_vec, params: Any, multi: bool,
+                 want_cost: bool = False, run: Tensor | None = None):
     """One rollout (cost sweep or selected rollout).
+
+    ``alphas`` is the schedule, a sequence of floats or an ``(A,)`` tensor
+    of the operands' dtype and device.  ``run``: the stage flag, ``None``
+    or a one-element ``int32`` tensor on the operands' device; where it is
+    0 the kernel writes nothing and the outputs hold whatever
+    ``torch.empty`` gave them.
 
     Operands in ``(N, C, B)``/``(C, B)`` layout: ``xnom_cm (N, n_x, B)``,
     ``unom_cm (N, n_u, B)``, ``l_cm (N, n_u, B)``, ``L_cm (N, n_u*n_x, B)``,
@@ -157,13 +194,15 @@ def rollout_call(problem: Problem, alphas: Sequence[float], xnom_cm, unom_cm,
     ``(cost (1, B), ok (1, B) bool)`` when ``want_cost``.
 
     CPU tensors run :func:`rollout_plain`; CUDA tensors launch kernel B2 and
-    count it in ``rollout_call.launches["multi" | "selected"]``."""
+    count it (:mod:`..launches`: on the host in
+    ``rollout_call.launches["multi" | "selected"]``, or on the device, the
+    flag's value, with ``run`` or inside a capture)."""
     dev = xnom_cm.device
     if dev.type == "cpu":
         return rollout_plain(problem, alphas, xnom_cm, unom_cm, l_cm, L_cm,
                              mu_le_cm, mu_li_cm, x0_cm, w_pen_l, w_pen_f,
                              mu_fe_cm, mu_fi_cm, alpha_vec, params, multi,
-                             want_cost)
+                             want_cost, run)
     if dev.type != "cuda":
         raise ValueError(f"rollout_call: unsupported device {dev}")
     model = problem.cuda_model
@@ -193,7 +232,8 @@ def rollout_call(problem: Problem, alphas: Sequence[float], xnom_cm, unom_cm,
            ("mu_fi_cm", mu_fi_cm, (problem.n_hfi, B), problem.n_hfi)]
     checks += [(nm, t, s) for nm, t, s, n in opt if n]
     if multi:
-        alpha_t = torch.tensor(alphas, dtype=dtype, device=dev)
+        alpha_t = _alpha_tensor(alphas, xnom_cm)
+        checks.append(("alphas", alpha_t, (A,)))
     else:
         checks.append(("alpha_vec", alpha_vec, (1, B)))
         alpha_t = alpha_vec
@@ -207,6 +247,10 @@ def rollout_call(problem: Problem, alphas: Sequence[float], xnom_cm, unom_cm,
             raise ValueError(f"{name} must be contiguous")
     if (n_x, n_u) != (problem.n_x, problem.n_u):
         raise ValueError("operand widths do not match the problem")
+    if run is not None and (run.numel() != 1 or run.dtype != torch.int32
+                            or run.device != dev):
+        raise TypeError(f"run: {run.numel()} {run.dtype} on {run.device}, "
+                        f"want one int32 on {dev}")
     p_flat = model.flat_params(params, dtype, dev, N)
 
     def opt_t(t, n):
@@ -228,7 +272,7 @@ def rollout_call(problem: Problem, alphas: Sequence[float], xnom_cm, unom_cm,
         xnom_cm, unom_cm, l_cm, L_cm, opt_t(mu_le_cm, problem.n_hle),
         opt_t(mu_li_cm, problem.n_hli), x0_cm, w_pen_l, w_pen_f,
         opt_t(mu_fe_cm, problem.n_hfe), opt_t(mu_fi_cm, problem.n_hfi),
-        alpha_t, p_flat, cost, ok, xs, xf, us,
+        alpha_t, p_flat, cost, ok, xs, xf, us, run,
     ])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -236,7 +280,9 @@ def rollout_call(problem: Problem, alphas: Sequence[float], xnom_cm, unom_cm,
             0 if dtype == torch.float32 else 1, model.name.encode(),
             int(multi), int(want_cost), N, B, A, BLOCK, ptrs, stream)
     _build.check(lib, rc, "rollout")
-    rollout_call.launches["multi" if multi else "selected"] += 1
+    key = "multi" if multi else "selected"
+    if not launches.on_device(f"rollout_{key}", dev, run):
+        rollout_call.launches[key] += 1
     if multi:
         return cost, ok
     if want_cost:
@@ -273,7 +319,7 @@ class _LSCtx:
     """Component-major operands shared by the line-search rollouts."""
 
     def __init__(self, problem, x0, xs_nom, us_nom, l, L_gain, dV, cost,
-                 mu_le, mu_li, mu_fe, mu_fi, w_pen_l, w_pen_f):
+                 mu_le, mu_li, mu_fe, mu_fi, w_pen_l, w_pen_f, alphas=None):
         B, Np1, n_x = xs_nom.shape
         self.B, self.N = B, Np1 - 1
         self.dtype, self.device = us_nom.dtype, us_nom.device
@@ -293,26 +339,36 @@ class _LSCtx:
         self.cost = cost
         self.xs_nom = xs_nom
         self.us_nom = us_nom
+        self.alphas = (None if alphas is None  # (A,)
+                       else _alpha_tensor(alphas, us_nom))
 
-    def call(self, problem, alphas, params, alpha_vec, multi,
-             want_cost=False):
+    def call(self, problem, params, alpha_vec, multi, want_cost=False,
+             run=None):
         return rollout_call(
-            problem, alphas, self.xnom_cm, self.unom_cm, self.l_cm,
+            problem, self.alphas, self.xnom_cm, self.unom_cm, self.l_cm,
             self.L_cm, self.mu_le_cm, self.mu_li_cm, self.x0_cm, self.wpl,
             self.wpf, self.mu_fe_cm, self.mu_fi_cm, alpha_vec, params,
-            multi=multi, want_cost=want_cost)
+            multi=multi, want_cost=want_cost, run=run)
 
-
-def _select_first_accept(alphas, costs, ok, ctx: _LSCtx, z_min: float):
-    """First accepted alpha per lane (``line_search.c:41-54``).  Returns
-    ``(idx, any_ok, dcost, expected, z, al (A, 1))``."""
-    al = torch.tensor(alphas, dtype=ctx.dtype, device=ctx.device)[:, None]
-    return first_accept(al, costs, ok, ctx.cost, ctx.dV, z_min) + (al,)
+    def select_first_accept(self, costs, ok, z_min: float):
+        """First accepted alpha per lane (``line_search.c:41-54``).
+        Returns ``(idx, any_ok, dcost, expected, z, take)``, ``take(m)``
+        the entry of an ``(A, B)`` plane at each lane's ``idx``."""
+        al = self.alphas[:, None]
+        idx, any_ok, dcost, expected, z = first_accept(
+            al, costs, ok, self.cost, self.dV, z_min)
+        take = lambda m: m.gather(0, idx[None, :])[0]
+        return idx, any_ok, dcost, expected, z, take
 
 
 def _traj_out(xs_cm, xf_cm, us_cm):
     xs_full = torch.cat([xs_cm, xf_cm[None]], 0)  # (N+1, n_x, B)
     return xs_full.permute(2, 0, 1), us_cm.permute(2, 0, 1)
+
+
+def _flag(pred: Tensor) -> Tensor:
+    """A device predicate as B2's stage flag: one ``int32``."""
+    return pred.to(torch.int32).reshape(1)
 
 
 def kernel_line_search(problem, alphas, x0, xs_nom, us_nom, l, L_gain, dV,
@@ -321,16 +377,16 @@ def kernel_line_search(problem, alphas, x0, xs_nom, us_nom, l, L_gain, dV,
     """Batched line search on the two rollout modes (port of JAX's
     ``pallas_line_search``): full sweep, first-accept selection, selected
     rollout.  Batch-major operands (``x0 (B, n_x)``, ``xs_nom (B, N+1,
-    n_x)``, ``L_gain (B, N, n_u, n_x)``, ``dV (B, 2)``, ``cost (B,)``)."""
+    n_x)``, ``L_gain (B, N, n_u, n_x)``, ``dV (B, 2)``, ``cost (B,)``);
+    ``alphas`` a sequence of floats or the ``(A,)`` tensor."""
     A = len(alphas)
     ctx = _LSCtx(problem, x0, xs_nom, us_nom, l, L_gain, dV, cost,
-                 mu_le, mu_li, mu_fe, mu_fi, w_pen_l, w_pen_f)
-    costs, okf = ctx.call(problem, alphas, params, None, multi=True)
-    idx, any_ok, dcost, expected, z, al = _select_first_accept(
-        alphas, costs, okf, ctx, z_min)
-    take = lambda m: m.gather(0, idx[None, :])[0]
-    alpha_vec = take(al.expand(A, ctx.B))
-    xs_cm, xf_cm, us_cm = ctx.call(problem, alphas, params,
+                 mu_le, mu_li, mu_fe, mu_fi, w_pen_l, w_pen_f, alphas)
+    costs, okf = ctx.call(problem, params, None, multi=True)
+    idx, any_ok, dcost, expected, z, take = ctx.select_first_accept(
+        costs, okf, z_min)
+    alpha_vec = take(ctx.alphas[:, None].expand(A, ctx.B))
+    xs_cm, xf_cm, us_cm = ctx.call(problem, params,
                                    alpha_vec[None, :].contiguous(),
                                    multi=False)
     xs_out, us_out = _traj_out(xs_cm, xf_cm, us_cm)
@@ -349,56 +405,68 @@ def kernel_line_search_staged(problem, alphas, x0, xs_nom, us_nom, l, L_gain,
 
     Stage 1 rolls only alpha[0] (trajectory and cost); the full sweep runs
     only when some ``alive`` lane rejects it, and inside that path the
-    selected rollout is skipped when no live lane accepted an alpha past
-    alpha[0].  With no live lane at all, no rollout runs.  Each ``lax.cond``
-    of the JAX version is a Python branch on a host-read boolean: at most
-    three host syncs per call.  Per live lane the result equals
-    :func:`kernel_line_search`'s."""
+    selected rollout only when some live lane accepted an alpha past
+    alpha[0] (else stage 1's trajectory is the selected one: same kernel,
+    same alpha).  With no live lane at all, no rollout runs.  Each
+    ``lax.cond`` of the JAX version is a device predicate: the stage flag
+    that kernel B2 reads at entry (a stage not needed launches and returns
+    at once) and the ``torch.where`` that selects its result, so the call
+    reads nothing on the host.  Per live lane the result equals
+    :func:`kernel_line_search`'s.  ``alphas`` as there; its floats are read
+    only when it is a sequence."""
     A = len(alphas)
     ctx = _LSCtx(problem, x0, xs_nom, us_nom, l, L_gain, dV, cost,
-                 mu_le, mu_li, mu_fe, mu_fi, w_pen_l, w_pen_f)
-    B, dtype, dev = ctx.B, ctx.dtype, ctx.device
-    if not bool(alive.any()):
-        # No live lane consumes this search: skip both rollouts.
-        zeros = torch.zeros((B,), dtype=dtype, device=dev)
-        return LineSearchResult(
-            success=torch.zeros((B,), dtype=torch.bool, device=dev),
-            xs=ctx.xs_nom, us=ctx.us_nom, new_cost=ctx.cost, dcost=zeros,
-            expected=zeros, z=zeros,
-            alpha_index=torch.full((B,), A, dtype=torch.int32, device=dev))
+                 mu_le, mu_li, mu_fe, mu_fi, w_pen_l, w_pen_f, alphas)
+    B = ctx.B
+    any_alive = alive.any()
 
-    a0 = float(alphas[0])
-    alpha0_vec = torch.full((1, B), a0, dtype=dtype, device=dev)
-    xs0, xf0, us0, cost0, ok0 = ctx.call(problem, alphas, params, alpha0_vec,
-                                         multi=False, want_cost=True)
+    # stage 1: alpha[0] alone, trajectory and cost
+    a0 = ctx.alphas[0]
+    alpha0_vec = a0.expand(1, B).contiguous()
+    xs0, xf0, us0, cost0, ok0 = ctx.call(problem, params, alpha0_vec,
+                                         multi=False, want_cost=True,
+                                         run=_flag(any_alive))
     cost0, ok0 = cost0[0], ok0[0]
     dcost0 = ctx.cost - cost0
     expected0 = -a0 * (ctx.dV[:, 0] + a0 * ctx.dV[:, 1])
     pos0 = expected0 > 0.0
     z0 = torch.where(pos0, dcost0 / torch.where(pos0, expected0, 1.0), 0.0)
     acc0 = ok0 & (z0 > z_min)
-    if not bool((alive & ~acc0).any()):
-        xs_out, us_out = _traj_out(xs0, xf0, us0)
-        return LineSearchResult(
-            success=acc0, xs=xs_out, us=us_out, new_cost=cost0,
-            dcost=dcost0, expected=expected0, z=z0,
-            alpha_index=torch.where(acc0, 0, A).to(torch.int32))
 
-    costs, okf = ctx.call(problem, alphas, params, None, multi=True)
-    idx, any_ok, dcost, expected, z, al = _select_first_accept(
-        alphas, costs, okf, ctx, z_min)
-    take = lambda m: m.gather(0, idx[None, :])[0]
-    if bool((alive & any_ok & (idx > 0)).any()):
-        alpha_vec = take(al.expand(A, B))
-        xs_cm, xf_cm, us_cm = ctx.call(problem, alphas, params,
-                                       alpha_vec[None, :].contiguous(),
-                                       multi=False)
-    else:
-        # every accepting live lane took alpha[0]: stage 1's trajectory is
-        # the selected one (same kernel, same alpha)
-        xs_cm, xf_cm, us_cm = xs0, xf0, us0
-    xs_out, us_out = _traj_out(xs_cm, xf_cm, us_cm)
+    # stage 2: the sweep, when a live lane rejects alpha[0] (never without
+    # a live lane: then acc0 is read from unwritten outputs, but `alive`
+    # masks it)
+    need_sweep = (alive & ~acc0).any()
+    costs, okf = ctx.call(problem, params, None, multi=True,
+                          run=_flag(need_sweep))
+    idx, any_ok, dcost, expected, z, take = ctx.select_first_accept(
+        costs, okf, z_min)
+    # stage 3: the selected rollout, when a live lane took an alpha past
+    # alpha[0] (any_ok and idx exist only after a sweep)
+    need_sel = need_sweep & (alive & any_ok & (idx > 0)).any()
+    alpha_vec = take(ctx.alphas[:, None].expand(A, B))
+    sel = ctx.call(problem, params, alpha_vec[None, :].contiguous(),
+                   multi=False, run=_flag(need_sel))
+
+    def pick(swept, staged, dead):
+        """The branch the stages took: the sweep's result, stage 1's, or
+        the nominal one of a search without a live lane."""
+        out = torch.where(any_alive, staged, dead)
+        return torch.where(need_sweep, swept, out)
+
+    traj = [torch.where(need_sel, s_, t0) for s_, t0 in zip(sel,
+                                                            (xs0, xf0, us0))]
+    xs_out, us_out = _traj_out(*traj)
+    no = torch.zeros_like(acc0)
+    zero = torch.zeros_like(cost0)
     return LineSearchResult(
-        success=any_ok, xs=xs_out, us=us_out, new_cost=take(costs),
-        dcost=take(dcost), expected=take(expected), z=take(z),
-        alpha_index=torch.where(any_ok, idx, A).to(torch.int32))
+        success=pick(any_ok, acc0, no),
+        xs=torch.where(any_alive, xs_out, ctx.xs_nom),
+        us=torch.where(any_alive, us_out, ctx.us_nom),
+        new_cost=pick(take(costs), cost0, ctx.cost),
+        dcost=pick(take(dcost), dcost0, zero),
+        expected=pick(take(expected), expected0, zero),
+        z=pick(take(z), z0, zero),
+        alpha_index=pick(torch.where(any_ok, idx, A),
+                         torch.where(acc0, 0, A),
+                         torch.full_like(idx, A)).to(torch.int32))

@@ -16,9 +16,11 @@ update is a ``torch.where`` per lane, and a lane whose loop condition is
 false keeps its carry.
 
 Two loops share the body: :func:`make_batched_solver` loops until no lane
-is active; :class:`StepwiseSolver` runs chunks of iterations with active-
-lane compaction.  Per-lane results are identical between them and with
-compaction on or off.
+is active, eagerly, reading the host before every body call;
+:class:`StepwiseSolver` runs chunks of iterations with active-lane
+compaction, and on a CUDA device replays each body call of the kernel and
+fused paths as one CUDA graph per working width.  Per-lane results are
+identical between them, with compaction on or off and graphed or eager.
 
 ``batch_params=True`` gives every lane its own params (the JAX convention:
 each leaf ``(B, *leaf_shape)``), cast once to lanes-last
@@ -37,6 +39,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from . import _build, launches
 from . import solution as sol
 from .al import Multipliers, init_multipliers, update_multipliers
 from .convert import to_torch
@@ -116,12 +119,6 @@ def _check_ported(problem: Problem, o: SolverOptions) -> None:
         raise NotImplementedError(
             "backpass_method='parallel' is not ported yet (ROADMAP.md queue "
             "A item 8: parallel_riccati); use 'serial', 'kernel' or 'fused'")
-    # the serial and fused paths compute their derivatives themselves: no
-    # emitter to choose
-    if o.backpass_method == "kernel" and o.derivs_emitter != "per-family":
-        raise NotImplementedError(
-            "derivs_emitter='shared' is not ported yet (ROADMAP.md queue A "
-            "item 10: emission); the port emits per family")
     if o.dtype not in _DTYPES:
         raise ValueError(f"dtype must be float32|float64, got {o.dtype!r}")
     if o.backpass_method in ("kernel", "fused") and problem.n_u > 3:
@@ -214,6 +211,9 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
     device = torch.device(device)
     alphas = tuple(float(a) for a in o.alpha)
     A = len(alphas)
+    # made once here: a copy from host memory inside a body call could not
+    # be captured in a CUDA graph
+    alphas_t = torch.tensor(alphas, dtype=dtype, device=device)
     lambda_success_thresh = 1e-5  # iLQG.c:297
     n_log = max(o.max_iter, 1)
     has_al = (problem.n_hle + problem.n_hli + problem.n_hfe
@@ -225,6 +225,9 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
     backpass = ("serial" if batch_params and o.backpass_method == "fused"
                 else o.backpass_method)
     linesearch = "serial" if batch_params else o.linesearch_method
+    # the serial and fused paths compute their derivatives themselves, and
+    # per-lane params emit per family (JAX: the batch-major fallback)
+    shared = o.derivs_emitter == "shared" and not batch_params
     i32 = torch.int32
 
     def full(B, v, dt=dtype):
@@ -236,25 +239,30 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
         ``bp_call(lam)`` re-runs only the backward pass on the same
         derivatives (the inline lambda retries)."""
         m = c.mult
+        # B1 and B3 count a launch only in a body call where a lane runs
+        # (launches.py): a graph replay after the last lane retired
+        # counts none
+        runs = _running(c, o.max_iter).any() if backpass != "serial" else None
         if backpass == "fused":
             # B3 re-derives the bundle per attempt (it never exists in
             # memory): a retry re-launches the kernel on unchanged inputs.
             def bp_call(lam):
                 return fused_derivs_back_pass(
                     problem, c.xs, c.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi,
-                    w_pen_l_d, w_pen_f_d, lam, params, o.regType, o.full_ddp)
+                    w_pen_l_d, w_pen_f_d, lam, params, o.regType, o.full_ddp,
+                    when=runs)
             bp, d_ok = bp_call(c.lam)
             return lambda lam: bp_call(lam)[0], bp, d_ok
         if backpass == "kernel":
             # emission once; a retry re-runs B1 on the same bundle
             sd_cm, fcx, fcxx, us_cm, d_ok = cm_emit(
                 problem, c.xs, c.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi,
-                w_pen_l_d, w_pen_f_d, params, o.full_ddp)
+                w_pen_l_d, w_pen_f_d, params, o.full_ddp, shared)
 
             def bp_call(lam):
                 return cm_back_pass_from_bundle(sd_cm, fcx, fcxx, us_cm, lam,
                                                 problem.n_x, o.regType,
-                                                o.full_ddp)
+                                                o.full_ddp, when=runs)
         else:
             d = batched_calc_derivs(
                 problem, c.xs, c.us, params, m.mu_le, m.mu_li, m.mu_fe,
@@ -367,7 +375,8 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
 
         # ===== STEP 3: line search (iLQG.c:305-309) =====
         ls_alive = alive & ~c.done & (c.it < o.max_iter)
-        ls_args = (problem, alphas, c.xs[:, 0], c.xs, c.us, bp.l, bp.L, bp.dV,
+        ls_args = (problem, alphas if linesearch == "serial" else alphas_t,
+                   c.xs[:, 0], c.xs, c.us, bp.l, bp.L, bp.dV,
                    c.cost, o.zMin, params, c.mult.mu_le, c.mult.mu_li,
                    c.mult.mu_fe, c.mult.mu_fi, c.w_pen_l, c.w_pen_f)
         if linesearch == "serial":
@@ -502,15 +511,26 @@ def _running(c: _Carry, max_iter: int) -> Tensor:
     return (~c.done) & (c.it < max_iter)
 
 
-def _masked_steps(body_fn, c: _Carry, params, max_iter: int, n: int):
+def _masked(body_fn, max_iter: int):
+    """One body call of the loop: the new carry on the lanes whose loop
+    condition held, the old one elsewhere (no host read)."""
+    def step(c: _Carry, params) -> _Carry:
+        return _lane_where(_running(c, max_iter), body_fn(c, params), c)
+    return step
+
+
+def _masked_steps(body_fn, c: _Carry, params, max_iter: int, n: int,
+                  read=bool):
     """Up to ``n`` body calls; each keeps the new carry only on lanes whose
-    loop condition held (the per-lane while-loop of the JAX version)."""
-    for _ in range(n):
+    loop condition held (the per-lane while-loop of the JAX version), and
+    stops at the first call with no running lane, ``read`` taking that
+    from the device before every call.  Returns ``(carry, calls)``."""
+    for calls in range(n):
         run = _running(c, max_iter)
-        if not bool(run.any()):
-            break
+        if not read(run.any()):
+            return c, calls
         c = _lane_where(run, body_fn(c, params), c)
-    return c
+    return c, n
 
 
 def make_batched_solver(problem: Problem,
@@ -528,8 +548,8 @@ def make_batched_solver(problem: Problem,
         p = cast_params(params, len(u0s))
         c = init_fn(x0s, u0s, p)
         # each lane runs at most max_iter*(1+n_lam_steps) body calls
-        c = _masked_steps(body_fn, c, p, options.max_iter,
-                          _max_body_calls(options))
+        c, _ = _masked_steps(body_fn, c, p, options.max_iter,
+                             _max_body_calls(options))
         if bool(_running(c, options.max_iter).any()):
             raise RuntimeError("batched solver: lanes still active after "
                                "the body-call bound; this is a masking bug")
@@ -560,6 +580,86 @@ def _max_body_calls(o: SolverOptions) -> int:
     return max(1, o.max_iter * (1 + _n_lam_steps(o)))
 
 
+class LoopStats(NamedTuple):
+    """What the last :class:`StepwiseSolver` call did on the host."""
+
+    body_calls: int  # body calls of the loop, graph replays included
+    replays: int  # of which CUDA graph replays
+    host_reads: int  # device values the loop read (debug prints excluded)
+    graphed: tuple  # working widths whose body calls were graph replays
+    eager: tuple  # working widths whose body calls ran eagerly
+
+
+def _copy_into(dst, src) -> None:
+    """``dst.copy_(src)`` leaf by leaf over a carry-like tree."""
+    _tree_map(lambda d, s: d.copy_(s), dst, src)
+
+
+def _params_key(p):
+    """Structure, shapes and dtypes of cast params (dicts of tensors): a
+    captured graph reads a static copy of exactly this."""
+    if isinstance(p, dict):
+        return tuple((k, _params_key(v)) for k, v in sorted(p.items()))
+    return (tuple(p.shape), p.dtype)
+
+
+def _params_map(fn, *trees):
+    """``fn`` over the tensors of cast params (dicts of tensors)."""
+    if isinstance(trees[0], dict):
+        return {k: _params_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+# eager calls before a capture, as torch.cuda.graph's documentation does
+_WARMUP_CALLS = 3
+
+
+class _WidthBody:
+    """The body call of one working width on a static carry it owns, updated
+    in place: ``run()`` replays the body call's CUDA graph, or without a
+    graph runs the same step eagerly.  ``active`` holds the count of running
+    lanes after the last call (computed inside the graph, as JAX's chunk
+    program returns its count).
+
+    Capture follows ``torch.cuda.graph``'s rules: a few eager calls on a
+    side stream first (emission's autograd must not meet its first use
+    inside a capture), all on the static carry, a scratch copy of ``like``;
+    the caller copies its working set in before the first ``run()``.  A
+    capture error raises: there is no eager fallback."""
+
+    def __init__(self, step, like: _Carry, params, max_iter: int,
+                 graph: bool, pool=None):
+        self._step, self._max_iter = step, max_iter
+        self.carry = _tree_map(torch.clone, like)
+        self.params = params
+        self.active = torch.zeros((), dtype=torch.int64,
+                                  device=like.cost.device)
+        self.graph = None
+        if not graph:
+            return
+        dev = like.cost.device
+        launches.device_counts(dev)  # before the capture records adds to it
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(_WARMUP_CALLS):
+                self._call()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool):
+            self._call()
+
+    def _call(self) -> None:
+        _copy_into(self.carry, self._step(self.carry, self.params))
+        self.active.copy_(_running(self.carry, self._max_iter).sum())
+
+    def run(self) -> None:
+        if self.graph is not None:
+            self.graph.replay()
+        else:
+            self._call()
+
+
 class StepwiseSolver:
     """Host-driven batched solver: chunks of iterations with active-lane
     compaction (``ddp_generator_tpu.solver.StepwiseSolver``).
@@ -569,6 +669,27 @@ class StepwiseSolver:
     into a half-width working set (at most ``compact_levels`` times, never
     below ``min_compact_batch``).  Per-lane results are bit-identical with
     compaction on or off: every lane sees the same iteration sequence.
+
+    **CUDA graphs.**  On a CUDA device a body call of the kernel and fused
+    paths is one replay of a CUDA graph captured for its working width
+    (the port's counterpart of JAX's jitted chunk program, one per width):
+    the graph reads and updates a static carry of that width and static
+    params in place, and computes the active count inside it.  The host
+    reads that count once every ``chunk`` replays and ends a chunk early
+    when it is 0 (masked replays change no lane); compaction copies the
+    gathered working set into the next width's static carry.  Widths are
+    captured at first use, or all before the timed call by
+    :meth:`precompile`.  Graphed: ``backpass_method`` ``"kernel"`` or
+    ``"fused"``, ``linesearch_method="kernel"``, shared params, deferred
+    lambda retries at that width and ``debug_level < 3``.  Eager on the
+    card, one host read per body call: the serial path (its boxQP loops
+    read the host), widths that retry inline (``lam_retry="inline"`` or
+    ``inline_below``), ``batch_params=True`` and the per-iteration trace
+    of ``debug_level >= 3``.  On the CPU the graphable configurations run
+    the same loop on the static carries with eager body calls.  A capture
+    or replay error raises; nothing falls back to the eager body.
+    ``last_stats`` (:class:`LoopStats`) says what the last call did:
+    replays, host reads, which widths ran graphed.
 
     ``inline_below``: working widths ``<= inline_below`` run a body with
     ``lam_retry="inline"`` (the reference's inner while around only the
@@ -629,12 +750,41 @@ class StepwiseSolver:
             self._body_inline = _make_parts(
                 problem, options.replace(lam_retry="inline"), self.device,
                 batch_params)[1]
+        o = options
+        # configurations whose body call holds no host read
+        self._static_ok = (o.backpass_method in ("kernel", "fused")
+                           and o.linesearch_method == "kernel"
+                           and o.lam_retry == "deferred" and not batch_params
+                           and o.debug_level < 3)
+        self._widths: dict = {}  # (width, N) -> _WidthBody
+        self._p_static = self._p_key = self._pool = None
+        self.last_stats: LoopStats | None = None
 
     def precompile(self, x0s, u0s, params, max_workers: int = 8) -> float:
-        raise NotImplementedError(
-            "precompile is not ported yet (ROADMAP.md queue A item 10: aot "
-            "with CUDA graphs); eager torch compiles nothing, the kernels "
-            "build at first use")
+        """Build everything a solve at this batch shape needs before the
+        first timed call (JAX: compile every chunk program): load the kernel
+        library, run ``init``, then capture, in the order the loop reaches
+        them, the body-call graph of every width of
+        :meth:`_compact_sizes` (warm-up calls on scratch carries, then the
+        capture; each width's static carry is allocated here).  Returns the
+        elapsed seconds.  ``max_workers`` is accepted and unused: capture is
+        serial (a graph captures one stream).  On the CPU it validates the
+        shapes and allocates the static carries, and captures nothing."""
+        t0 = time.time()
+        if self.device.type == "cuda":
+            _build.load_library()
+        p = self._cast_params(params, len(u0s))
+        full = self._init(x0s, u0s, p)
+        B, N = int(full.cost.shape[0]), int(full.us.shape[1])
+        if self._static_ok:
+            p = self._static_params(p)
+            for size in self._compact_sizes(B):
+                if self._on_static(size):
+                    self._width(size, N, _tree_map(lambda a: a[:size], full),
+                                p)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.time() - t0
 
     def _body_at(self, size: int):
         """The body for working width ``size``: inline retries at widths
@@ -643,6 +793,37 @@ class StepwiseSolver:
             return self._body_inline
         return self._body
 
+    def _on_static(self, size: int) -> bool:
+        """Does width ``size`` run on a static carry (graphed on a CUDA
+        device)?"""
+        return self._static_ok and not 0 < size <= self.inline_below
+
+    def _static_params(self, p):
+        """``p`` copied into the static params the graphs read; a change of
+        their structure or shapes drops every captured width."""
+        key = _params_key(p)
+        if key != self._p_key:
+            self._widths.clear()
+            self._p_static, self._p_key = _params_map(torch.clone, p), key
+        else:
+            _params_map(lambda d, v: d.copy_(v), self._p_static, p)
+        return self._p_static
+
+    def _width(self, size: int, N: int, like: _Carry, params) -> _WidthBody:
+        """The width's body call, captured (or set up) at first use."""
+        w = self._widths.get((size, N))
+        if w is None:
+            graph = self.device.type == "cuda"
+            if graph and self._pool is None:
+                # widths never replay concurrently and keep nothing in the
+                # pool across calls: one pool serves them all
+                self._pool = torch.cuda.graph_pool_handle()
+            w = _WidthBody(_masked(self._body_at(size), self.options.max_iter),
+                           like, params, self.options.max_iter, graph,
+                           self._pool)
+            self._widths[(size, N)] = w
+        return w
+
     def _chunk_len(self, size: int, B0: int) -> int:
         """Iterations per chunk, scaled inversely with the working width
         (capped 16x), as in the JAX version."""
@@ -650,6 +831,18 @@ class StepwiseSolver:
 
     def _can_halve(self, size: int) -> bool:
         return size % 2 == 0 and size // 2 >= self.min_compact_batch
+
+    def _compact_sizes(self, B: int) -> list:
+        """Working widths a batch of ``B`` can shrink through, largest first
+        (JAX: ``_compact_sizes``; :meth:`__call__` halves by the same
+        rule)."""
+        sizes, size = [B], B
+        for _ in range(self.compact_levels):
+            if not self._can_halve(size):
+                break
+            size //= 2
+            sizes.append(size)
+        return sizes
 
     def _compact(self, full: _Carry, small: _Carry, idx, new_size: int):
         """Scatter the working set back (when it was itself compacted),
@@ -662,24 +855,60 @@ class StepwiseSolver:
         new_idx = order[:new_size]
         return full, _tree_map(lambda a: a[new_idx], full), new_idx
 
+    def _read(self, t: Tensor):
+        """One host read of a device value by the loop (counted)."""
+        self._reads += 1
+        return t.item()
+
+    def _static_chunk(self, w: _WidthBody, n: int):
+        """Up to ``n`` body calls of a static width, reading the active count
+        after every ``chunk`` of them; ``(calls, active)``."""
+        calls, active = 0, None
+        while calls < n:
+            k = min(self.chunk, n - calls)
+            for _ in range(k):
+                w.run()
+            calls += k
+            active = self._read(w.active)
+            if active == 0:
+                break
+        return calls, active
+
     def __call__(self, x0s, u0s, params) -> Solution:
         t_start = time.time()
         o = self.options
         p_full = p = self._cast_params(params, len(u0s))
         full = self._init(x0s, u0s, p)
-        B = int(full.cost.shape[0])
+        B, N = int(full.cost.shape[0]), int(full.us.shape[1])
+        if self._static_ok:
+            p = self._static_params(p)
         small, idx, size = full, None, B
         levels_left = self.compact_levels
+        self._reads, calls_total, replays = 0, 0, 0
+        graphed, eager = [], []
         # Lambda retries do not advance `it`: loop on the active count,
-        # bounded by the body-call cap (see _n_lam_steps).  The count is read
-        # at once: _masked_steps syncs on every body call anyway.
+        # bounded by the body-call cap (see _n_lam_steps).
         n_calls = max(1, -(-o.max_iter * (1 + _n_lam_steps(o))
                            // self.chunk)) + 1
         exhausted = True
         for chunk_i in range(n_calls):
-            small = _masked_steps(self._body_at(size), small, p, o.max_iter,
-                                  self._chunk_len(size, B))
-            active = int(_running(small, o.max_iter).sum())
+            n = self._chunk_len(size, B)
+            if self._on_static(size):
+                w = self._width(size, N, small, p)
+                if small is not w.carry:
+                    _copy_into(w.carry, small)
+                    small = w.carry
+                calls, active = self._static_chunk(w, n)
+                if w.graph is not None:
+                    replays += calls
+                (graphed if w.graph is not None else eager).append(size)
+            else:
+                # the eager route's body calls read the host anyway
+                small, calls = _masked_steps(self._body_at(size), small, p,
+                                             o.max_iter, n, self._read)
+                active = self._read(_running(small, o.max_iter).sum())
+                eager.append(size)
+            calls_total += calls
             if o.debug_level >= 1:
                 self._print_status(chunk_i, small, active, size, t_start)
             if active == 0:
@@ -696,11 +925,20 @@ class StepwiseSolver:
                     full, small, idx = self._compact(full, small, idx, size)
                 if self.batch_params:
                     p = p_full.take(idx)
-        if exhausted and bool(_running(small, o.max_iter).any()):
+        if exhausted and self._read(_running(small, o.max_iter).any()):
             raise RuntimeError(
                 f"StepwiseSolver: lanes still active after {n_calls} chunk "
                 "calls; this indicates a masking bug")
-        full = _scatter(full, idx, small) if idx is not None else small
+        if idx is not None:
+            full = _scatter(full, idx, small)  # a new carry
+        else:
+            # the result must not alias a static carry: the next call
+            # would overwrite the caller's Solution
+            full = _tree_map(torch.clone, small)
+        self.last_stats = LoopStats(
+            body_calls=calls_total, replays=replays, host_reads=self._reads,
+            graphed=tuple(dict.fromkeys(graphed)),
+            eager=tuple(dict.fromkeys(eager)))
         return self._finalize(full)
 
     def _print_status(self, chunk_i, c: _Carry, active, size, t_start):

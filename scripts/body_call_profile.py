@@ -18,7 +18,11 @@ body call alone: the derivatives and backward pass, and the line search
 is the device time of all kernels over the wall time, and the device
 events and the launches of each hand-written kernel per body call are
 counted (B2: the sweep and the selected rollouts; a staged line search
-launches up to three).  Prints one line per path; imports no JAX.
+launches three, of which those its stage flags skip count none).  On the
+kernel and fused paths it then captures the solver's body call (the masked
+step on a static carry, ``solver._WidthBody``) as a CUDA graph and times
+and traces ``--calls`` replays the same way (``graph_*`` keys).  Prints one
+line per path; imports no JAX.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ def profile_path(backpass: str, calls: int, dtype: str) -> dict:
 
     import ddp_generator_tpu_torch as ddp
     from ddp_generator_tpu_torch import solver as slv
+    from ddp_generator_tpu_torch.launches import read_launches, reset_launches
     from ddp_generator_tpu_torch.models import car_parking
     from ddp_generator_tpu_torch.ops.cm_derivs import (
         cm_back_pass_from_bundle,
@@ -132,13 +137,49 @@ def profile_path(backpass: str, calls: int, dtype: str) -> dict:
     dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy_ms = sum(e.device_time_total for e in dev) / 1e3
     med = statistics.median
-    return dict(path=backpass, dtype=dtype, calls=calls, body_ms=med(body),
-                bp_ms=med(bps), ls_ms=med(lss),
-                rest_ms=med(body) - med(bps) - med(lss),
-                body_ms_all=[round(v, 3) for v in body],
-                profiled_wall_ms=wall_ms, device_busy_pct=100 * busy_ms
-                / wall_ms, device_events_per_call=len(dev) / calls,
-                **launches)
+    out = dict(path=backpass, dtype=dtype, calls=calls, body_ms=med(body),
+               bp_ms=med(bps), ls_ms=med(lss),
+               rest_ms=med(body) - med(bps) - med(lss),
+               body_ms_all=[round(v, 3) for v in body],
+               profiled_wall_ms=wall_ms, device_busy_pct=100 * busy_ms
+               / wall_ms, device_events_per_call=len(dev) / calls,
+               **launches)
+    if not serial:
+        out.update(profile_graphed(slv, o, body_fn, c, p, calls, acts))
+    return out
+
+
+def profile_graphed(slv, o, body_fn, c, p, calls, acts) -> dict:
+    """The body call as the solver replays it: captured once (after its
+    warm-up calls), then ``calls`` replays timed alone and ``calls`` more
+    under ``torch.profiler``."""
+    import torch
+
+    from ddp_generator_tpu_torch.launches import read_launches, reset_launches
+
+    t0 = time.perf_counter()
+    w = slv._WidthBody(slv._masked(body_fn, o.max_iter), c, p, o.max_iter,
+                       graph=True)
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    body = [timed(w.run)[1] for _ in range(calls)]
+    reset_launches()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            w.run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.device_time_total for e in dev) / 1e3
+    return dict(graph_capture_ms=capture_ms,
+                graph_body_ms=statistics.median(body),
+                graph_body_ms_all=[round(v, 3) for v in body],
+                graph_profiled_wall_ms=wall_ms,
+                graph_device_busy_pct=100 * busy_ms / wall_ms,
+                graph_device_events_per_call=len(dev) / calls,
+                **{f"graph_{k}_launches_per_call": v / calls
+                   for k, v in read_launches().items()})
 
 
 def main() -> int:

@@ -205,6 +205,7 @@ extern "C" int split_run(int variant, int multi, int N, int B, int A,
   a.cost = out(13);
   a.ok = static_cast<bool*>(p[14]);
   a.xs = out(15); a.xf = out(16); a.us = out(17);
+  a.run = nullptr;
   a.N = N; a.B = B; a.A = A;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return multi ? run<true>(variant, a, st) : run<false>(variant, a, st);

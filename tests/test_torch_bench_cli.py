@@ -8,6 +8,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOY = ["--batch", "8", "--T", "30", "--max-iter", "25", "--repeats", "1"]
 KEYS = {"metric", "value", "unit", "vs_baseline", "solved_pct",
@@ -22,8 +24,10 @@ def _run(*flags, env=None):
         env=dict(os.environ, **(env or {})))
 
 
-def test_bench_torch_cli_cpu_toy():
-    out = _run("--cpu", *TOY)
+@pytest.mark.parametrize("flags", [(), ("--no-precompile",)],
+                         ids=["precompile", "no_precompile"])
+def test_bench_torch_cli_cpu_toy(flags):
+    out = _run("--cpu", *TOY, *flags)
     assert out.returncode == 0, out.stderr[-2000:]
     lines = [ln for ln in out.stdout.strip().splitlines() if ln.strip()]
     assert len(lines) == 1, f"expected ONE JSON line on stdout: {lines}"
@@ -42,6 +46,9 @@ def test_bench_torch_cli_cpu_toy():
         "backpass": 0, "fused": 0, "rollout_multi": 0,
         "rollout_selected": 0}
     assert "warm-up solve" in out.stderr
+    # precompile by default, as bench.py; on the CPU it captures nothing
+    assert ("precompile: " in out.stderr) == (not flags)
+    assert "0 graph replays" in out.stderr
 
 
 def test_bench_torch_refuses_to_fall_back_to_cpu():

@@ -110,3 +110,49 @@ def test_calc_derivs_matches_jax(full_ddp):
     np.testing.assert_allclose(out.final.cxx.numpy(),
                                np.asarray(ref.final.cxx), **TOL)
     np.testing.assert_array_equal(out.ok.numpy(), np.asarray(ref.ok))
+
+
+@pytest.mark.parametrize("full_ddp", [True, False])
+def test_shared_emitter_matches_jax_shared(full_ddp):
+    """``derivs_emitter="shared"``: the port's single-trace emitter against
+    JAX's (``shared_primal=True``), every bundle component to 1e-12."""
+    jp, p, xs, us, mult, wl, wf = _inputs(seed=3)
+    sd_j, fcx_j, fcxx_j, ok_j = jax.jit(
+        lambda *a: batched_calc_derivs_cm(jp, *a, full_ddp=full_ddp,
+                                          shared_primal=True)
+    )(xs, us, p, *mult, wl, wf)
+    tp = tcar.car_parking()
+    p_t = td.params_from_jax(p, torch.float64, "cpu")
+    sd_t, fcx_t, fcxx_t, _, ok_t = cm_emit(
+        tp, _torch(xs), _torch(us), *map(_torch, mult), _torch(wl),
+        _torch(wf), p_t, full_ddp, shared=True)
+    assert set(sd_t) == set(sd_j)
+    for key in sd_j:
+        np.testing.assert_allclose(sd_t[key].numpy(), np.asarray(sd_j[key]),
+                                   rtol=1e-12, atol=1e-12, err_msg=key)
+    np.testing.assert_allclose(fcx_t.numpy(), np.asarray(fcx_j), rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(fcxx_t.numpy(), np.asarray(fcxx_j),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_j))
+
+
+def test_shared_emitter_solve_matches_per_family():
+    """tests/test_batched.py:157-177 in the port: the two emitters are two
+    schedules of the same bundle, so the kernel path's solves agree (equal
+    status, cost to rtol 1e-9, us to atol 1e-7)."""
+    p, x0, _ = tcar.default_setup(T=40)
+    rng = np.random.default_rng(5)
+    x0s = np.tile(x0, (8, 1)) + 0.05 * rng.standard_normal((8, 4))
+    u0s = 0.1 * rng.standard_normal((8, 40, 2))
+    sols = {}
+    for emitter in ("per-family", "shared"):
+        o = td.SolverOptions(max_iter=20, backpass_method="kernel",
+                             linesearch_method="kernel",
+                             derivs_emitter=emitter)
+        sols[emitter] = td.make_batched_solver(
+            tcar.car_parking(), o, device="cpu")(x0s, u0s, p)
+    pf, sh = sols["per-family"], sols["shared"]
+    np.testing.assert_array_equal(pf.status.numpy(), sh.status.numpy())
+    np.testing.assert_allclose(pf.cost.numpy(), sh.cost.numpy(), rtol=1e-9)
+    np.testing.assert_allclose(pf.us.numpy(), sh.us.numpy(), atol=1e-7)

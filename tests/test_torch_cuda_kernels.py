@@ -10,7 +10,10 @@ a lane that fails and a lane whose derivatives are not finite.  ``B`` is
 not a multiple of the lanes per block, so the ragged last block is
 exercised; the ``*_ragged`` cases of B1, B2 and B3 also take ``B = G+3``,
 ``N = 2S+1`` (a last time tile of one step) and ``B = 128``, the smallest
-compaction width, with ``G`` and ``S`` read from the built kernel.  Needs
+compaction width, with ``G`` and ``S`` read from the built kernel.  B2's
+stage flag: a stage whose flag is 0 writes nothing.  ``StepwiseSolver``'s
+CUDA graphs: the graphed solve equals the eager one bit for bit on the
+kernel and fused paths (B=64), and a capture error raises.  Needs
 a CUDA device and ``nvcc``;
 skips elsewhere.  The file imports no JAX, so on a machine without it run
 it past ``tests/conftest.py``::
@@ -343,3 +346,114 @@ def test_fused_kernel_ragged(cuda, edge, dtype):
     for name in ("l", "L", "dV", "g_norm"):
         _close(getattr(bp, name)[ok], getattr(ref, name)[ok], TOL[dtype],
                name)
+
+
+@pytest.mark.parametrize("multi", [True, False], ids=["multi", "selected"])
+def test_rollout_stage_flag_skips_the_kernel(cuda, multi):
+    """B2 with its stage flag at 0 writes none of its NaN-filled outputs;
+    at 1 it writes what the unflagged wrapper returns.  The wrapper counts
+    the flag's value as its launch."""
+    import ctypes
+
+    from ddp_generator_tpu_torch import _build, launches
+
+    ops, alpha_vec, p = _rollout_operands(torch.float64, cuda)
+    problem, alphas = ops[0], ops[1]
+    kw = dict(multi=True) if multi else dict(multi=False, want_cost=True)
+    av = None if multi else alpha_vec
+    ref = cr.rollout_call(*ops, av, p, **kw)
+    xnom = ops[2]
+    N_, n_x, B_ = xnom.shape
+    A = len(alphas)
+    rows = A if multi else 1
+    nan = lambda *sh: torch.full(sh, float("nan"), dtype=xnom.dtype,
+                                 device=cuda)
+    outs = [nan(rows, B_), torch.zeros((rows, B_), dtype=torch.bool,
+                                       device=cuda)]
+    outs += [None] * 3 if multi else [nan(N_, n_x, B_), nan(n_x, B_),
+                                      nan(N_, problem.n_u, B_)]
+    al = (torch.tensor(alphas, dtype=xnom.dtype, device=cuda) if multi
+          else alpha_vec)
+    lib = _build.load_library()
+    for flag in (0, 1):
+        run = torch.full((1,), flag, dtype=torch.int32, device=cuda)
+        ptrs = _build.pointer_array(
+            list(ops[2:6]) + [None, None] + list(ops[8:11]) + [None, None, al,
+            problem.cuda_model.flat_params(p, xnom.dtype, cuda, N_)]
+            + outs + [run])
+        rc = lib.ddp_rollout(1, b"car_parking", int(multi), 1, N_, B_, A,
+                             cr.BLOCK, ptrs,
+                             ctypes.c_void_p(torch.cuda.current_stream()
+                                             .cuda_stream))
+        _build.check(lib, rc, "rollout")
+        torch.cuda.synchronize()
+        written = [t for t in outs if t is not None]
+        if flag == 0:
+            assert all(bool(t.isnan().all()) for t in written
+                       if t.dtype != torch.bool)
+            assert not bool(outs[1].any())
+        else:
+            want = ref if multi else (ref[3], ref[4], *ref[:3])
+            for a, b in zip(written, want):  # lane 5 is NaN on both
+                torch.testing.assert_close(a, b, rtol=0, atol=0,
+                                           equal_nan=True)
+    launches.reset_launches()
+    for flag in (0, 1, 1):
+        run = torch.full((1,), flag, dtype=torch.int32, device=cuda)
+        cr.rollout_call(*ops, av, p, run=run, **kw)
+    key = "rollout_multi" if multi else "rollout_selected"
+    assert launches.read_launches()[key] == 2
+
+
+def _graph_case(backpass, B=64, T=60):
+    p, x0, _ = car_parking.default_setup(T=T)
+    rng = np.random.default_rng(2)
+    x0s = np.tile(x0, (B, 1)) + 0.05 * rng.standard_normal((B, 4))
+    u0s = 0.1 * rng.standard_normal((B, T, 2))
+    opts = ddp.SolverOptions(max_iter=40, dtype="float32", tolFun=1e-5,
+                             debug_level=0, backpass_method=backpass,
+                             linesearch_method="kernel")
+    return car_parking.car_parking(), opts, x0s, u0s, p
+
+
+@pytest.mark.parametrize("backpass", ["kernel", "fused"])
+def test_graphed_stepwise_equals_eager(cuda, backpass):
+    """The precompiled graphed StepwiseSolver (widths 64, 32, 16) gives
+    every Solution field of make_batched_solver bit for bit, ran every
+    width graphed, and a second call neither changes the first result
+    (no aliasing of the static carries) nor its own."""
+    problem, opts, x0s, u0s, p = _graph_case(backpass)
+    ref = ddp.make_batched_solver(problem, opts, device=cuda)(x0s, u0s, p)
+    solver = ddp.StepwiseSolver(problem, opts, chunk=4, compact_levels=2,
+                                min_compact_batch=16, device=cuda)
+    assert solver.precompile(x0s, u0s, p) > 0
+    sol = solver(x0s, u0s, p)
+    first = [t.clone() for t in sol]
+    st = solver.last_stats
+    assert st.eager == () and st.replays == st.body_calls > 0
+    assert set(st.graphed) <= {64, 32, 16} and 64 in st.graphed
+    again = solver(x0s, u0s, p)
+    for name, a, b, c, d in zip(sol._fields, sol, ref, first, again):
+        assert torch.equal(a, b), name
+        assert torch.equal(a, c), name
+        assert torch.equal(d, b), name
+
+
+def test_capture_error_raises(cuda):
+    """A host read inside the body call makes the capture fail, and the
+    solver raises instead of running the body eagerly (the kernel path:
+    its emission calls the model's Python ``f``, the fused path's body
+    does not)."""
+    problem, opts, x0s, u0s, p = _graph_case("kernel", B=16, T=20)
+    f = problem.f
+
+    def f_reads_host(x, u, p_, k):
+        float(x[0].sum())  # a synchronize: illegal inside a capture
+        return f(x, u, p_, k)
+
+    bad = dataclasses.replace(problem, f=f_reads_host)
+    solver = ddp.StepwiseSolver(bad, opts, min_compact_batch=16,
+                                device=cuda)
+    with pytest.raises(RuntimeError):
+        solver(x0s, u0s, p)
+    torch.cuda.synchronize()

@@ -5,6 +5,7 @@ import dataclasses
 import jax  # noqa: F401  (conftest pins the CPU platform)
 import numpy as np
 import pytest
+import torch
 
 import ddp_generator_tpu as jd
 import ddp_generator_tpu_torch as td
@@ -135,9 +136,13 @@ def test_fused_path_is_ported_and_ignores_the_emitter():
                             linesearch_method="kernel",
                             derivs_emitter="shared")
     td.StepwiseSolver(tcar.car_parking(), opts, device="cpu")
-    with pytest.raises(NotImplementedError, match="shared"):
-        td.StepwiseSolver(tcar.car_parking(), dataclasses.replace(
-            opts, backpass_method="kernel"), device="cpu")
+    # the kernel path emits with either emitter: "shared" builds and solves
+    p, x0, _ = tcar.default_setup(T=12)
+    u0s = 0.1 * np.random.default_rng(0).standard_normal((2, 12, 2))
+    sol = td.StepwiseSolver(tcar.car_parking(), dataclasses.replace(
+        opts, backpass_method="kernel", max_iter=3), min_compact_batch=2,
+        device="cpu")(np.tile(x0, (2, 1)), u0s, p)
+    assert sol.cost.shape == (2,) and bool(torch.isfinite(sol.cost).all())
     # per-lane params: the fused path takes the serial one (no emitter)
     assert td.StepwiseSolver(tcar.car_parking(), opts, batch_params=True,
                              device="cpu").batch_params

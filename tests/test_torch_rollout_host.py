@@ -16,8 +16,11 @@ summed in another order fails it.
 Cases: CarParking and ``brachistochrone_hli`` (its ``ymin[k]`` tail and AL
 terms), float32 and float64, the sweep and the selected rollout with and
 without cost; ``B = G+3`` lanes, ``N = 2S+1`` steps, more alphas than one
-block rolls, a lane whose rollout turns NaN and alpha = 0.  Skips when no
-C++ compiler is found.
+block rolls, a lane whose rollout turns NaN and alpha = 0.  The staged line
+search's stage flag: every block of the schedule starts with the kernel's
+entry test (``rollout_skipped``), so with the flag at 0 the NaN-filled
+outputs stay untouched and at 1 the result is the unflagged one.  Skips
+when no C++ compiler is found.
 """
 
 import ctypes
@@ -71,6 +74,7 @@ void staged(const RolloutArgs<T>& A, int parts) {
   auto copy = [](T* dst, const T* src, int n) {
     for (int e = 0; e < n; ++e) dst[e] = src[e];
   };
+  if (rollout_skipped(A)) return;  // rollout_kernel's entry, every block
   with_params<M>(A.params, [&](const T* p) {
     for (int b0 = 0; b0 < A.B; b0 += G) {
       for (int a0 = 0; a0 < (MULTI ? A.A : 1); a0 += kAlphaChunk) {
@@ -131,6 +135,7 @@ void run(int staged_schedule, int multi, int want_cost, int N, int B, int A,
   a.cost = out(13);
   a.ok = static_cast<bool*>(p[14]);
   a.xs = out(15); a.xf = out(16); a.us = out(17);
+  a.run = static_cast<const int*>(p[18]);
   a.N = N; a.B = B; a.A = A;
   const int parts = 3;
   if (multi) {
@@ -145,7 +150,7 @@ void run(int staged_schedule, int multi, int want_cost, int N, int B, int A,
   }
 }
 
-// ptrs as ddp_rollout's.  model: 0 CarParking, 1 BrachistochroneHli;
+// ptrs as ddp_rollout's (the stage flag last).  model: 0 CarParking, 1 BrachistochroneHli;
 // dtype: 0 float32, 1 float64; staged_schedule 0 runs rollout_lane.
 extern "C" void host_rollout(int model, int dtype, int staged_schedule,
                              int multi, int want_cost, int N, int B, int A,
@@ -250,18 +255,21 @@ def _operands(model, np_dtype, t_dtype, N, B, A):
             alphas.astype(np_dtype), alpha_vec.astype(np_dtype), p_flat, prob)
 
 
-def _run(lib, model, dtype, mode, staged, N, B, A):
+def _run(lib, model, dtype, mode, staged, N, B, A, flag=None,
+         fill_value=-7.0):
     code, np_dtype, t_dtype = DTYPES[dtype]
     multi, want_cost = MODES[mode]
     ins, alphas, alpha_vec, p_flat, prob = _operands(model, np_dtype,
                                                      t_dtype, N, B, A)
     alpha = alphas if multi else alpha_vec
     rows = A if multi else 1
-    fill = lambda *s: np.full(s, -7.0, np_dtype)
+    fill = lambda *s: np.full(s, fill_value, np_dtype)
     outs = [fill(rows, B), np.zeros((rows, B), bool),
             fill(N, prob.n_x, B), fill(prob.n_x, B), fill(N, prob.n_u, B)]
     arrs = ins + [alpha, p_flat] + outs
-    q = (ctypes.c_void_p * 18)(*[a.ctypes.data for a in arrs])
+    run = None if flag is None else np.array([flag], np.int32)
+    q = (ctypes.c_void_p * 19)(*[a.ctypes.data for a in arrs],
+                               None if run is None else run.ctypes.data)
     lib.host_rollout(MODELS[model], code, int(staged), multi, want_cost, N,
                      B, A, q)
     return outs
@@ -306,3 +314,23 @@ def test_alpha_zero_is_the_nominal_control(lib):
     assert zero[:2].all()
     np.testing.assert_array_equal(us[:, :, zero],
                                   np.clip(ins[1], lo, hi)[:, :, zero])
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("model", list(MODELS))
+def test_stage_flag(lib, model, dtype, mode):
+    """Flag 0: the staged schedule returns at entry and every NaN-filled
+    output slot (and the False-filled ok) is left as it was; flag 1: the
+    unflagged result, bit for bit."""
+    G, S, chunk = _shape(lib, model, dtype, mode == "multi")
+    B, N, A = G + 3, 2 * S + 1, chunk + 1
+    nan = float("nan")
+    skipped = _run(lib, model, dtype, mode, True, N, B, A, flag=0,
+                   fill_value=nan)
+    assert all(np.isnan(o).all() for o in skipped if o.dtype != bool)
+    assert not skipped[1].any()
+    ran = _run(lib, model, dtype, mode, True, N, B, A, flag=1)
+    ref = _run(lib, model, dtype, mode, True, N, B, A)
+    for name, o, r in zip(("cost", "ok", "xs", "xf", "us"), ran, ref):
+        np.testing.assert_array_equal(o, r, err_msg=name)
