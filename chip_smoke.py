@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from ``ddp_generator_tpu_torch/csrc``,
+Builds the hand-written kernels from ``ddp_generator_tpu_torch/csrc``
+(with those on the generated models and new B1 shapes, all at once),
 holds each against its plain PyTorch version on the card, checks small
 float64 solves lane by lane against the CPU, and drives each path once at
 full width:
@@ -27,8 +28,18 @@ full width:
   the CPU, and through B3 and B2 in float32 (max_iter=150, tolFun 1e-5,
   as the main path);
 * the main path's solve with per-lane params (``batch_params=True``,
-  ``limW`` from +-0.2 to +-0.5 over the lanes): emission + B1 and the
-  serial line search, beside the shared-params wall of the same run.
+  ``limW`` from +-0.2 to +-0.5 over the lanes), cut to max_iter 40:
+  emission + B1 and the serial line search;
+* generated models (phase 12): CarParking and ``brachistochrone_hli``
+  with their hand-written CUDA models stripped, so B2 and B3 run the
+  models ``codegen.py`` generates from their torch functions -- their
+  kernels bit for bit against the hand-written ones, and the main path's,
+  the fused path's and the Brachistochrone's solves field by field and
+  launch by launch -- and two user problems written here in torch with no
+  CUDA model and no ``box_meta`` (``user_problems``: a double integrator
+  with AL families, shape (2, 1), and a 3-input point mass, (6, 3)) at
+  B=2048 on the kernel and fused paths, their first 16 lanes against the
+  CPU, and their B1, B2 and B3 against the plain versions.
 
 The Cartpole instantiations of B1 (4, 1), B2 and B3 are held against their
 plain versions like CarParking's, and small float64 solves of the serial
@@ -52,6 +63,7 @@ JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -74,9 +86,12 @@ TOL_ROLLOUT = {"float32": 1e-6, "float64": 1e-14}
 # recursion at small lambda amplifies it.  Each limit sits about 100x above
 # the largest gap of the first sound run on an H100 (CarParking 9.4e-4 in
 # float32, 4.6e-14 in float64; brachistochrone_hli 2.9e-15 in float64;
-# Cartpole, N=150, 2.9e-3 in float32, 1.8e-12 in float64).
+# Cartpole, N=150, 2.9e-3 in float32, 1.8e-12 in float64; on the user
+# problems' generated models, float64, the double integrator 1.6e-16 and
+# the point mass 6.9e-13).
 TOL_B3 = {"car_parking float32": 1e-1, "car_parking float64": 5e-12,
           "brachistochrone_hli float64": 3e-13,
+          "double_integrator float64": 1e-14, "point_mass3 float64": 7e-11,
           "cartpole float32": 3e-1, "cartpole float64": 2e-10}
 SOLVED_MIN = 0.90
 N_BRACHI = 500
@@ -86,6 +101,11 @@ T_POLE, MAX_ITER_POLE = 150, 150  # cartpole.default_setup's horizon
 # eager solve took 164-252 s on an H100; its first lanes are held against
 # the CPU's solve of per_lane_serial.
 MAX_ITER_POLE_SERIAL = 20
+# The full-width per-lane params solve (eager, emission + B1 and the serial
+# line search) is cut from the main path's max_iter 200 to 40: the whole
+# solve took 157-293 s on an H100; its lane checks (every lane inside its
+# own box, launches) hold at any depth.
+MAX_ITER_PER_LANE = 40
 # The Cartpole swing-up from x0 = [0, pi, 0, 0] + 0.05 normal: the JAX
 # package (float64, serial, on the CPU, max_iter 150) solves 98.4% of the
 # first 64 lanes of cartpole_inputs and 98.2% of the first 512, so the 90%
@@ -95,20 +115,40 @@ MAX_ITER_POLE_SERIAL = 20
 # ~0.32.  The floor on that share is the JAX share less 5 points.
 UPRIGHT_MIN = 0.805 - 0.05
 # Operations per (step, lane) and per lane of each kernel (FULL_DDP,
-# regType 1), CarParking's under plain names, Cartpole's with the prefix
-# "cartpole_", counted by scripts/count_ops.py on the kernels' own headers
-# (tests/test_torch_count_ops.py holds these to that count).
+# regType 1), CarParking's under plain names, the others' with a prefix:
+# Cartpole's, CarParking's generated model's and the two user problems'
+# (B1 at their shapes (2, 1) and (6, 3)), counted by scripts/count_ops.py
+# on the kernels' own headers (tests/test_torch_count_ops.py holds these to
+# that count; the Riccati step's clamp search depends on the data, so a
+# model's count moves with its random operands).
 OPS = {"backpass_per_step": 1470, "backpass_per_lane": 1,
        "fused_per_step": 7756, "fused_per_lane": 2065,
        "rollout_per_step": 84,
        "cartpole_backpass_per_step": 822, "cartpole_backpass_per_lane": 1,
        "cartpole_fused_per_step": 4727, "cartpole_fused_per_lane": 799,
-       "cartpole_rollout_per_step": 61}
+       "cartpole_rollout_per_step": 61,
+       "gen_car_parking_backpass_per_step": 1470,
+       "gen_car_parking_backpass_per_lane": 1,
+       "gen_car_parking_fused_per_step": 7757,
+       "gen_car_parking_fused_per_lane": 2061,
+       "gen_car_parking_rollout_per_step": 84,
+       "double_integrator_backpass_per_step": 222,
+       "double_integrator_backpass_per_lane": 1,
+       "double_integrator_fused_per_step": 629,
+       "double_integrator_fused_per_lane": 166,
+       "double_integrator_rollout_per_step": 29,
+       "point_mass3_backpass_per_step": 5504,
+       "point_mass3_backpass_per_lane": 1,
+       "point_mass3_fused_per_step": 16532,
+       "point_mass3_fused_per_lane": 2374,
+       "point_mass3_rollout_per_step": 108}
 # NVIDIA H100 SXM data sheet: HBM3 rate and the float32/float64 rates
 # outside the tensor cores, all at the full 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 WIDTHS = (2048, 1024, 512, 256, 128)
+# The user problems of phase 12 (user_problems(), made in main()).
+USER_PROBLEMS: dict = {}
 
 
 def line(phase: str, **kw) -> None:
@@ -151,8 +191,17 @@ def nbytes(*tensors) -> int:
 
 
 def ops(model: str, key: str) -> int:
-    """``OPS[key]`` of a CUDA model (CarParking's have no prefix)."""
+    """``OPS[key]`` of a model (CarParking's have no prefix)."""
     return OPS[key if model == "car_parking" else f"{model}_{key}"]
+
+
+def model_name(problem, p) -> str:
+    """The CUDA model the kernels run for ``problem``: its hand-written
+    model, or the one generated from its functions."""
+    from ddp_generator_tpu_torch import codegen
+    from ddp_generator_tpu_torch.ops.cuda_fused import KERNEL_MODELS
+
+    return codegen.kernel_model(problem, p, KERNEL_MODELS)[0].name
 
 
 def bound(n_bytes: int, n_ops: int, dtype) -> tuple[float, str]:
@@ -205,6 +254,94 @@ def cartpole_inputs(B: int, T: int, np_dtype=np.float64):
     return p, x0s.astype(np_dtype), u0s.astype(np_dtype)
 
 
+def user_problems():
+    """Two problems a user brings, written in torch with their input boxes
+    given as ``h`` constraints and no ``box_meta`` (``make_problem`` probes
+    them): the double integrator of tests/test_solver_al_families.py:19-38
+    with its ``hle`` and ``hfi`` families and a bound on its input (shape
+    (2, 1)), and a point mass in three axes with drag and a box on each of
+    its three inputs (shape (6, 3)).  Neither names a CUDA model, so the
+    kernels run the models generated from these functions.  Returns
+    ``{name: (problem, params, options, inputs(B, seed))}``."""
+    import torch
+
+    import ddp_generator_tpu_torch as ddp
+
+    def di_f(x, u, p, k):
+        dt = p["dt"]
+        return torch.stack([x[0] + dt * x[1], x[1] + dt * u[0]])
+
+    def di_L(x, u, p, k):
+        return p["r"] * u[0] ** 2
+
+    def di_F(x, p, k):
+        return 0.0 * x[0]
+
+    def di_hle(x, u, p, k):  # v(k) = vref
+        return x[1] - p["vref"]
+
+    def di_hfi(x, p, k):  # reach position 1
+        return 1.0 - x[0]
+
+    def di_lower(x, u, p, k):  # -umax <= u
+        return -u[0] - p["umax"]
+
+    def di_upper(x, u, p, k):  # u <= umax
+        return u[0] - p["umax"]
+
+    di_p = dict(dt=0.1, r=0.1, vref=0.5, umax=1.0)
+    di = ddp.make_problem(
+        n_x=2, n_u=1, f=di_f, L=di_L, F=di_F, h=[di_lower, di_upper],
+        hle=[di_hle], hfi=[di_hfi], name="double_integrator",
+        example_params=di_p)
+
+    def di_inputs(B, seed):  # x0 and u0 from seeds of their own
+        return (0.1 * np.random.default_rng(seed).standard_normal((B, 2)),
+                0.1 * np.random.default_rng(seed + 1).standard_normal(
+                    (B, 40, 1)))
+
+    def pm_f(x, u, p, k):
+        dt, cd = p["dt"], p["cd"]
+        vel = [x[3 + i] + dt * (u[i] - cd * x[3 + i] * torch.abs(x[3 + i]))
+               for i in range(3)]
+        return torch.stack([x[i] + dt * vel[i] for i in range(3)] + vel)
+
+    def pm_miss(x, p):
+        return sum((x[i] - p["target"][i]) ** 2 for i in range(3))
+
+    def pm_L(x, u, p, k):
+        return p["r"] * (u * u).sum(0) + p["q"] * pm_miss(x, p)
+
+    def pm_F(x, p, k):
+        speed = sum(x[3 + i] ** 2 for i in range(3))
+        return p["qf"] * (pm_miss(x, p) + speed)
+
+    def pm_box(i, sign):  # sign * u[i] - umax[i] < 0
+        if sign > 0:
+            return lambda x, u, p, k: u[i] - p["umax"][i]
+        return lambda x, u, p, k: -u[i] - p["umax"][i]
+
+    pm_p = dict(dt=0.05, cd=1.0, r=0.01, q=0.1, qf=10.0,
+                target=np.array([1.0, -1.0, 0.5]),
+                umax=np.array([1.0, 1.5, 2.0]))
+    pm = ddp.make_problem(
+        n_x=6, n_u=3, f=pm_f, L=pm_L, F=pm_F,
+        h=[pm_box(i, s) for i in range(3) for s in (-1, 1)],
+        name="point_mass3", example_params=pm_p)
+
+    def pm_inputs(B, seed):
+        return (0.1 * np.random.default_rng(seed).standard_normal((B, 6)),
+                0.1 * np.random.default_rng(seed + 1).standard_normal(
+                    (B, 100, 3)))
+
+    return {
+        "double_integrator": (di, di_p, dict(
+            max_iter=60, w_pen_init_l=10.0, w_pen_fact2=2.0, full_ddp=False,
+            tolFun=1e-9), di_inputs),
+        "point_mass3": (pm, pm_p, dict(max_iter=100), pm_inputs),
+    }
+
+
 def nominal_bundle(problem, B, T, dtype, device, inputs=bench_inputs):
     """The port's emission (cm_emit) on the initial rollout of ``inputs``
     (bench's by default): the bundle the backward pass sees on its first
@@ -230,7 +367,7 @@ def nominal_bundle(problem, B, T, dtype, device, inputs=bench_inputs):
 
 
 def check_backpass(problem, B, T, dtype, tol, reps, rng, device="cuda",
-                   inputs=bench_inputs):
+                   inputs=bench_inputs, label=None):
     """Phase 3: kernel B1 against its plain version on the emitted bundle,
     with lambdas that make a quarter of the lanes fail."""
     import torch
@@ -238,7 +375,7 @@ def check_backpass(problem, B, T, dtype, tol, reps, rng, device="cuda",
     from ddp_generator_tpu_torch.ops import cuda_backpass as cb
 
     dev = torch.device(device)
-    model = problem.cuda_model.name
+    model = label or problem.cuda_model.name
     p, r, m, w, sd, fcx, fcxx, us_cm, ok = nominal_bundle(
         problem, B, T, dtype, dev, inputs)
     lam_np = 10.0 ** rng.uniform(-6, 2, size=B)
@@ -278,10 +415,11 @@ def check_backpass(problem, B, T, dtype, tol, reps, rng, device="cuda",
                     p, r, m, w, out, lam[0], args)
 
 
-def compare_fused(name, args, tol, reps):
+def compare_fused(name, args, tol, reps, label=None):
     """Kernel B3 against its plain version on the same operands: equal
     failed and derivs_ok flags, values within ``tol`` of the largest
-    reference value, both timed."""
+    reference value, both timed; ``label`` names the model's operation
+    counts (its CUDA model's name by default)."""
     import torch
 
     from ddp_generator_tpu_torch.ops import cuda_fused as cf
@@ -314,15 +452,15 @@ def compare_fused(name, args, tol, reps):
     res = dict(B=B, failed_lanes=n_failed, derivs_ok=int(ok.sum()),
                max_abs_err=worst_abs, max_rel_err=worst_rel, tol=tol,
                ms=ms, plain_ms=plain_ms)
-    model = problem.cuda_model.name
-    if model in ("car_parking", "cartpole"):
+    model = label or problem.cuda_model.name
+    if model != "brachistochrone_hli":
         N = us.shape[1]
         res["bound_ms"], res["bound_by"] = bound(
             nbytes(args, bp, ok),
             ops(model, "fused_per_step") * N * B
             + ops(model, "fused_per_lane") * B, us.dtype)
-    return dict(res, **cf.kernel_info(problem.cuda_model.name, reg_type,
-                                      full_ddp, us.dtype))
+    return dict(res, **cf.kernel_info(model_name(problem, args[10]),
+                                      reg_type, full_ddp, us.dtype))
 
 
 def check_fused_model(problem, p, r, m, w, lam, reps):
@@ -417,9 +555,10 @@ def check_fused_brachi(reps):
     return compare_fused(name, args, TOL_B3[name], reps)
 
 
-def check_rollout(problem, alphas, p, r, m, w, bp, tol, reps):
+def check_rollout(problem, alphas, p, r, m, w, bp, tol, reps, label=None):
     """Phase 4: kernel B2 (sweep, selected rollout with and without cost)
-    against its plain version, on the gains of phase 3."""
+    against its plain version, on the gains of phase 3; ``label`` as in
+    :func:`compare_fused`."""
     import torch
 
     from ddp_generator_tpu_torch.ops import cuda_rollout as cr
@@ -464,13 +603,13 @@ def check_rollout(problem, alphas, p, r, m, w, bp, tol, reps):
         trajectories = len(alphas) * B if mode == "multi" else B
         bound_ms, bound_by = bound(
             nbytes(operands(av), out),
-            ops(problem.cuda_model.name, "rollout_per_step") * N
+            ops(label or problem.cuda_model.name, "rollout_per_step") * N
             * trajectories, dtype)
         res[mode] = dict(max_abs_err=worst_abs, max_rel_err=worst_rel,
                          tol=tol, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
                          not_ok=int((~oks[0][1]).sum()),
-                         **cr.kernel_info(problem.cuda_model.name,
+                         **cr.kernel_info(model_name(problem, p),
                                           dtype=dtype, **kw))
     # the selected rollout without cost (main path: after the sweep)
     out = cr.rollout_call(*operands(alpha_vec), multi=False)
@@ -607,20 +746,19 @@ def batch_params_per_lane():
     return out
 
 
-def batch_params_path(problem, shared_wall):
-    """Phase 11: this slice at full width.  bench.py's CarParking solve
-    (B=2048, T=500, max_iter=200, float32, StepwiseSolver with chunk 10,
-    compact_levels 4, min_compact_batch 128) with ``limW`` per lane from
-    +-0.2 to +-0.5, ``backpass_method="kernel"`` and
+def batch_params_path(problem):
+    """Phase 11: per-lane params at full width.  bench.py's CarParking
+    solve (B=2048, T=500, float32, StepwiseSolver with chunk 10,
+    compact_levels 4, min_compact_batch 128), cut to max_iter 40, with
+    ``limW`` per lane from +-0.2 to +-0.5, ``backpass_method="kernel"`` and
     ``linesearch_method="kernel"``: emission + B1, and the serial line
     search, as per-lane params take it.  Every lane keeps its own box
-    limits; B1 runs, B2 does not.  ``shared_wall`` is the main path's wall
-    in this run: the price of the fallback at equal B."""
+    limits; B1 runs, B2 does not."""
     import ddp_generator_tpu_torch as ddp
 
     p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float32)
     pb, lim = car_limw_per_lane(p, B_MAIN)
-    opts = ddp.SolverOptions(max_iter=MAX_ITER_MAIN, dtype="float32",
+    opts = ddp.SolverOptions(max_iter=MAX_ITER_PER_LANE, dtype="float32",
                              tolFun=1e-5, debug_level=0,
                              backpass_method="kernel",
                              linesearch_method="kernel")
@@ -645,11 +783,10 @@ def batch_params_path(problem, shared_wall):
         fail(f"batch_params_path: a lane leaves its box: max |w| - limW "
              f"{w_over:.3g}, max |a| - limA {a_over:.3g}")
     solved = np.isin(s.status, (1, 2))
-    return dict(B=B_MAIN, T=T_MAIN, max_iter=MAX_ITER_MAIN,
+    return dict(B=B_MAIN, T=T_MAIN, max_iter=MAX_ITER_PER_LANE,
+                depth_cut=f"max_iter {MAX_ITER_MAIN}->{MAX_ITER_PER_LANE}",
                 limW="linspace(0.2,0.5)", wall_s=wall,
-                solves_per_s=B_MAIN / wall,
-                shared_main_path_wall_s=shared_wall,
-                wall_vs_shared=wall / shared_wall,
+                s_per_body_call=wall / int(s.body_calls.max()),
                 solved_pct=100 * float(solved.mean()),
                 exhausted_pct=100 * float((s.status == 7).mean()),
                 solved_pct_tightest_quarter=100 * float(
@@ -716,7 +853,8 @@ def check_graphed(what, solver):
 def main_path(problem, backpass="kernel"):
     """Phase 6 (and 7 with ``backpass="fused"``): bench.py's batched
     CarParking solve through the kernels of that path, precompiled (every
-    width's body call captured as a CUDA graph before the timed solve)."""
+    width's body call captured as a CUDA graph before the timed solve).
+    Returns its line's numbers and the solution (numpy)."""
     what = "main path" if backpass == "kernel" else "fused path"
     p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float32)
     solver = main_solver(problem, backpass)
@@ -752,7 +890,7 @@ def main_path(problem, backpass="kernel"):
                  / max(1, int(s.body_calls.sum())),
                  mean_cost=float(s.cost.mean()),
                  precompile_s=precompile_s, **loop, launches=launches)
-    return stats
+    return stats, s
 
 
 def graphs_phase(problem):
@@ -843,18 +981,17 @@ def emitter_launches(problem):
     return out
 
 
-def brachi_path():
+def brachi_path(problem):
     """Phase 8: brachistochrone_hli at full width (testBrachi_hli.m, n=500,
     B=2048, float64) through B3 and B2.  Solved lanes must meet the floor
     (hli) and the terminal equality (hfe) as the JAX package's own test
-    holds a solve to them (tests/test_solver_brachi.py:58-78)."""
+    holds a solve to them (tests/test_solver_brachi.py:58-78).  Returns its
+    line's numbers and the solution (numpy)."""
     import ddp_generator_tpu_torch as ddp
-    from ddp_generator_tpu_torch.models import brachistochrone
 
     p, x0s, u0s = brachi_inputs(B_MAIN, N_BRACHI, seed=7)
     solver = ddp.StepwiseSolver(
-        brachistochrone.brachistochrone_hli(),
-        brachi_options(dtype="float64", backpass_method="fused"),
+        problem, brachi_options(dtype="float64", backpass_method="fused"),
         device="cuda")
     s, wall, launches = timed_solve(solver, x0s, u0s, p)
     for name in ("fused", "rollout_multi", "rollout_selected"):
@@ -881,7 +1018,7 @@ def brachi_path():
                 mean_iters=float(s.iterations.mean()),
                 mean_body_calls=float(s.body_calls.mean()),
                 max_terminal_err=terminal, max_floor_violation=floor,
-                mean_cost=float(s.cost[ok].mean()), launches=launches)
+                mean_cost=float(s.cost[ok].mean()), launches=launches), s
 
 
 def per_lane_serial():
@@ -1062,6 +1199,192 @@ def cartpole_path(serial: bool, cpu_lanes=None):
                 mean_cost=float(s.cost[ok].mean()), launches=launches)
 
 
+def ptxas_summary(lib_path) -> dict:
+    """Kernels, most registers and spill-store bytes of a built library,
+    from the ``ptxas.txt`` beside it."""
+    ptxas = (lib_path.parent / "ptxas.txt").read_text()
+    regs = [int(w) for ln in ptxas.splitlines() if "registers" in ln
+            for w in [ln.split("Used ")[1].split(" registers")[0]]]
+    spills = sum(int(ln.split(" bytes spill stores")[0].split()[-1])
+                 for ln in ptxas.splitlines() if "spill stores" in ln)
+    return dict(kernels=len(regs), max_registers=max(regs, default=0),
+                spill_store_bytes=spills)
+
+
+def generated_cases():
+    """Every problem whose CUDA model this run generates, with the params
+    of its solve: CarParking and brachistochrone_hli with their
+    hand-written models stripped, and the two user problems."""
+    from ddp_generator_tpu_torch.models import brachistochrone, car_parking
+
+    strip = lambda pr: dataclasses.replace(pr, cuda_model=None)
+    cases = {
+        "gen_car_parking": (strip(car_parking.car_parking()),
+                            bench_inputs(1, T_MAIN, np.float32)[0]),
+        "gen_brachistochrone_hli": (
+            strip(brachistochrone.brachistochrone_hli()),
+            brachi_inputs(1, N_BRACHI, seed=7)[0]),
+    }
+    for name, (problem, p, _, _) in USER_PROBLEMS.items():
+        cases[name] = (problem, p)
+    return cases
+
+
+def build_phase():
+    """Phase 2: every kernel library of this run, built at once (one nvcc
+    per source, all started together): the hand-written kernels, B2 and B3
+    on each generated model and B1 at the user problems' shapes (2, 1) and
+    (6, 3).  Returns the build line's numbers, one line per generated
+    library, and the generated models by case."""
+    from ddp_generator_tpu_torch import _build, codegen
+
+    t0 = time.time()
+    models = {name: codegen.model_for(problem, p)
+              for name, (problem, p) in generated_cases().items()}
+    gen_s = time.time() - t0
+    shapes = ((2, 1), (6, 3))
+    jobs = [_build.build] + [
+        (lambda gm=gm: _build.build_model(gm)) for gm in models.values()] + [
+        (lambda s=s: _build.build_backpass_shape(*s)) for s in shapes]
+    paths = _build.build_all(jobs)
+    wall = time.time() - t0
+    _build.load_library()
+    main = dict(seconds=round(wall, 1), generate_s=round(gen_s, 2),
+                lib=paths[0].name, **ptxas_summary(paths[0]))
+    libs = {}
+    for what, path in zip(["main"] + list(models)
+                          + [f"backpass_{a}x{b}" for a, b in shapes], paths):
+        libs[what] = dict(
+            lib=path.parent.name,
+            build_s=round(_build.BUILD_SECONDS.get(str(path), 0.0), 1),
+            **ptxas_summary(path))
+    return main, libs, models
+
+
+def same_solution(what, a, b, launches_a, launches_b) -> int:
+    """Fail unless two solutions (numpy) equal field by field, bit for bit,
+    and their launch counts equal; returns the number of fields."""
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.shape != y.shape or not np.array_equal(
+                x, y, equal_nan=x.dtype.kind == "f"):
+            fail(f"{what}: Solution.{f} differs from the hand-written "
+                 f"model's in {int((x != y).sum())} entries")
+    if launches_a != launches_b:
+        fail(f"{what}: launches {launches_a}, hand-written model's "
+             f"{launches_b}")
+    return len(a._fields)
+
+
+def generated_kernels_car(gen, b2_ops, b3_args, alphas):
+    """Phase 12d on generated CarParking: B2 (both modes) and B3 on the
+    operands of phases 4 and 4b, against their plain versions, and their
+    outputs against the hand-written model's kernels bit for bit."""
+    import torch
+
+    from ddp_generator_tpu_torch.ops import cuda_fused as cf
+    from ddp_generator_tpu_torch.ops import cuda_rollout as cr
+
+    p, r, m, w, bp = b2_ops
+    ro, ops2 = check_rollout(gen, alphas, p, r, m, w, bp,
+                             TOL_ROLLOUT["float32"], 20,
+                             label="gen_car_parking")
+    for (mode, kw), ops_hand in zip(
+            (("multi", dict(multi=True)),
+             ("selected", dict(multi=False, want_cost=True))), ops2):
+        hand = cr.rollout_call(*ops_hand, **kw)
+        out = cr.rollout_call(gen, *ops_hand[1:], **kw)
+        if not all(torch.equal(a, b) for a, b in zip(out, hand)):
+            fail(f"generated car_parking rollout {mode}: outputs differ "
+                 "from the hand-written model's")
+        ro[mode]["equal_to_hand_written"] = True
+    args = (gen,) + tuple(b3_args[1:])
+    fu = compare_fused("gen_car_parking float32", args,
+                       TOL_B3["car_parking float32"], 10,
+                       label="gen_car_parking")
+    out, ok = cf.fused_derivs_back_pass(*args)
+    hand, hand_ok = cf.fused_derivs_back_pass(*b3_args)
+    if not (torch.equal(ok, hand_ok) and all(
+            torch.equal(getattr(out, f), getattr(hand, f))
+            for f in ("l", "L", "dV", "g_norm", "failed"))):
+        fail("generated car_parking fused: outputs differ from the "
+             "hand-written model's")
+    fu["equal_to_hand_written"] = True
+    return ro, fu
+
+
+def user_inputs(name, B, np_dtype=np.float64):
+    """``(params, x0s, u0s)`` of a user problem's solve (its first lanes
+    do not depend on B)."""
+    _, p, _, inputs = USER_PROBLEMS[name]
+    x0s, u0s = inputs(B, 21)
+    return ({k: np.asarray(v, np_dtype) for k, v in p.items()},
+            x0s.astype(np_dtype), u0s.astype(np_dtype))
+
+
+def user_kernels(name, alphas, rng):
+    """Phase 12d on a user problem: B1 at its shape, B2 (both modes) and B3
+    on its generated model, float64 at B=2048, on the operands of its
+    solve's first body call, against their plain versions."""
+    import torch
+
+    problem = USER_PROBLEMS[name][0]
+    T = user_inputs(name, 1)[2].shape[1]
+    b1, (p, r, m, w, out, lam, _) = check_backpass(
+        problem, B_MAIN, T, torch.float64, TOL_B1["float64"], 3, rng,
+        inputs=lambda B, T_, npd: user_inputs(name, B, npd), label=name)
+    ro, _ = check_rollout(problem, alphas, p, r, m, w, out,
+                          TOL_ROLLOUT["float64"], 3, label=name)
+    args = (problem, r.xs, r.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, w, w,
+            lam, p, 1, True)
+    key = f"{name} float64"
+    fu = compare_fused(key, args, TOL_B3[key], 3, label=name)
+    return b1, ro, fu
+
+
+def user_solves(name):
+    """Phase 12c: a user problem at B=2048, float64, on the kernel path
+    (emission + B1 at its shape, B2 on its generated model) and the fused
+    path (B3 and B2 on its generated model), graphed; the first 16 lanes
+    against the CPU's solve of those lanes (plain versions): equal status,
+    iterations, body and stale calls, cost to 1e-8."""
+    import ddp_generator_tpu_torch as ddp
+
+    problem, _, kw, _ = USER_PROBLEMS[name]
+    p, x0s, u0s = user_inputs(name, B_MAIN)
+    out = {}
+    for backpass in ("kernel", "fused"):
+        what = f"{name} {backpass}"
+        opts = ddp.SolverOptions(dtype="float64", debug_level=0,
+                                 backpass_method=backpass,
+                                 linesearch_method="kernel", **kw)
+        solver = ddp.StepwiseSolver(problem, opts, device="cuda")
+        s, wall, launches = timed_solve(solver, x0s, u0s, p)
+        used = ("backpass" if backpass == "kernel" else "fused",
+                "rollout_multi", "rollout_selected")
+        for k, n in launches.items():
+            if (n > 0) != (k in used):
+                fail(f"{what}: kernel {k} was launched {n} times")
+        if not np.all(np.isfinite(s.cost)):
+            fail(f"{what}: non-finite costs")
+        t0 = time.time()
+        cpu = ddp.to_numpy(ddp.StepwiseSolver(
+            problem, opts, min_compact_batch=4, device="cpu")(
+                x0s[:16], u0s[:16], p))
+        cpu_s = time.time() - t0
+        head = type(s)(*(f[:16] for f in s))
+        cost_rel = check_lanes(f"{what}: first 16 lanes against the CPU",
+                               head, cpu, 1e-8)
+        out[backpass] = dict(
+            B=B_MAIN, T=u0s.shape[1], wall_s=wall,
+            solved_pct=100 * float(np.isin(s.status, (1, 2)).mean()),
+            mean_iters=float(s.iterations.mean()),
+            mean_body_calls=float(s.body_calls.mean()),
+            first16_cost_rel_err=cost_rel, cpu16_s=round(cpu_s, 2),
+            mean_cost=float(s.cost.mean()), launches=launches)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1074,7 +1397,11 @@ def main() -> int:
     try:
         import ddp_generator_tpu_torch as ddp
         from ddp_generator_tpu_torch import _build
-        from ddp_generator_tpu_torch.models import car_parking, cartpole
+        from ddp_generator_tpu_torch.models import (
+            brachistochrone,
+            car_parking,
+            cartpole,
+        )
     except ImportError as e:
         print(f"the port is not importable from here: {e}", file=sys.stderr)
         return 2
@@ -1100,21 +1427,17 @@ def main() -> int:
          nvcc=repr(nvcc), gpu=repr(torch.cuda.get_device_name(0)),
          count=torch.cuda.device_count())
 
-    # 2. build
-    t0 = time.time()
-    lib_path = _build.build()
-    _build.load_library()
-    ptxas = (lib_path.parent / "ptxas.txt").read_text()
-    regs = [int(w) for ln in ptxas.splitlines() if "registers" in ln
-            for w in [ln.split("Used ")[1].split(" registers")[0]]]
-    spills = sum(int(ln.split(" bytes spill stores")[0].split()[-1])
-                 for ln in ptxas.splitlines() if "spill stores" in ln)
-    line("build", seconds=round(time.time() - t0, 1), lib=lib_path.name,
-         kernels=len(regs), max_registers=max(regs, default=0),
-         spill_store_bytes=spills)
-    if spills:
-        fail(f"the kernels spill {spills} bytes of registers ({lib_path.parent}"
-             "/ptxas.txt)")
+    # 2. build: the hand-written kernels, and those on generated models
+    # and new shapes (their spills are reported, not failed)
+    global USER_PROBLEMS
+    USER_PROBLEMS = user_problems()
+    built, libs, models = build_phase()
+    line("build", **built)
+    for what, d in libs.items():
+        line("build_library", what=what, **d)
+    if built["spill_store_bytes"]:
+        fail(f"the kernels spill {built['spill_store_bytes']} bytes of "
+             "registers (ptxas.txt beside the library)")
 
     problem = car_parking.car_parking()
     alphas = tuple(ddp.SolverOptions().alpha)
@@ -1145,6 +1468,35 @@ def main() -> int:
     fu64, _ = check_fused_model(problem, p64, r64, m64, w64, lam64, 3)
     line("fused_f64", N=T_MAIN, **fu64)
     line("fused_brachi_f64", N=N_BRACHI, **check_fused_brachi(5))
+
+    # 12d. B2 and B3 on CarParking's generated model, on the same operands:
+    # against their plain versions and the hand-written model's kernels
+    gen_car, gen_brachi_problem = (generated_cases()[k][0] for k in (
+        "gen_car_parking", "gen_brachistochrone_hli"))
+    gen_ro, gen_fu = generated_kernels_car(
+        gen_car, (p32, r32, m32, w32, out32), b3_args, alphas)
+    for mode, d in gen_ro.items():
+        line("generated_models", kernel=f"rollout_{mode}",
+             model="gen_car_parking", B=B_MAIN, N=T_MAIN, **d)
+    line("generated_models", kernel="fused", model="gen_car_parking",
+         N=T_MAIN, **gen_fu)
+
+    # 12c. the user problems at full width on both paths, first lanes
+    # against the CPU; 12d. their kernels against the plain versions
+    user = {}
+    for name in USER_PROBLEMS:
+        for backpass, d in user_solves(name).items():
+            ul = d.pop("launches")
+            user[(name, backpass)] = ul
+            line("generated_models", case=f"{name}_{backpass}_path", **d,
+                 **{f"launches_{k}": v for k, v in ul.items()})
+        b1, ro, fu = user_kernels(name, alphas, rng)
+        user[name] = (b1, ro, fu)
+        line("generated_models", kernel="backpass", model=name, **b1)
+        for mode, d in ro.items():
+            line("generated_models", kernel=f"rollout_{mode}", model=name,
+                 **d)
+        line("generated_models", kernel="fused", model=name, **fu)
 
     # 4d. B1, B3 and B2 at the compaction widths: the latency floor
     for w, d in widths_phase(b1_args, b3_args, b2_args, 10).items():
@@ -1187,8 +1539,9 @@ def main() -> int:
         line("batch_params_per_lane", case=what, **d)
 
     # 6. the main path: emission + B1, B2
-    stats = main_path(problem)
-    launches = stats.pop("launches")
+    stats, main_sol = main_path(problem)
+    launches = dict(stats["launches"])
+    stats.pop("launches")
     line("main_path", **stats, **{f"launches_{k}": v
                                   for k, v in launches.items()})
 
@@ -1198,16 +1551,44 @@ def main() -> int:
     line("emitters", **emitter_launches(problem))
 
     # 7. the fused path at full width: B3, B2
-    fstats = main_path(problem, "fused")
-    flaunches = fstats.pop("launches")
+    fstats, fused_sol = main_path(problem, "fused")
+    flaunches = dict(fstats["launches"])
+    fstats.pop("launches")
     line("fused_path", **fstats, **{f"launches_{k}": v
                                     for k, v in flaunches.items()})
 
     # 8. brachistochrone_hli at full width: B3, B2 with the AL families
-    bstats = brachi_path()
+    bstats, brachi_sol = brachi_path(brachistochrone.brachistochrone_hli())
     blaunches = bstats.pop("launches")
     line("brachi_path", **bstats, **{f"launches_{k}": v
                                      for k, v in blaunches.items()})
+
+    # 12a. generated models: the main path's and the fused path's
+    # solves with CarParking's hand-written model stripped: B2 and B3 run
+    # the model generated from its torch functions; every Solution field
+    # and every launch count as the hand-written runs'
+    gen_launches = {}
+    for backpass, ref_sol, ref_launches in (
+            ("kernel", main_sol, launches), ("fused", fused_sol, flaunches)):
+        gstats, gsol = main_path(gen_car, backpass)
+        glaunches = gstats.pop("launches")
+        n = same_solution(f"generated car_parking {backpass} path", gsol,
+                          ref_sol, glaunches, ref_launches)
+        gen_launches[backpass] = glaunches
+        line("generated_models", case=f"car_parking_{backpass}_path",
+             fields_equal=n, **gstats,
+             **{f"launches_{k}": v for k, v in glaunches.items()})
+    del main_sol, fused_sol
+    # 12b. brachistochrone_hli (n=500, B=2048, float64, fused path) on its
+    # generated model: the [k]-indexed tail and the AL families
+    gstats, gsol = brachi_path(gen_brachi_problem)
+    glaunches = gstats.pop("launches")
+    n = same_solution("generated brachistochrone_hli", gsol, brachi_sol,
+                      glaunches, blaunches)
+    line("generated_models", case="brachistochrone_hli_fused_path",
+         fields_equal=n, **gstats,
+         **{f"launches_{k}": v for k, v in glaunches.items()})
+    del brachi_sol, gsol
 
     # 9. the serial path against the kernel path at full width, 3 deep
     line("serial_vs_kernel", **serial_vs_kernel(problem))
@@ -1221,7 +1602,7 @@ def main() -> int:
              **cstats, **{f"launches_{k}": v for k, v in claunches.items()})
 
     # 11. per-lane params at full width: emission + B1, serial line search
-    pstats = batch_params_path(problem, stats["wall_s"])
+    pstats = batch_params_path(problem)
     plaunches = pstats.pop("launches")
     line("batch_params_path", **pstats, **{f"launches_{k}": v
                                            for k, v in plaunches.items()})
@@ -1254,6 +1635,29 @@ def main() -> int:
     kernels.append(entry("fused", "fused.cu", "pallas_fused.py:715",
                          claunches["fused"],
                          pole_kernels["float32"]["fused"], "cartpole"))
+    # the instantiations on generated models and new shapes, with their
+    # launches on their own solves (phase 12)
+    for mode in ("multi", "selected"):
+        kernels.append(entry(f"rollout_{mode}", "generated/rollout.cu",
+                             "pallas_rollout.py:424",
+                             gen_launches["kernel"][f"rollout_{mode}"],
+                             gen_ro[mode], "gen_car_parking"))
+    kernels.append(entry("fused", "generated/fused.cu", "pallas_fused.py:715",
+                         gen_launches["fused"]["fused"], gen_fu,
+                         "gen_car_parking"))
+    for name in USER_PROBLEMS:
+        b1, ro, fu = user[name]
+        kernels.append(entry("backpass", "generated/backpass.cu",
+                             "pallas_backpass.py:682",
+                             user[(name, "kernel")]["backpass"], b1, name))
+        for mode in ("multi", "selected"):
+            kernels.append(entry(f"rollout_{mode}", "generated/rollout.cu",
+                                 "pallas_rollout.py:424",
+                                 user[(name, "kernel")][f"rollout_{mode}"],
+                                 ro[mode], name))
+        kernels.append(entry("fused", "generated/fused.cu",
+                             "pallas_fused.py:715",
+                             user[(name, "fused")]["fused"], fu, name))
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

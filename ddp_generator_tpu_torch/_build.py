@@ -7,6 +7,14 @@ together, then one link.  The output lives in
 the sources and flags, so an edit rebuilds and an unchanged tree reuses the
 library.  A file lock keeps concurrent first uses from racing.  Nothing
 builds on import, and the CPU paths never build.
+
+Two more kinds of library are built the same way, each on first use:
+kernels B2 and B3 on a model generated from a problem's torch functions
+(:func:`build_model`, ``csrc/generated/{rollout,fused}.cu`` with the
+model's header, keyed also on the header), and kernel B1 at an
+``(n_x, n_u)`` the main library does not instantiate
+(:func:`build_backpass_shape`).  A failed build raises
+:class:`KernelCompileError`; no route falls back to a plain version.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -63,12 +72,17 @@ def nvcc_path() -> str:
     )
 
 
-def build(csrc: Path = CSRC) -> Path:
-    """Compile the library if the sources under ``csrc`` (this package's,
-    or another tree's, as ``scripts/tile_sweep.py`` builds them) were not
-    built yet; return its path.  ``ptxas.txt`` beside it keeps ``-Xptxas
+#: Wall seconds of each library this process compiled (its path as key).
+BUILD_SECONDS: dict[str, float] = {}
+
+
+def _compile(key: str, units, files=None) -> Path:
+    """Compile ``units`` (``(source, extra nvcc args)``, one ``nvcc -c``
+    each, all started together) and link them into
+    ``BUILD_ROOT/key/LIB_NAME``, unless that library exists; ``files``
+    (name -> text) are written beside the objects first.  A file lock keeps
+    concurrent first uses from racing; ``ptxas.txt`` keeps ``-Xptxas
     -v``'s per-kernel register and spill report."""
-    key = source_hash(csrc)
     out_dir = BUILD_ROOT / key
     lib = out_dir / LIB_NAME
     if lib.exists():
@@ -79,14 +93,17 @@ def build(csrc: Path = CSRC) -> Path:
         try:
             if lib.exists():  # built by another process while we waited
                 return lib
+            t0 = time.time()
             out_dir.mkdir(parents=True, exist_ok=True)
+            for name, text in (files or {}).items():
+                (out_dir / name).write_text(text)
             tmp = out_dir / (LIB_NAME + f".tmp{os.getpid()}")
             nvcc = nvcc_path()
             objs, procs = [], []
-            for src in (p for p in _sources(csrc) if p.suffix == ".cu"):
+            for src, extra in units:
                 obj = out_dir / (src.stem + ".o")
-                cmd = [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", "-o",
-                       str(obj), str(src)]
+                cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(obj),
+                       str(src)]
                 procs.append((cmd, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                     text=True)))
@@ -109,15 +126,75 @@ def build(csrc: Path = CSRC) -> Path:
                     f"{' '.join(link)}\n{proc.stderr}")
             (out_dir / "ptxas.txt").write_text("".join(report))
             os.replace(tmp, lib)
+            BUILD_SECONDS[str(lib)] = time.time() - t0
             return lib
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def build(csrc: Path = CSRC) -> Path:
+    """Compile the library of the hand-written models and shapes (every
+    ``.cu`` directly under ``csrc``: this package's, or another tree's, as
+    ``scripts/tile_sweep.py`` builds them) if it was not built yet; return
+    its path."""
+    units = [(src, ["-I", str(csrc)]) for src in sorted(csrc.glob("*.cu"))]
+    return _compile(source_hash(csrc), units)
+
+
+def _keyed(prefix: str, text: str) -> str:
+    h = hashlib.sha256(source_hash().encode() + text.encode())
+    return f"{prefix}-{h.hexdigest()[:16]}"
+
+
+def build_model(model) -> Path:
+    """Compile kernels B2 and B3 on a generated model
+    (:class:`..codegen.GeneratedModel`): ``generated/rollout.cu`` and
+    ``generated/fused.cu`` with its header as ``model.cuh``, keyed on the
+    sources, the flags and the header."""
+    key = _keyed(model.name, model.header)
+    inc = ["-I", str(CSRC), "-I", str(BUILD_ROOT / key),
+           f"-DDDP_MODEL={model.struct}"]
+    units = [(CSRC / "generated" / f"{k}.cu", inc)
+             for k in ("rollout", "fused")]
+    return _compile(key, units, {"model.cuh": model.header})
+
+
+def build_backpass_shape(n_x: int, n_u: int) -> Path:
+    """Compile kernel B1 at ``(n_x, n_u)`` (``generated/backpass.cu``)."""
+    key = _keyed(f"backpass{n_x}x{n_u}", f"{n_x} {n_u}")
+    units = [(CSRC / "generated" / "backpass.cu",
+              ["-I", str(CSRC), f"-DDDP_NX={n_x}", f"-DDDP_NU={n_u}"])]
+    return _compile(key, units)
+
+
+def build_all(jobs) -> list[Path]:
+    """Run build callables (``lambda: build_model(m)``, ...) at once, each
+    in a thread of its own: their ``nvcc`` runs start together.  The first
+    failure raises after all have ended."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=max(1, len(jobs))) as pool:
+        futures = [pool.submit(job) for job in jobs]
+    return [f.result() for f in futures]
 
 
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load this package's kernel library."""
     return open_library(build())
+
+
+@functools.lru_cache(maxsize=None)
+def load_model_library(model) -> ctypes.CDLL:
+    """Build (if needed) and load the B2/B3 library of a generated model
+    (once per model: the wrappers ask on every launch)."""
+    return open_library(build_model(model))
+
+
+@functools.lru_cache(maxsize=None)
+def load_backpass_shape(n_x: int, n_u: int) -> ctypes.CDLL:
+    """Build (if needed) and load kernel B1 at ``(n_x, n_u)``."""
+    return open_library(build_backpass_shape(n_x, n_u))
 
 
 def open_library(path: Path) -> ctypes.CDLL:

@@ -128,4 +128,18 @@ inline unsigned grid_for(long long threads, int block) {
   return static_cast<unsigned>((threads + block - 1) / block);
 }
 
+#ifdef __CUDACC__
+// The message of a return code of the C entry points (ddp_error_string).
+inline const char* error_string(int code) {
+  switch (code) {
+    case kBadShape: return "N, B or block size out of range";
+    case kBadDtype: return "dtype code must be 0 (float32) or 1 (float64)";
+    case kBadVariant:
+      return "no kernel instantiated for these widths/options/model";
+    case kNullPointer: return "a required operand pointer is NULL";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(code));
+  }
+}
+#endif
+
 }  // namespace ddp

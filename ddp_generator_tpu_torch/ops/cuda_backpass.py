@@ -47,8 +47,20 @@ from .boxqp import _patterns
 Tensor = torch.Tensor
 
 # (n_x, n_u) pairs instantiated in csrc/backpass.cu: CarParking, Cartpole,
-# Brachistochrone.
+# Brachistochrone.  Any other with n_u <= 3 is built at first use
+# (_build.build_backpass_shape).
 KERNEL_SHAPES = ((4, 2), (4, 1), (1, 1))
+
+
+def library(n_x: int, n_u: int):
+    """The kernel library that holds B1 at ``(n_x, n_u)``: the main one for
+    :data:`KERNEL_SHAPES`, else one built for that shape.  ``n_u > 3``
+    raises, as in the JAX package."""
+    if n_u > 3:
+        raise ValueError("the backward-pass kernel supports n_u <= 3")
+    if (n_x, n_u) in KERNEL_SHAPES:
+        return _build.load_library()
+    return _build.load_backpass_shape(n_x, n_u)
 
 
 def tri_size(n: int) -> int:
@@ -390,7 +402,8 @@ def back_pass_cm(sd_cm: dict, final_cx, final_cxx, us_cm, lam, n_x: int,
     dV (2, B), g_norm (1, B), failed (1, B) bool)``.
 
     CPU tensors run :func:`back_pass_cm_plain`; CUDA tensors launch kernel
-    B1 (``csrc/backpass.cu``) and count the launch (:mod:`..launches`: in
+    B1 (``csrc/backpass.cu``, or built for the shape at first use) and
+    count the launch (:mod:`..launches`: in
     ``back_pass_cm.launches``, or on the device inside a capture or with
     the predicate ``when``, which the solver sets to "some lane of this
     body call runs"); anything else raises."""
@@ -401,10 +414,6 @@ def back_pass_cm(sd_cm: dict, final_cx, final_cxx, us_cm, lam, n_x: int,
                                   n_x, reg_type, full_ddp)
     if dev.type != "cuda":
         raise ValueError(f"back_pass_cm: unsupported device {dev}")
-    if (n_x, n_u) not in KERNEL_SHAPES:
-        raise NotImplementedError(
-            f"backward-pass kernel is instantiated for (n_x, n_u) in "
-            f"{KERNEL_SHAPES}, not {(n_x, n_u)}")
     dtype = us_cm.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"back_pass_cm: dtype {dtype} is not float32/64")
@@ -428,7 +437,7 @@ def back_pass_cm(sd_cm: dict, final_cx, final_cxx, us_cm, lam, n_x: int,
     dV = torch.empty((2, B), dtype=dtype, device=dev)
     g_norm = torch.empty((1, B), dtype=dtype, device=dev)
     failed = torch.empty((1, B), dtype=torch.bool, device=dev)
-    lib = _build.load_library()
+    lib = library(n_x, n_u)
     ptrs = _build.pointer_array(inputs + [l_out, L_out, dV, g_norm, failed])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -450,7 +459,7 @@ def kernel_info(n_x: int, n_u: int, reg_type: int, full_ddp: bool,
     per block ``G``, steps per tile ``S``, producer warps ``W``, dynamic
     shared memory per block, registers and local memory (stack frame and
     spill) per thread.  Builds the library; needs a CUDA device."""
-    lib = _build.load_library()
+    lib = library(n_x, n_u)
     out = (ctypes.c_int * 6)()
     rc = lib.ddp_backpass_info(0 if dtype == torch.float32 else 1, n_x, n_u,
                                reg_type, int(full_ddp), out)

@@ -7,6 +7,9 @@ lane), ``csrc/derivs.cuh`` and ``csrc/dual.cuh`` (forward-mode derivatives
 of the problem's CUDA model), ``csrc/riccati.cuh`` (the step it shares with
 kernel B1).
 
+The model is the problem's hand-written CUDA model, or the one generated
+from its torch functions (:mod:`..codegen`).
+
 Per lane, B1's reverse Riccati recursion (:mod:`.cuda_backpass`), with every
 derivative computed inside the kernel: at each step the kernel reads only
 the nominal ``(x_t, u_t)`` and the running AL multipliers, forms ``fx``,
@@ -45,7 +48,7 @@ from typing import Any
 
 import torch
 
-from .. import _build, launches
+from .. import _build, codegen, launches
 from ..problem import Problem
 from .cm_derivs import cm_emit
 from .cuda_backpass import (
@@ -91,9 +94,11 @@ def fused_derivs_back_pass(problem: Problem, xs, us, mu_le, mu_li, mu_fe,
 
     CPU tensors run :func:`fused_derivs_back_pass_plain`; CUDA tensors
     launch kernel B3 and count it as B1's wrapper does (``when`` the same
-    predicate; host count ``fused_derivs_back_pass.launches``);
-    anything else raises, as do a problem without a CUDA model of
-    :data:`KERNEL_MODELS`, ``n_u > 3`` and a dtype other than float32/64."""
+    predicate; host count ``fused_derivs_back_pass.launches``) on the
+    problem's hand-written CUDA model of :data:`KERNEL_MODELS`, or on the
+    model generated from its functions when it names none
+    (:mod:`..codegen`); anything else raises, as do ``n_u > 3`` and a dtype
+    other than float32/64."""
     B, Np1, n_x = xs.shape
     N, n_u = Np1 - 1, us.shape[-1]
     dev = us.device
@@ -105,12 +110,6 @@ def fused_derivs_back_pass(problem: Problem, xs, us, mu_le, mu_li, mu_fe,
         raise ValueError(f"fused_derivs_back_pass: unsupported device {dev}")
     if n_u > 3:
         raise ValueError("backpass_method='fused' supports n_u <= 3")
-    model = problem.cuda_model
-    if model is None or model.name not in KERNEL_MODELS:
-        raise NotImplementedError(
-            f"problem {problem.name!r}: the fused kernel is instantiated for "
-            f"the CUDA models {KERNEL_MODELS}, not "
-            f"{None if model is None else model.name!r}")
     if reg_type not in (1, 2):
         raise ValueError(f"reg_type must be 1 or 2, got {reg_type}")
     dtype = us.dtype
@@ -135,6 +134,8 @@ def fused_derivs_back_pass(problem: Problem, xs, us, mu_le, mu_li, mu_fe,
             raise TypeError(f"{name}: {t.dtype} on {t.device}, want {dtype} "
                             f"on {dev}")
 
+    model, lib = codegen.kernel_model(problem, params, KERNEL_MODELS)
+
     def cm(a, n):  # (B, N, n) -> (N, n, B), None for an empty family
         return a.permute(1, 2, 0).contiguous() if n else None
 
@@ -153,7 +154,6 @@ def fused_derivs_back_pass(problem: Problem, xs, us, mu_le, mu_li, mu_fe,
     g_norm = torch.empty((1, B), dtype=dtype, device=dev)
     failed = torch.empty((1, B), dtype=torch.bool, device=dev)
     derivs_ok = torch.empty((1, B), dtype=torch.bool, device=dev)
-    lib = _build.load_library()
     ptrs = _build.pointer_array(
         inputs + [l_out, L_out, dV, g_norm, failed, derivs_ok])
     with torch.cuda.device(dev):
@@ -174,8 +174,9 @@ def kernel_info(model: str, reg_type: int, full_ddp: bool,
                 dtype: torch.dtype) -> dict:
     """Tile shape and resources of one instantiation of kernel B3, as
     :func:`.cuda_backpass.kernel_info`; ``model`` a name of
-    :data:`KERNEL_MODELS`.  Builds the library; needs a CUDA device."""
-    lib = _build.load_library()
+    :data:`KERNEL_MODELS` or of a generated model.  Builds the library;
+    needs a CUDA device."""
+    lib = codegen.library_of(model)
     out = (ctypes.c_int * 6)()
     rc = lib.ddp_fused_info(0 if dtype == torch.float32 else 1,
                             model.encode(), reg_type, int(full_ddp), out)

@@ -20,9 +20,9 @@ accumulating.  The final cost is ``F(x_N, p, N)`` plus the ``hfe``/``hfi``
 penalties.
 
 The Pallas kernel traced the user's Python functions inside itself; CUDA
-cannot, so each problem names a CUDA model of hand-written ``__device__``
-functions (``Problem.cuda_model``).  A problem without one raises on a CUDA
-device.
+cannot, so the kernel runs a CUDA model of ``__device__`` functions: the
+hand-written one a problem names (``Problem.cuda_model``), or else the one
+generated from its torch functions (:mod:`..codegen`), built at first use.
 
 On the card (H100) neither bytes (~16 operand values a step and lane) nor
 operations (~84 a step) bound the kernel: a trajectory is one dependent
@@ -59,7 +59,7 @@ from typing import Any
 
 import torch
 
-from .. import _build, launches
+from .. import _build, codegen, launches
 from ..al import _eq_penalty, _ineq_penalty
 from ..problem import Problem
 from .linesearch import LineSearchResult, first_accept
@@ -205,15 +205,6 @@ def rollout_call(problem: Problem, alphas, xnom_cm, unom_cm, l_cm, L_cm,
                              want_cost, run)
     if dev.type != "cuda":
         raise ValueError(f"rollout_call: unsupported device {dev}")
-    model = problem.cuda_model
-    if model is None:
-        raise NotImplementedError(
-            f"problem {problem.name!r} names no CUDA model "
-            "(Problem.cuda_model): the rollout kernel cannot run it")
-    if model.name not in KERNEL_MODELS:
-        raise NotImplementedError(
-            f"problem {problem.name!r}: the rollout kernel is instantiated "
-            f"for the CUDA models {KERNEL_MODELS}, not {model.name!r}")
     N, n_x, B = xnom_cm.shape
     n_u = unom_cm.shape[1]
     A = len(alphas)
@@ -251,6 +242,7 @@ def rollout_call(problem: Problem, alphas, xnom_cm, unom_cm, l_cm, L_cm,
                             or run.device != dev):
         raise TypeError(f"run: {run.numel()} {run.dtype} on {run.device}, "
                         f"want one int32 on {dev}")
+    model, lib = codegen.kernel_model(problem, params, KERNEL_MODELS)
     p_flat = model.flat_params(params, dtype, dev, N)
 
     def opt_t(t, n):
@@ -267,7 +259,6 @@ def rollout_call(problem: Problem, alphas, xnom_cm, unom_cm, l_cm, L_cm,
         cost = torch.empty((1, B), dtype=dtype, device=dev) if want_cost else None
         ok = (torch.empty((1, B), dtype=torch.bool, device=dev)
               if want_cost else None)
-    lib = _build.load_library()
     ptrs = _build.pointer_array([
         xnom_cm, unom_cm, l_cm, L_cm, opt_t(mu_le_cm, problem.n_hle),
         opt_t(mu_li_cm, problem.n_hli), x0_cm, w_pen_l, w_pen_f,
@@ -299,9 +290,9 @@ def kernel_info(model: str, dtype: torch.dtype, multi: bool,
     :func:`.cuda_backpass.kernel_info`: lanes per block ``G``, steps per
     tile ``S``, warps of a block ``W`` (chain, producer and cost warps
     together), dynamic shared memory per block, registers and local memory
-    per thread; ``model`` a CUDA model name.  Builds the library; needs a
-    CUDA device."""
-    lib = _build.load_library()
+    per thread; ``model`` a CUDA model name (hand-written or generated).
+    Builds the library; needs a CUDA device."""
+    lib = codegen.library_of(model)
     out = (ctypes.c_int * 6)()
     rc = lib.ddp_rollout_info(0 if dtype == torch.float32 else 1,
                               model.encode(), int(multi), int(want_cost), out)

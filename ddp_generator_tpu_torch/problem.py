@@ -26,12 +26,13 @@ plane the step ``k`` is an ``(N, 1)`` tensor in both layouts
 gives ``(N, B)``, as the shared ``(N + 1,)`` leaf gives ``(N, 1)``.
 
 A problem may name the hand-written CUDA model that mirrors its functions
-(:class:`CudaModel`): the rollout kernel cannot trace Python, so on a CUDA
-device it runs the model's ``__device__`` functions instead.
+(:class:`CudaModel`): the kernels cannot trace Python, so on a CUDA device
+they run the model's ``__device__`` functions instead.  A problem that
+names none gets a model generated from its functions (``codegen.py``).
 
-The input-box analysis takes the declared ``box_meta`` ``(u_index, sign)``
-per ``h`` constraint; the numeric +-1 probing of the JAX package is not
-ported yet.
+The input-box analysis (:func:`analyze_box_constraints`) probes each ``h``
+constraint numerically, as the JAX package does, unless ``box_meta``
+declares its ``(u_index, sign)``.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -222,6 +224,72 @@ def _validate_shapes(problem: Problem, params: Any) -> None:
             )
 
 
+def analyze_box_constraints(
+    n_x: int,
+    n_u: int,
+    h: Sequence[Callable],
+    params: Any,
+    n_probe: int = 3,
+    seed: int = 0,
+) -> tuple[BoxConstraint, ...]:
+    """Validate and classify the input constraints ``h``
+    (``ddp_generator_tpu/problem.py:analyze_box_constraints``).
+
+    Numerical counterpart of the symbolic checks at
+    ``genenerator_main.mac:385-395``: for each ``h_i`` the gradient w.r.t.
+    ``u`` must be one-hot with value +-1, constant in ``(x, u)``, probed at
+    ``n_probe`` random points (the JAX package's draws, seed and
+    tolerances), in float64 on the CPU with ``torch.func.grad`` under
+    ``vmap``."""
+    rng = np.random.default_rng(seed)
+    p = {} if params is None else {
+        key: torch.as_tensor(np.asarray(
+            v.detach().cpu() if isinstance(v, Tensor) else v),
+            dtype=torch.float64) for key, v in params.items()}
+    k = torch.zeros((), dtype=torch.int64)
+    out = []
+    for ci, fn in enumerate(h):
+        xs = torch.as_tensor(rng.normal(size=(n_probe, n_x)))
+        us = torch.as_tensor(rng.normal(size=(n_probe, n_u)))
+
+        def gu_fn(x, u, fn=fn):
+            return torch.func.grad(lambda u_: fn(x, u_, p, k))(u)
+
+        try:
+            gus = torch.func.vmap(gu_fn)(xs, us).detach().numpy()
+        except (KeyError, TypeError, IndexError) as err:  # params missing
+            raise ProblemValidationError(
+                f"constraint h[{ci}] could not be probed ({err!r}): pass "
+                "example_params, or declare box_meta=[(u_index, sign), ...]"
+            ) from err
+        grads = list(gus.astype(np.float64))
+        g0 = grads[0]
+        for g in grads[1:]:
+            if not np.allclose(g, g0, atol=1e-9, rtol=1e-9):
+                raise ProblemValidationError(
+                    f"constraint h[{ci}] must depend linearly on a single "
+                    "input with constant coefficient (got varying "
+                    f"du-gradient {g} vs {g0}); "
+                    "cf. genenerator_main.mac:385-395"
+                )
+        nz = np.nonzero(np.abs(g0) > 1e-12)[0]
+        if len(nz) != 1:
+            raise ProblemValidationError(
+                f"constraint h[{ci}] may depend on exactly one input, found "
+                f"du-gradient {g0}; cf. genenerator_main.mac:390-391"
+            )
+        idx = int(nz[0])
+        sign = float(g0[idx])
+        if not np.isclose(abs(sign), 1.0, atol=1e-9):
+            raise ProblemValidationError(
+                f"coefficient of input in constraint h[{ci}] must be +1 or "
+                f"-1, found {sign}; cf. genenerator_main.mac:393-394"
+            )
+        out.append(BoxConstraint(fn=fn, u_index=idx,
+                                 sign=float(np.sign(sign))))
+    return tuple(out)
+
+
 def make_problem(
     n_x: int,
     n_u: int,
@@ -242,8 +310,9 @@ def make_problem(
     """Build and validate a :class:`Problem`.
 
     ``box_meta`` declares ``(u_index, sign)`` per ``h`` constraint (what the
-    reference generator proves symbolically, ``genenerator_main.mac:385-395``)
-    and is required whenever ``h`` is not empty."""
+    reference generator proves symbolically, ``genenerator_main.mac:385-395``);
+    when it is not given, :func:`analyze_box_constraints` probes ``h`` with
+    ``example_params``, as the JAX package does."""
     problem = Problem(
         n_x=n_x, n_u=n_u, f=f, L=L, F=F, h=tuple(h), hle=tuple(hle),
         hli=tuple(hli), hfe=tuple(hfe), hfi=tuple(hfi), name=name,
@@ -252,12 +321,8 @@ def make_problem(
     if validate and example_params is not None:
         _validate_shapes(problem, example_params)
     if box_meta is None:
-        if problem.h:
-            raise NotImplementedError(
-                "the numeric +-1 box analysis is not ported yet: declare "
-                "box_meta=[(u_index, sign), ...] for every h constraint"
-            )
-        box_meta = ()
+        box = analyze_box_constraints(n_x, n_u, problem.h, example_params)
+        return dataclasses.replace(problem, box_constraints=box)
     if len(box_meta) != len(problem.h):
         raise ProblemValidationError(
             f"box_meta has {len(box_meta)} entries for {len(problem.h)} "

@@ -39,13 +39,14 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from . import _build, launches
+from . import _build, codegen, launches
 from . import solution as sol
 from .al import Multipliers, init_multipliers, update_multipliers
 from .convert import to_torch
 from .derivs import batched_calc_derivs
 from .ops.backpass import back_pass
 from .ops.boxqp import BoxQPHyper
+from .ops import cuda_backpass, cuda_fused
 from .ops.cm_derivs import cm_back_pass_from_bundle, cm_emit
 from .ops.cuda_fused import fused_derivs_back_pass
 from .ops.cuda_rollout import kernel_line_search, kernel_line_search_staged
@@ -273,9 +274,22 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
                 return back_pass(d, c.us, lam, o.regType, o.full_ddp, hyper)
         return bp_call, bp_call(c.lam), d_ok
 
+    def prepare_kernels(params) -> None:
+        """Generate and build the kernels this solve launches on a CUDA
+        device before any body call, so before any graph capture (an
+        ``nvcc`` run cannot be captured): B1 at the problem's shape, and
+        B2/B3 on its CUDA model, hand-written or generated."""
+        if device.type != "cuda":
+            return
+        if backpass == "kernel":
+            cuda_backpass.library(problem.n_x, problem.n_u)
+        if backpass == "fused" or linesearch == "kernel":
+            codegen.kernel_model(problem, params, cuda_fused.KERNEL_MODELS)
+
     def init_fn(x0s, u0s, params) -> _Carry:
         _check_device(x0s, device, "x0s")
         _check_device(u0s, device, "u0s")
+        prepare_kernels(params)
         x0 = torch.as_tensor(x0s, device=device).to(dtype)
         u0 = torch.as_tensor(u0s, device=device).to(dtype)
         B, N = u0.shape[0], u0.shape[1]
@@ -763,7 +777,9 @@ class StepwiseSolver:
     def precompile(self, x0s, u0s, params, max_workers: int = 8) -> float:
         """Build everything a solve at this batch shape needs before the
         first timed call (JAX: compile every chunk program): load the kernel
-        library, run ``init``, then capture, in the order the loop reaches
+        library, run ``init`` (which generates and builds the problem's
+        CUDA model and B1 shape where the built-in ones do not serve), then
+        capture, in the order the loop reaches
         them, the body-call graph of every width of
         :meth:`_compact_sizes` (warm-up calls on scratch carries, then the
         capture; each width's static carry is allocated here).  Returns the

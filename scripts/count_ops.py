@@ -5,7 +5,8 @@ lower bounds ``chip_smoke.py`` puts beside their times.
 
 Builds the kernels' own headers (``ddp_generator_tpu_torch/csrc``) with
 ``g++`` on ``Op``, a number type that counts every add, subtract, multiply,
-divide and elementary function (sin, cos, sqrt, asin) as one operation;
+divide and elementary function (sin, cos, sqrt, asin, and the others a
+generated model may call) as one operation;
 negation, ``fabs``, comparisons and selects are free, as they are operand
 modifiers or predicates on the card.  Then runs, on CarParking and on
 Cartpole (FULL_DDP, regType 1) with random operands:
@@ -18,10 +19,16 @@ Cartpole (FULL_DDP, regType 1) with random operands:
   ``u = u_nom + alpha*l + L*dx`` (``NU*(2*NX+1)`` operations and ``NX``
   subtractions for ``dx``) and the cost sum, as ``rollout.cu`` does them.
 
+The same on the models ``codegen.py`` generates for ``chip_smoke.py``:
+CarParking's from its torch functions and the two user problems of
+``chip_smoke.user_problems`` (so B1 at their shapes (2, 1) and (6, 3)).
+
 Prints one JSON object: operations per step, per lane and, for B2, per
-step of one trajectory, CarParking's under plain names and Cartpole's with
-the prefix ``cartpole_``.  ``tests/test_torch_count_ops.py`` holds the
-constants of ``chip_smoke.py`` to this count.
+step of one trajectory, CarParking's under plain names and the others'
+with a prefix (``cartpole_``, ``gen_car_parking_``,
+``double_integrator_``, ``point_mass3_``).
+``tests/test_torch_count_ops.py`` holds the constants of ``chip_smoke.py``
+to this count.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ CSRC = Path(__file__).resolve().parent.parent / "ddp_generator_tpu_torch" / "csr
 SHIM = r"""
 #include <cmath>
 #include <cstdio>
+#include <vector>
 
 // A double that counts the operations done on it.
 static long g_ops = 0;
@@ -61,6 +69,14 @@ inline Op sin(Op a) { ++g_ops; return Op(std::sin(a.v)); }
 inline Op cos(Op a) { ++g_ops; return Op(std::cos(a.v)); }
 inline Op sqrt(Op a) { ++g_ops; return Op(std::sqrt(a.v)); }
 inline Op asin(Op a) { ++g_ops; return Op(std::asin(a.v)); }
+inline Op acos(Op a) { ++g_ops; return Op(std::acos(a.v)); }
+inline Op atan(Op a) { ++g_ops; return Op(std::atan(a.v)); }
+inline Op atan2(Op a, Op b) { ++g_ops; return Op(std::atan2(a.v, b.v)); }
+inline Op exp(Op a) { ++g_ops; return Op(std::exp(a.v)); }
+inline Op log(Op a) { ++g_ops; return Op(std::log(a.v)); }
+inline Op tanh(Op a) { ++g_ops; return Op(std::tanh(a.v)); }
+inline Op pow(Op a, Op b) { ++g_ops; return Op(std::pow(a.v, b.v)); }
+inline Op rsqrt_of(Op a) { ++g_ops; return Op(1.0 / std::sqrt(a.v)); }
 inline Op fabs(Op a) { return Op(std::fabs(a.v)); }
 inline bool is_finite(Op a) { return std::isfinite(a.v); }
 
@@ -68,6 +84,7 @@ inline bool is_finite(Op a) { return std::isfinite(a.v); }
 #include "fused.cuh"
 #include "models/car_parking.cuh"
 #include "models/cartpole.cuh"
+@GENERATED@
 
 using namespace ddp;
 
@@ -91,6 +108,7 @@ template <> struct Case<Cartpole> {
       -15.0, 15.0};
   static constexpr double x[4] = {0.0, 3.1, 0.0, 0.0};
 };
+@CASES@
 
 // B3 on one lane over N steps: operations.
 template <class M>
@@ -105,8 +123,12 @@ static long fused_ops(int N) {
   }
   for (int a = 0; a < NX; ++a) xf[a] = x[a];
   for (int i = 0; i < M::NP; ++i) p[i] = Case<M>::params[i];
-  FusedArgs<Op> A{x, u, nullptr, nullptr, xf, &one, &one, &lam, nullptr,
-                  nullptr, p, l, L, dV, g, failed, dok, N, 1};
+  // AL multipliers of every family the model has (ones)
+  std::vector<Op> mu_le(N * arr(M::NHLE), one), mu_li(N * arr(M::NHLI), one),
+      mu_fe(arr(M::NHFE), one), mu_fi(arr(M::NHFI), one);
+  FusedArgs<Op> A{x, u, mu_le.data(), mu_li.data(), xf, &one, &one, &lam,
+                  mu_fe.data(), mu_fi.data(), p, l, L, dV, g, failed, dok,
+                  N, 1};
   g_ops = 0;
   fused_lane<M, Op, 1, true>(A, p, 0);
   return g_ops;
@@ -165,8 +187,8 @@ static long rollout_step_ops() {
     const Op lim = -s * (M::h(i, x, u, p, 0) - s * u[M::box_index(i)]);
     (void)lim;
   }
-  const Op c = aug_L<M>(x, u, p, 0, (const Op*)nullptr,
-                        (const Op*)nullptr, Op(1.0));
+  const Op mu[4] = {1.0, 1.0, 1.0, 1.0};
+  const Op c = aug_L<M>(x, u, p, 0, mu, mu, Op(1.0));
   M::f(x, u, p, 0, xn);
   (void)c;
   return g_ops + NX + NU * (2 * NX + 1) + 1;
@@ -191,10 +213,66 @@ static void print_counts(const char* prefix, const char* sep) {
 int main() {
   std::printf("{");
   print_counts<CarParking>("", ", ");
-  print_counts<Cartpole>("cartpole_", "}\n");
+  print_counts<Cartpole>("cartpole_", ", ");
+@PRINTS@
   return 0;
 }
 """
+
+
+def _generated():
+    """``[(label, model, params, nominal x)]``: the models ``chip_smoke.py``
+    generates, CarParking's from its torch functions (the hand-written
+    model stripped) and the two user problems (B1 at their shapes comes
+    with them)."""
+    import dataclasses
+    import importlib.util
+
+    import numpy as np
+
+    if str(CSRC.parent.parent) not in sys.path:  # run as a script
+        sys.path.insert(0, str(CSRC.parent.parent))
+    from ddp_generator_tpu_torch import codegen
+    from ddp_generator_tpu_torch.models import car_parking
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", CSRC.parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    car = dataclasses.replace(car_parking.car_parking(), cuda_model=None)
+    cases = [("gen_car_parking", car, car_parking.default_params(),
+              [1.0, 1.0, 4.7, 1.0])]
+    for label, (prob, p, _, _) in smoke.user_problems().items():
+        cases.append((label, prob, p, list(np.linspace(0.1, 0.6, prob.n_x))))
+    return [(label, codegen.generate_cuda_model(prob, p), p, x)
+            for label, prob, p, x in cases]
+
+
+def _shim(generated) -> tuple[str, dict]:
+    """The counting program's source and the generated headers it
+    includes (file name -> text)."""
+    import torch
+
+    from ddp_generator_tpu_torch import params_from_jax
+
+    files, includes, cases, prints = {}, [], [], []
+    for i, (label, gm, p, x) in enumerate(generated):
+        files[f"{gm.struct}.cuh"] = gm.header
+        includes.append(f'#include "{gm.struct}.cuh"')
+        flat = gm.flat_params(params_from_jax(p, torch.float64, "cpu"),
+                              torch.float64, "cpu", 1).tolist()
+        cases.append(
+            f"template <> struct Case<{gm.struct}> {{\n"
+            f"  static constexpr double params[{len(flat)}] = "
+            f"{{{', '.join(repr(v) for v in flat)}}};\n"
+            f"  static constexpr double x[{len(x)}] = "
+            f"{{{', '.join(repr(float(v)) for v in x)}}};\n}};")
+        sep = '"}\\n"' if i == len(generated) - 1 else '", "'
+        prints.append(f'  print_counts<{gm.struct}>("{label}_", {sep});')
+    src = (SHIM.replace("@GENERATED@", "\n".join(includes))
+           .replace("@CASES@", "\n".join(cases))
+           .replace("@PRINTS@", "\n".join(prints)))
+    return src, files
 
 
 def count() -> dict:
@@ -202,12 +280,15 @@ def count() -> dict:
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise RuntimeError("count_ops needs g++")
+    text, files = _shim(_generated())
     with tempfile.TemporaryDirectory() as tmp:
         src, exe = Path(tmp) / "count.cpp", Path(tmp) / "count"
-        src.write_text(SHIM)
+        src.write_text(text)
+        for name, header in files.items():
+            (Path(tmp) / name).write_text(header)
         proc = subprocess.run(
             [cxx, "-std=c++17", "-O1", "-Wno-unknown-pragmas", "-I",
-             str(CSRC), "-o", str(exe), str(src)],
+             str(CSRC), "-I", tmp, "-o", str(exe), str(src)],
             capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(proc.stderr)

@@ -44,6 +44,8 @@ def main() -> int:
     problem = car_parking.car_parking()
     for rep in range(args.repeats):
         stats = cs.main_path(problem, args.path)
+        if isinstance(stats, tuple):  # newer trees: (numbers, solution)
+            stats = stats[0]
         launches = stats.pop("launches")
         cs.line("solve_wall", root=args.root, path=args.path, repeat=rep,
                 **stats, **{f"launches_{k}": v for k, v in launches.items()})

@@ -7,8 +7,9 @@ against another source tree, on one CUDA card.
 
 Each variant is a copy of ``ddp_generator_tpu_torch/csrc`` with tile
 constants replaced: for B1 and B3 the lanes per block (``kLanes``,
-staged.cuh) and B3's producer warps (``kProducerWarps``, fused.cu), one
-variant per ``--lanes`` x ``--warps``; for B2 the lanes per block and the
+staged.cuh) and B3's producer warps (``kProducerWarps``,
+fused_launch.cuh), one variant per ``--lanes`` x ``--warps``; for B2 the
+lanes per block and the
 steps per tile (``kRolloutLanes`` x ``kRolloutSteps``, rollout.cuh), one
 variant per ``--rollout`` entry.  The tree as it stands is always a
 variant (``tree``); ``--parent`` adds the kernels of other checkouts
@@ -156,15 +157,14 @@ def rollout_calls(b2, gains):
     B, N = r.us.shape[:2]
     l_b = gains[0].permute(2, 0, 1)
     L_b = gains[1].permute(2, 0, 1).reshape(B, N, problem.n_u, problem.n_x)
-    ctx = cr._LSCtx(problem, r.xs[:, 0], r.xs, r.us, l_b, L_b, None, None,
-                    m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, w, w)
     alphas = tuple(ddp.SolverOptions().alpha)
+    ctx = cr._LSCtx(problem, r.xs[:, 0], r.xs, r.us, l_b, L_b, None, None,
+                    m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, w, w, alphas)
     alpha_vec = torch.as_tensor(
         np.random.default_rng(1).choice(alphas, B), dtype=r.us.dtype,
         device=r.us.device)[None].contiguous()
-    return (("B2 sweep", lambda: ctx.call(problem, alphas, p, None,
-                                          multi=True)),
-            ("B2 selected", lambda: ctx.call(problem, alphas, p, alpha_vec,
+    return (("B2 sweep", lambda: ctx.call(problem, p, None, multi=True)),
+            ("B2 selected", lambda: ctx.call(problem, p, alpha_vec,
                                              multi=False, want_cost=True)))
 
 
@@ -196,7 +196,7 @@ def main() -> int:
         for wp in args.warps.split(","):
             srcs[f"G{g}_W{wp}"] = variant_sources(
                 f"G{g}_W{wp}", (("staged.cuh", "kLanes", g),
-                                ("fused.cu", "kProducerWarps", wp)))
+                                ("fused_launch.cuh", "kProducerWarps", wp)))
     for gs in filter(None, args.rollout.split(",")):
         g, st = gs.split("x")
         srcs[f"B2_{gs}"] = variant_sources(

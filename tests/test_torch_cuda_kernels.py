@@ -6,7 +6,10 @@ on/off in float32 and float64, B2 in both modes with alpha 0 lanes and a
 lane whose rollout turns NaN (CarParking and Cartpole), and B3 for every
 CUDA model of ``KERNEL_MODELS`` with regType 1/2 and FULL_DDP on/off in
 both dtypes, with
-a lane that fails and a lane whose derivatives are not finite.  ``B`` is
+a lane that fails and a lane whose derivatives are not finite.  A problem
+without a CUDA model runs its generated one (bit for bit the hand-written
+model's outputs on CarParking), B1 at a shape outside ``KERNEL_SHAPES`` is
+built, and what cannot be built raises.  ``B`` is
 not a multiple of the lanes per block, so the ragged last block is
 exercised; the ``*_ragged`` cases of B1, B2 and B3 also take ``B = G+3``,
 ``N = 2S+1`` (a last time tile of one step) and ``B = 128``, the smallest
@@ -248,15 +251,45 @@ def test_rollout_kernel_ragged(cuda, edge, mode, dtype):
         assert not bool(ok[:, 5].any()) and bool(ok[:, :5].all())
 
 
+def _same(a, b):
+    """Equal bit for bit, NaN where the other is NaN (a lane of these
+    operands turns NaN)."""
+    if a.dtype.is_floating_point:
+        return a.shape == b.shape and bool(
+            ((a == b) | (a.isnan() & b.isnan())).all())
+    return torch.equal(a, b)
+
+
+def _unsupported(problem):
+    """``problem`` with no CUDA model and a running cost the generator
+    cannot write (``erf``)."""
+    L = problem.L
+    return dataclasses.replace(
+        problem, cuda_model=None,
+        L=lambda x, u, p, k: L(x, u, p, k) + 0.0 * torch.erf(u[0]))
+
+
 def test_wrappers_raise_where_no_kernel_exists(cuda):
+    """B1 builds any shape with n_u <= 3 and raises above; B2 runs the
+    generated model of a problem without one (bit for bit the hand-written
+    model's outputs on CarParking) and raises, naming the op, where the
+    generator cannot write the problem."""
     rng = np.random.default_rng(1)
-    sd, fcx, fcxx, us, lam = _bundle(rng, 4, 2, True, torch.float64, cuda)
-    with pytest.raises(NotImplementedError, match="instantiated"):
-        cb.back_pass_cm(sd, fcx, fcxx, us, lam, 3, 1, True)  # (3, 2)
+    sd, fcx, fcxx, us, lam = _bundle(rng, 3, 2, True, torch.float64, cuda)
+    out = cb.back_pass_cm(sd, fcx, fcxx, us, lam, 3, 1, True)  # (3, 2)
+    torch.cuda.synchronize()
+    ref = cb.back_pass_cm_plain(sd, fcx, fcxx, us, lam, 3, 1, True)
+    assert torch.equal(out[4], ref[4])
+    with pytest.raises(ValueError, match="n_u <= 3"):
+        cb.library(3, 4)
     ops, alpha_vec, p = _rollout_operands(torch.float64, cuda)
     no_model = dataclasses.replace(ops[0], cuda_model=None)
-    with pytest.raises(NotImplementedError, match="CUDA model"):
-        cr.rollout_call(no_model, *ops[1:], alpha_vec, p, multi=False)
+    gen = cr.rollout_call(no_model, *ops[1:], alpha_vec, p, multi=False)
+    hand = cr.rollout_call(*ops, alpha_vec, p, multi=False)
+    assert all(_same(a, b) for a, b in zip(gen, hand))
+    with pytest.raises(NotImplementedError, match="erf"):
+        cr.rollout_call(_unsupported(ops[0]), *ops[1:], alpha_vec, p,
+                        multi=False)
 
 
 def _fused_operands(model, dtype, dev, N=N, B=B):
@@ -324,10 +357,18 @@ def test_fused_kernel_matches_plain(cuda, model, reg_type, full_ddp, dtype):
 
 
 def test_fused_wrapper_raises_where_no_kernel_exists(cuda):
+    """B3 on a problem without a CUDA model runs its generated model (bit
+    for bit the hand-written one's outputs on CarParking); an op the
+    generator cannot write and a bad regType raise."""
     args = list(_fused_operands("car_parking", torch.float64, cuda))
     no_model = dataclasses.replace(args[0], cuda_model=None)
-    with pytest.raises(NotImplementedError, match="CUDA model"):
-        cf.fused_derivs_back_pass(no_model, *args[1:], 1, True)
+    gen, gen_ok = cf.fused_derivs_back_pass(no_model, *args[1:], 1, True)
+    hand, hand_ok = cf.fused_derivs_back_pass(*args, 1, True)
+    assert torch.equal(gen_ok, hand_ok)
+    for name in ("l", "L", "dV", "g_norm", "failed"):
+        assert _same(getattr(gen, name), getattr(hand, name)), name
+    with pytest.raises(NotImplementedError, match="erf"):
+        cf.fused_derivs_back_pass(_unsupported(args[0]), *args[1:], 1, True)
     with pytest.raises(ValueError, match="reg_type"):
         cf.fused_derivs_back_pass(*args, 3, True)
 

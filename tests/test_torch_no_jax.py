@@ -43,7 +43,8 @@ def test_importing_the_port_loads_no_jax():
             "ddp_generator_tpu_torch.models.car_parking, "
             "ddp_generator_tpu_torch.models.brachistochrone, "
             "ddp_generator_tpu_torch.ops.cm_derivs, "
-            "ddp_generator_tpu_torch.ops.cuda_fused; "
+            "ddp_generator_tpu_torch.ops.cuda_fused, "
+            "ddp_generator_tpu_torch.codegen; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ddp_generator_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -95,7 +95,8 @@ def test_car_parking_functions_match_jax(problems, fn):
 
 def test_make_problem_validation():
     f = tcar.f
-    with pytest.raises(NotImplementedError, match="box_meta"):
+    # h without box_meta is probed; without example_params it cannot be
+    with pytest.raises(td.ProblemValidationError, match="box_meta"):
         td.make_problem(4, 2, f, tcar.L, tcar.F, h=[tcar.h1])
     with pytest.raises(td.ProblemValidationError):
         td.make_problem(4, 2, f, tcar.L, tcar.F, h=[tcar.h1],
