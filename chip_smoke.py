@@ -41,6 +41,20 @@ full width:
   B=2048 on the kernel and fused paths, their first 16 lanes against the
   CPU, and their B1, B2 and B3 against the plain versions.
 
+* the pipelined solve: the main path's and the fused path's solves again
+  with ``pipeline_depth=4`` (the active count read three chunks late),
+  every Solution field and launch count equal to the depth-1 solves;
+* the parallel path (phase 13): the associative-scan backward pass
+  (``backpass_method="parallel"``) against the serial pass on a B=2048
+  float64 nominal bundle of the Brachistochrone (n=500) and of the user
+  point mass without its input boxes, timed beside B1; both at full width
+  through StepwiseSolver with B2, against the kernel path and their first
+  16 lanes against the CPU; and the single long horizon (B=1, N = 500,
+  2,000, 8,000) timed against B1;
+* the auxiliary API on the card (phase 14: ``backpass_trace``, the
+  inspector, a carry checkpointed and resumed) and the main path's
+  CarParking solve in float64 on the kernel and fused paths (phase 15).
+
 The Cartpole instantiations of B1 (4, 1), B2 and B3 are held against their
 plain versions like CarParking's, and small float64 solves of the serial
 path, of the inline lambda retries and of per-lane params (CarParking and
@@ -68,6 +82,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -95,6 +110,14 @@ TOL_B3 = {"car_parking float32": 1e-1, "car_parking float64": 5e-12,
           "cartpole float32": 3e-1, "cartpole float64": 2e-10}
 SOLVED_MIN = 0.90
 N_BRACHI = 500
+# The parallel solves are held to the kernel path's cost on every lane
+# both solve but those either path leaves at a final lambda above
+# LAM_HIGH (the options' lambdaInit: the lane took the tolFun exit while
+# regularized more than at its start); at most HIGH_LAMBDA_MAX_LANES of
+# 2048 (0.2%) may be so excluded.  On an H100 every lane of both cases
+# ended at lambda <= 1.05e-5 in one run; one other run had one such lane.
+LAM_HIGH = 1.0
+HIGH_LAMBDA_MAX_LANES = 4
 T_POLE, MAX_ITER_POLE = 150, 150  # cartpole.default_setup's horizon
 # The serial Cartpole solve at full width is cut to the depth of the
 # per-lane serial check (SolverOptions' default max_iter 20): the whole
@@ -117,7 +140,9 @@ UPRIGHT_MIN = 0.805 - 0.05
 # Operations per (step, lane) and per lane of each kernel (FULL_DDP,
 # regType 1), CarParking's under plain names, the others' with a prefix:
 # Cartpole's, CarParking's generated model's and the two user problems'
-# (B1 at their shapes (2, 1) and (6, 3)), counted by scripts/count_ops.py
+# (B1 at their shapes (2, 1) and (6, 3)), and B2's on the parallel path's
+# two models (the Brachistochrone's hand-written one and the point mass
+# without its input boxes), counted by scripts/count_ops.py
 # on the kernels' own headers (tests/test_torch_count_ops.py holds these to
 # that count; the Riccati step's clamp search depends on the data, so a
 # model's count moves with its random operands).
@@ -141,7 +166,9 @@ OPS = {"backpass_per_step": 1470, "backpass_per_lane": 1,
        "point_mass3_backpass_per_lane": 1,
        "point_mass3_fused_per_step": 16532,
        "point_mass3_fused_per_lane": 2374,
-       "point_mass3_rollout_per_step": 108}
+       "point_mass3_rollout_per_step": 108,
+       "brachistochrone_rollout_per_step": 20,
+       "point_mass3_free_rollout_per_step": 84}
 # NVIDIA H100 SXM data sheet: HBM3 rate and the float32/float64 rates
 # outside the tensor cores, all at the full 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
@@ -555,10 +582,12 @@ def check_fused_brachi(reps):
     return compare_fused(name, args, TOL_B3[name], reps)
 
 
-def check_rollout(problem, alphas, p, r, m, w, bp, tol, reps, label=None):
+def check_rollout(problem, alphas, p, r, m, w, bp, tol, reps, label=None,
+                  wf=None):
     """Phase 4: kernel B2 (sweep, selected rollout with and without cost)
     against its plain version, on the gains of phase 3; ``label`` as in
-    :func:`compare_fused`."""
+    :func:`compare_fused`; ``w`` the per-lane penalty weights, ``wf`` the
+    final ones where they differ."""
     import torch
 
     from ddp_generator_tpu_torch.ops import cuda_rollout as cr
@@ -568,7 +597,8 @@ def check_rollout(problem, alphas, p, r, m, w, bp, tol, reps, label=None):
     l_b = bp[0].permute(2, 0, 1)
     L_b = bp[1].permute(2, 0, 1).reshape(B, N, n_u, n_x)
     ctx = cr._LSCtx(problem, r.xs[:, 0], r.xs, r.us, l_b, L_b, None, None,
-                    m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, w, w)
+                    m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, w,
+                    w if wf is None else wf)
     dtype, dev = r.us.dtype, r.us.device
     rng = np.random.default_rng(1)
     alpha_vec = torch.as_tensor(rng.choice(alphas, B), dtype=dtype,
@@ -816,23 +846,24 @@ def timed_solve(solver, x0s, u0s, p):
     return ddp.to_numpy(sol), wall, read_launches()
 
 
-def main_options(backpass="kernel"):
+def main_options(backpass="kernel", dtype="float32"):
     """bench.py's solve options (float32, tolFun 1e-5) on a path."""
     import ddp_generator_tpu_torch as ddp
 
-    return ddp.SolverOptions(max_iter=MAX_ITER_MAIN, dtype="float32",
+    return ddp.SolverOptions(max_iter=MAX_ITER_MAIN, dtype=dtype,
                              tolFun=1e-5, debug_level=0,
                              backpass_method=backpass,
                              linesearch_method="kernel")
 
 
-def main_solver(problem, backpass="kernel"):
+def main_solver(problem, backpass="kernel", dtype="float32", depth=1):
     """bench.py's StepwiseSolver (chunk 10, compact_levels 4,
-    min_compact_batch 128) on a path."""
+    min_compact_batch 128, pipeline_depth 1 unless ``depth``) on a path."""
     import ddp_generator_tpu_torch as ddp
 
-    return ddp.StepwiseSolver(problem, main_options(backpass), chunk=10,
-                              compact_levels=4, min_compact_batch=128,
+    return ddp.StepwiseSolver(problem, main_options(backpass, dtype),
+                              chunk=10, compact_levels=4,
+                              min_compact_batch=128, pipeline_depth=depth,
                               device="cuda")
 
 
@@ -850,14 +881,16 @@ def check_graphed(what, solver):
                 graphed_widths="/".join(map(str, st.graphed)))
 
 
-def main_path(problem, backpass="kernel"):
+def main_path(problem, backpass="kernel", dtype="float32", depth=1):
     """Phase 6 (and 7 with ``backpass="fused"``): bench.py's batched
     CarParking solve through the kernels of that path, precompiled (every
-    width's body call captured as a CUDA graph before the timed solve).
-    Returns its line's numbers and the solution (numpy)."""
+    width's body call captured as a CUDA graph before the timed solve);
+    ``dtype`` and the solver's ``pipeline_depth`` as given.  Returns its
+    line's numbers and the solution (numpy)."""
     what = "main path" if backpass == "kernel" else "fused path"
-    p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float32)
-    solver = main_solver(problem, backpass)
+    what += "" if (dtype, depth) == ("float32", 1) else f" {dtype} {depth}"
+    p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, getattr(np, dtype))
+    solver = main_solver(problem, backpass, dtype, depth)
     precompile_s = solver.precompile(x0s, u0s, p)
     s, wall, launches = timed_solve(solver, x0s, u0s, p)
     loop = check_graphed(what, solver)
@@ -1227,6 +1260,8 @@ def generated_cases():
     }
     for name, (problem, p, _, _) in USER_PROBLEMS.items():
         cases[name] = (problem, p)
+    cases["point_mass3_free"] = (free_point_mass(),
+                                 USER_PROBLEMS["point_mass3"][1])
     return cases
 
 
@@ -1261,18 +1296,18 @@ def build_phase():
     return main, libs, models
 
 
-def same_solution(what, a, b, launches_a, launches_b) -> int:
+def same_solution(what, a, b, launches_a, launches_b,
+                  ref="hand-written model's") -> int:
     """Fail unless two solutions (numpy) equal field by field, bit for bit,
     and their launch counts equal; returns the number of fields."""
     for f in a._fields:
         x, y = getattr(a, f), getattr(b, f)
         if x.shape != y.shape or not np.array_equal(
                 x, y, equal_nan=x.dtype.kind == "f"):
-            fail(f"{what}: Solution.{f} differs from the hand-written "
-                 f"model's in {int((x != y).sum())} entries")
+            fail(f"{what}: Solution.{f} differs from the {ref} in "
+                 f"{int((x != y).sum())} entries")
     if launches_a != launches_b:
-        fail(f"{what}: launches {launches_a}, hand-written model's "
-             f"{launches_b}")
+        fail(f"{what}: launches {launches_a}, the {ref} {launches_b}")
     return len(a._fields)
 
 
@@ -1383,6 +1418,458 @@ def user_solves(name):
             first16_cost_rel_err=cost_rel, cpu16_s=round(cpu_s, 2),
             mean_cost=float(s.cost.mean()), launches=launches)
     return out
+
+
+def brachi_plain_inputs(B, n, seed):
+    """testBrachi.m's setup (terminal equality, no floor) with
+    u0 = -|uniform(0.5, 1.5)| per lane."""
+    from ddp_generator_tpu_torch.models import brachistochrone
+
+    p, x0, _ = brachistochrone.default_setup(n)
+    rng = np.random.default_rng(seed)
+    return (p, np.tile(x0, (B, 1)),
+            -np.abs(rng.uniform(0.5, 1.5, (B, n, 1))))
+
+
+def free_point_mass():
+    """The user point mass of ``user_problems`` without its input boxes
+    (no ``h``): an unconstrained (6, 3) problem the parallel pass takes,
+    on its own generated CUDA model."""
+    pm = USER_PROBLEMS["point_mass3"][0]
+    return dataclasses.replace(pm, h=(), box_constraints=(),
+                               name="point_mass3_free")
+
+
+def parallel_cases(B):
+    """``{name: (problem, params, x0s, u0s, w_pen_f)}`` of the parallel
+    path: the published Brachistochrone (n=500, terminal equality,
+    tests/test_parallel_riccati.py:77-95) and the free point mass (T=100),
+    float64 inputs, each with the solves' w_pen_init_f of 40."""
+    from ddp_generator_tpu_torch.models import brachistochrone
+
+    p, x0s, u0s = brachi_plain_inputs(B, N_BRACHI, seed=11)
+    pm_p, pm_x0s, pm_u0s = user_inputs("point_mass3", B)
+    return {"brachistochrone": (brachistochrone.brachistochrone(), p, x0s,
+                                u0s, 40.0),
+            "point_mass3_free": (free_point_mass(), pm_p, pm_x0s, pm_u0s,
+                                 40.0)}
+
+
+def parallel_options(backpass="parallel"):
+    """tests/test_parallel_riccati.py:98-110's options, float64, with the
+    kernel line search (B2)."""
+    import ddp_generator_tpu_torch as ddp
+
+    return ddp.SolverOptions(max_iter=50, w_pen_init_f=40.0, w_pen_fact2=2.0,
+                             full_ddp=False, dtype="float64", debug_level=0,
+                             backpass_method=backpass,
+                             linesearch_method="kernel")
+
+
+def parallel_bundle(problem, p_np, x0s, u0s, w_pen_f):
+    """The initial rollout of ``x0s``, ``u0s`` on the card and its bundle,
+    step-major (the parallel and serial passes') and packed (B1's):
+    ``(params, rollout, multipliers, w_pen_l, w_pen_f, bundle, packed)``,
+    the operands of a solve's first body call."""
+    import torch
+
+    import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch.ops.cm_derivs import cm_emit
+    from ddp_generator_tpu_torch.ops.forward import forward_pass
+
+    f64 = torch.float64
+    p = ddp.params_from_jax(p_np, f64, "cuda")
+    x0 = torch.as_tensor(x0s, dtype=f64, device="cuda")
+    u0 = torch.as_tensor(u0s, dtype=f64, device="cuda")
+    B, N = u0.shape[:2]
+    m = ddp.init_multipliers(problem, B, N, f64, "cuda")
+    one = torch.ones(B, dtype=f64, device="cuda")
+    wf = torch.full((B,), w_pen_f, dtype=f64, device="cuda")
+    mus = (m.mu_le, m.mu_li, m.mu_fe, m.mu_fi)
+    r = forward_pass(problem, x0, None, u0, None, None, 0.0, p, *mus, one, wf)
+    d = ddp.batched_calc_derivs(problem, r.xs, r.us, p, *mus, one, wf, False)
+    cm = cm_emit(problem, r.xs, r.us, *mus, one, wf, p, False)[:4]
+    return p, r, m, one, wf, d, cm
+
+
+def allclose_or_fail(what, a, b, rtol, atol) -> float:
+    """Fail unless ``|a - b| <= atol + rtol |b|`` everywhere; returns the
+    largest ``|a - b| / (atol + rtol |b|)``."""
+    worst = float(((a - b).abs() / (atol + rtol * b.abs())).max())
+    if not worst <= 1.0:
+        fail(f"{what}: {worst:.3g} x the tolerance (rtol {rtol}, atol "
+             f"{atol})")
+    return worst
+
+
+def parallel_nominal(alphas):
+    """Phase 13a: the parallel pass against the serial pass on one nominal
+    bundle on the card (B=2048, float64) of each parallel case, at lambda 0
+    (JAX's tolerances: l and L rtol 1e-7 / atol 1e-9, g_norm rtol 1e-8,
+    the same failed lanes) and 0.3 (every lane descends: dV[0] < 0).  The
+    ms of the parallel pass, the serial pass and B1 on the same bundle,
+    CUDA events.  Then B2 (both modes) against its plain version on the
+    gains of the parallel pass at the solve's lambdaInit: the operands of
+    the parallel solve's first line search.  Returns ``{case: pass
+    numbers}`` and ``{case: B2 numbers by mode}``."""
+    import torch
+
+    from ddp_generator_tpu_torch.ops.backpass import back_pass
+    from ddp_generator_tpu_torch.ops.cm_derivs import cm_back_pass_from_bundle
+    from ddp_generator_tpu_torch.ops.parallel_riccati import (
+        parallel_back_pass,
+    )
+
+    out, b2 = {}, {}
+    for name, (problem, p, x0s, u0s, wf) in parallel_cases(B_MAIN).items():
+        P, r, m, w_l, w_f, d, cm = parallel_bundle(problem, p, x0s, u0s, wf)
+        us = r.us
+        B, N = us.shape[:2]
+        res = dict(B=B, N=N)
+        for lam_v in (0.0, 0.3):
+            lam = torch.full((B,), lam_v, dtype=torch.float64, device="cuda")
+            par = parallel_back_pass(d, us, lam, 1)
+            if lam_v == 0.0:
+                ser = back_pass(d, us, lam, 1, False)
+                if not torch.equal(par.failed, ser.failed):
+                    fail(f"parallel {name}: failed lanes differ from the "
+                         "serial pass's")
+                ok = ~ser.failed
+                res["failed_lanes"] = int(ser.failed.sum())
+                for f in ("l", "L"):
+                    res[f"{f}_tol_used"] = allclose_or_fail(
+                        f"parallel {name} lambda 0 {f}",
+                        getattr(par, f)[ok], getattr(ser, f)[ok], 1e-7, 1e-9)
+                res["g_norm_tol_used"] = allclose_or_fail(
+                    f"parallel {name} lambda 0 g_norm", par.g_norm[ok],
+                    ser.g_norm[ok], 1e-8, 0.0)
+                lam0 = lam
+            elif not bool((par.dV[:, 0] < 0).all()) or par.failed.any():
+                fail(f"parallel {name} lambda 0.3: "
+                     f"{int((par.dV[:, 0] >= 0).sum())} lanes do not "
+                     f"descend, {int(par.failed.sum())} failed")
+        res["parallel_ms"] = time_ms(
+            lambda: parallel_back_pass(d, us, lam0, 1), 3)
+        res["serial_ms"] = time_ms(lambda: back_pass(d, us, lam0, 1, False),
+                                   1)
+        res["b1_ms"] = time_ms(lambda: cm_back_pass_from_bundle(
+            *cm, lam0, problem.n_x, 1, False), 10)
+        out[name] = res
+        lam_init = torch.full((B,), parallel_options().lambdaInit,
+                              dtype=torch.float64, device="cuda")
+        par = parallel_back_pass(d, us, lam_init, 1)
+        n_u, n_x = problem.n_u, problem.n_x
+        gains = (par.l.permute(1, 2, 0),
+                 par.L.reshape(B, N, n_u * n_x).permute(1, 2, 0))
+        b2[name], _ = check_rollout(problem, alphas, P, r, m, w_l, gains,
+                                    TOL_ROLLOUT["float64"], 3, label=name,
+                                    wf=w_f)
+    return out, b2
+
+
+def busy_share(solver, x0s, u0s, p, calls=3) -> float:
+    """The card's busy share (%) over ``calls`` eager body calls of the
+    solver's width after one warm-up call (``torch.profiler``: kernel time
+    over host wall)."""
+    import torch
+
+    from ddp_generator_tpu_torch.solver import _masked_steps
+
+    o = solver.options
+    P = solver._cast_params(p, len(u0s))
+    c = solver._init(x0s, u0s, P)
+    c, _ = _masked_steps(solver._body, c, P, o.max_iter, 1)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        _masked_steps(solver._body, c, P, o.max_iter, calls)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.device_time_total for e in prof.events()
+               if e.device_type.name == "CUDA") / 1e6
+    return 100 * busy / wall
+
+
+def off_terminal(name, p, s) -> int:
+    """Solved lanes of a solve (numpy) that miss the Brachistochrone's
+    terminal equality y_N = yf by more than 1e-5 (the JAX package's test
+    of the parallel pass asserts it, tests/test_parallel_riccati.py:108)."""
+    if name != "brachistochrone":
+        return 0
+    solved = np.isin(s.status, (1, 2))
+    return int((solved & (np.abs(s.xs[:, -1, 0] - p["yf"]) > 1e-5)).sum())
+
+
+def parallel_solves():
+    """Phase 13b: each parallel case at full width (B=2048, float64)
+    through StepwiseSolver with ``backpass_method="parallel"`` and B2,
+    against the same solve on the kernel path (emission + B1): cost to a
+    relative 1e-6 (the JAX package's test of the parallel pass against the
+    serial one) on every lane both solve, whatever exit each takes, but
+    those that either path leaves at a final lambda above ``LAM_HIGH``.
+    Such a lane took the tolFun exit while heavily regularized, short of
+    the optimum, and the two passes regularize differently: in one card
+    run kernel-path Brachistochrone lane 1846 did so at lambda 8.7, cost
+    2e-4 above the parallel path's gradient exit, through the emission's
+    history dependence on the card (ROADMAP queue C; the CPU is not
+    affected).  Those lanes are counted and their largest gap printed.
+    The first 16 lanes against the CPU's parallel solve (plain B2): equal
+    counts, cost to 1e-8."""
+    import ddp_generator_tpu_torch as ddp
+
+    out = {}
+    for name, (problem, p, x0s, u0s, _) in parallel_cases(B_MAIN).items():
+        what = f"parallel {name}"
+        solver = ddp.StepwiseSolver(problem, parallel_options(),
+                                    device="cuda")
+        s, wall, launches = timed_solve(solver, x0s, u0s, p)
+        # B2's alpha[0] stage (a selected rollout) runs in every body call
+        # with a live lane, its sweep only where a lane rejects alpha[0]
+        if (launches["rollout_selected"] <= 0 or launches["backpass"]
+                or launches["fused"]):
+            fail(f"{what}: launches {launches}: B2 must run, B1 and B3 not")
+        if not np.all(np.isfinite(s.cost)):
+            fail(f"{what}: non-finite costs")
+        solved = np.isin(s.status, (1, 2))
+        if solved.mean() < SOLVED_MIN:
+            fail(f"{what}: solved share {solved.mean():.4f} < {SOLVED_MIN}")
+        kern = ddp.StepwiseSolver(problem, parallel_options("kernel"),
+                                  device="cuda")
+        k_sol, k_wall, k_launches = timed_solve(kern, x0s, u0s, p)
+        both = np.isin(s.status, (1, 2)) & np.isin(k_sol.status, (1, 2))
+        high = both & ((s.lam > LAM_HIGH) | (k_sol.lam > LAM_HIGH))
+        gated = both & ~high
+        if high.sum() > HIGH_LAMBDA_MAX_LANES:
+            fail(f"{what}: {int(high.sum())} lanes end above lambda "
+                 f"{LAM_HIGH}, more than {HIGH_LAMBDA_MAX_LANES}")
+        rel = np.abs(s.cost - k_sol.cost) / np.abs(k_sol.cost)
+        worst = int(np.argmax(np.where(gated, rel, -1.0)))
+        cost_rel = float(rel[worst])
+        if not cost_rel <= 1e-6:
+            fail(f"{what}: cost rel err {cost_rel:.3g} > 1e-6 against the "
+                 f"kernel path at lane {worst} (status {s.status[worst]} / "
+                 f"{k_sol.status[worst]}, iterations {s.iterations[worst]} /"
+                 f" {k_sol.iterations[worst]}, y_N {s.xs[worst, -1, 0]} / "
+                 f"{k_sol.xs[worst, -1, 0]})")
+        t0 = time.time()
+        cpu = ddp.to_numpy(ddp.StepwiseSolver(
+            problem, parallel_options(), min_compact_batch=4, device="cpu")(
+                x0s[:16], u0s[:16], p))
+        cpu_s = time.time() - t0
+        head = type(s)(*(f[:16] for f in s))
+        cpu_rel = check_lanes(f"{what}: first 16 lanes against the CPU",
+                              head, cpu, 1e-8)
+        out[name] = dict(
+            B=B_MAIN, T=u0s.shape[1], max_iter=50, wall_s=wall,
+            solved_pct=100 * float(solved.mean()),
+            mean_iters=float(s.iterations.mean()),
+            max_iters=int(s.iterations.max()),
+            mean_body_calls=float(s.body_calls.mean()),
+            loop_body_calls=solver.last_stats.body_calls,
+            busy_pct=busy_share(solver, x0s, u0s, p),
+            kernel_path_wall_s=k_wall,
+            kernel_path_solved_pct=100 * float(
+                np.isin(k_sol.status, (1, 2)).mean()),
+            lanes_status_differ=int((s.status != k_sol.status).sum()),
+            lanes_compared=int(gated.sum()),
+            compared_status_differ=int(
+                (gated & (s.status != k_sol.status)).sum()),
+            cost_rel_err_vs_kernel=cost_rel,
+            high_lambda_lanes=int(high.sum()),
+            high_lambda_max_cost_rel=float(rel[high].max(initial=0.0)),
+            off_terminal=off_terminal(name, p, s),
+            kernel_path_off_terminal=off_terminal(name, p, k_sol),
+            first16_cost_rel_err=cpu_rel,
+            cpu16_s=round(cpu_s, 2),
+            **{f"launches_{k}": v for k, v in launches.items()},
+            kernel_path_launches_backpass=k_launches["backpass"])
+    return out
+
+
+def parallel_long_horizon():
+    """Phase 13c: the single long-horizon solve the README's TPU table is
+    about: the Brachistochrone at B=1 with N = 500, 2000 and 8000.  The ms
+    of the parallel pass and of B1 on the same bundle (and of the serial
+    eager pass at N=500 only: seconds beyond), the largest gap of their
+    ``l`` relative to B1's, and the wall of one ``make_solver`` solve at
+    N=8000 with each.  Recorded, not gated (beyond finite values)."""
+    import torch
+
+    import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch.models import brachistochrone
+    from ddp_generator_tpu_torch.ops.backpass import back_pass
+    from ddp_generator_tpu_torch.ops.cm_derivs import cm_back_pass_from_bundle
+    from ddp_generator_tpu_torch.ops.parallel_riccati import (
+        parallel_back_pass,
+    )
+
+    problem = brachistochrone.brachistochrone()
+    lam = torch.zeros(1, dtype=torch.float64, device="cuda")
+    out = {}
+    for N in (500, 2000, 8000):
+        p, x0, u0 = brachistochrone.default_setup(N)
+        _, r, _, _, _, d, cm = parallel_bundle(problem, p, x0[None],
+                                               u0[None], 40.0)
+        us = r.us
+        par = parallel_back_pass(d, us, lam, 1)
+        b1 = cm_back_pass_from_bundle(*cm, lam, problem.n_x, 1, False)
+        if not bool(torch.isfinite(par.l).all()) or par.failed.any():
+            fail(f"parallel long horizon N={N}: the pass failed")
+        res = dict(parallel_ms=time_ms(
+            lambda: parallel_back_pass(d, us, lam, 1), 5),
+            b1_ms=time_ms(lambda: cm_back_pass_from_bundle(
+                *cm, lam, problem.n_x, 1, False), 5),
+            l_rel_gap_vs_b1=max_rel_err(par.l, b1.l)[1])
+        if N == 500:
+            res["serial_ms"] = time_ms(
+                lambda: back_pass(d, us, lam, 1, False), 1)
+        out[N] = res
+    for backpass in ("parallel", "kernel"):
+        solve = ddp.make_solver(problem, parallel_options(backpass),
+                                device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sol = ddp.to_numpy(solve(x0, u0, p))
+        wall = time.time() - t0
+        if not np.isfinite(sol.cost):
+            fail(f"parallel long horizon: {backpass} solve not finite")
+        out[8000][f"{backpass}_solve_wall_s"] = wall
+        out[8000][f"{backpass}_solve"] = (
+            f"status={int(sol.status)},iters={int(sol.iterations)},"
+            f"cost={float(sol.cost):.10g}")
+    return out
+
+
+def fused_vs_kernel_f64(problem, f32):
+    """Phase 15: the main path's CarParking solve (B=2048, T=500,
+    precompiled) in float64 on the kernel and the fused path: each path's
+    solved count and the lanes whose status or iterations differ between
+    them, beside the same counts of the float32 solves ``f32``
+    (``{path: solution}``)."""
+    sols = {}
+    res = {}
+    for backpass in ("kernel", "fused"):
+        stats, sols[backpass] = main_path(problem, backpass, "float64")
+        res[f"{backpass}_wall_s"] = stats["wall_s"]
+    for label, pair in (("f64", sols), ("f32", f32)):
+        a, b = pair["kernel"], pair["fused"]
+        for backpass, sol in pair.items():
+            res[f"{label}_{backpass}_solved"] = int(
+                np.isin(sol.status, (1, 2)).sum())
+            res[f"{label}_{backpass}_status"] = "/".join(
+                map(str, np.bincount(sol.status, minlength=8)))
+        status = np.flatnonzero(a.status != b.status)
+        res[f"{label}_lanes_status_differ"] = len(status)
+        res[f"{label}_status_lanes"] = ",".join(
+            f"{i}:{a.status[i]}/{b.status[i]}" for i in status[:40]) or "none"
+        res[f"{label}_lanes_iterations_differ"] = int(
+            (a.iterations != b.iterations).sum())
+    return res
+
+
+def aux_api(problem):
+    """Phase 14: the auxiliary API on the card.  ``backpass_trace`` of lane
+    0 of a small float64 CarParking nominal, cuda against cpu (every field
+    to 1e-10 of its largest value), its l and L equal to the serial
+    ``back_pass`` of that lane on the card; ``ProblemInspector`` modes 0-14
+    and 16 on cuda tensors against cpu (1e-12); and a StepwiseSolver carry
+    checkpointed from the card mid-solve (``save_pytree``), restored
+    (``load_pytree``, onto the card) and resumed: its Solution equals the
+    uninterrupted solve's bit for bit."""
+    from pathlib import Path
+
+    import torch
+
+    import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch import native
+    from ddp_generator_tpu_torch.debugging import backpass_trace
+    from ddp_generator_tpu_torch.ops.forward import forward_pass
+    from ddp_generator_tpu_torch.solver import (
+        _boxqp_hyper,
+        _masked_steps,
+        _running,
+    )
+
+    out = {}
+    # backpass_trace
+    opts = ddp.SolverOptions(max_iter=5, dtype="float64", debug_level=0)
+    p, x0s, u0s = bench_inputs(1, 100, np.float64, seed=3)
+    P = ddp.params_from_jax(p, torch.float64, "cpu")
+    m = ddp.init_multipliers(problem, 1, 100, torch.float64, "cpu")
+    one = torch.ones(1, dtype=torch.float64)
+    r = forward_pass(problem, torch.as_tensor(x0s), None,
+                     torch.as_tensor(u0s), None, None, 0.0, P, m.mu_le,
+                     m.mu_li, m.mu_fe, m.mu_fi, one, one)
+    trs = {dev: backpass_trace(problem, opts, r.xs[0].to(dev),
+                               r.us[0].to(dev), 0.1, p, device=dev)
+           for dev in ("cuda", "cpu")}
+    worst = 0.0
+    for f, a, b in zip(trs["cpu"]._fields, trs["cuda"], trs["cpu"]):
+        worst = max(worst, max_rel_err(a.cpu(), b)[1])
+    if not worst <= 1e-10:
+        fail(f"backpass_trace: cuda against cpu rel err {worst:.3g}")
+    xs, us = r.xs.cuda(), r.us.cuda()
+    Pc = ddp.params_from_jax(p, torch.float64, "cuda")
+    mc = ddp.init_multipliers(problem, 1, 100, torch.float64, "cuda")
+    onec = one.cuda()
+    d = ddp.batched_calc_derivs(problem, xs, us, Pc, mc.mu_le, mc.mu_li,
+                                mc.mu_fe, mc.mu_fi, onec, onec,
+                                opts.full_ddp)
+    bp = ddp.back_pass(d, us, torch.full_like(onec, 0.1), opts.regType,
+                       opts.full_ddp, _boxqp_hyper(opts))
+    tr = trs["cuda"]
+    if not (torch.equal(tr.l, bp.l[0]) and torch.equal(tr.L, bp.L[0])):
+        fail("backpass_trace: l/L differ from back_pass's lane on the card")
+    out["trace_rel_err_cuda_cpu"] = worst
+    # inspector
+    insp = ddp.inspect(problem)
+    x = np.array([0.3, -0.2, 0.5, 0.1])
+    u = np.array([0.1, -0.4])
+    worst = 0.0
+    for mode in tuple(range(15)) + (16,):
+        vals = {}
+        for dev in ("cuda", "cpu"):
+            xt = torch.as_tensor(x, device=dev)
+            args = (xt, p, 0) if mode in (2, 3, 4) else (xt, u, p, 0)
+            vals[dev] = insp.by_mode(mode)(*args)
+        if vals["cuda"].device.type != "cuda":
+            fail(f"inspector mode {mode} did not compute on the card")
+        worst = max(worst, max_rel_err(vals["cuda"].cpu(), vals["cpu"])[1])
+    if not worst <= 1e-12:
+        fail(f"inspector: cuda against cpu rel err {worst:.3g}")
+    out["inspector_modes"] = 16
+    out["inspector_rel_err_cuda_cpu"] = worst
+    # checkpoint and resume
+    copts = ddp.SolverOptions(max_iter=100, dtype="float64", debug_level=0,
+                              backpass_method="kernel",
+                              linesearch_method="kernel")
+    B = 64
+    p, x0s, u0s = bench_inputs(B, 100, np.float64, seed=3)
+    x0s = x0s + 0.05 * np.random.default_rng(4).standard_normal(x0s.shape)
+    s = ddp.StepwiseSolver(problem, copts, chunk=5, device="cuda")
+    Ps = s._cast_params(p, B)
+    c = s._init(x0s, u0s, Ps)
+    c, _ = _masked_steps(s._body, c, Ps, copts.max_iter, 5)
+    ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    ckpt.mkdir(parents=True, exist_ok=True)
+    path = str(ckpt / "carry.ddpt")
+    native.save_pytree(path, c)
+    c2 = native.load_pytree(path, c)
+    if c2.xs.device.type != "cuda":
+        fail("load_pytree did not restore onto the card")
+    c2, _ = _masked_steps(s._body, c2, Ps, copts.max_iter, 10_000)
+    if bool(_running(c2, copts.max_iter).any()):
+        fail("checkpoint resume: lanes still running")
+    resumed = ddp.to_numpy(s._finalize(c2))
+    direct = ddp.to_numpy(s(x0s, u0s, p))
+    out["checkpoint_fields_equal"] = same_solution(
+        "checkpoint resume", resumed, direct, {}, {},
+        ref="uninterrupted solve's")
+    out["native_engine"] = native.native_available()
+    return out
+
 
 
 def main() -> int:
@@ -1557,6 +2044,24 @@ def main() -> int:
     line("fused_path", **fstats, **{f"launches_{k}": v
                                     for k, v in flaunches.items()})
 
+    # 7b. the pipelined solve: both paths with pipeline_depth=4 against
+    # the depth-1 solves above, every Solution field and launch count
+    for backpass, ref_sol, ref_stats, ref_launches in (
+            ("kernel", main_sol, stats, launches),
+            ("fused", fused_sol, fstats, flaunches)):
+        dstats, dsol = main_path(problem, backpass, depth=4)
+        n = same_solution(f"pipelined {backpass} path", dsol, ref_sol,
+                          dstats.pop("launches"), ref_launches,
+                          ref="depth-1 solve's")
+        line("pipelined", path=backpass, depth=4, fields_equal=n,
+             wall_s=dstats["wall_s"], depth1_wall_s=ref_stats["wall_s"],
+             replays=dstats["replays"], depth1_replays=ref_stats["replays"],
+             host_reads=dstats["host_reads"],
+             depth1_host_reads=ref_stats["host_reads"])
+    f32_counts = {k: types.SimpleNamespace(status=v.status,
+                                           iterations=v.iterations)
+                  for k, v in (("kernel", main_sol), ("fused", fused_sol))}
+
     # 8. brachistochrone_hli at full width: B3, B2 with the AL families
     bstats, brachi_sol = brachi_path(brachistochrone.brachistochrone_hli())
     blaunches = bstats.pop("launches")
@@ -1606,6 +2111,26 @@ def main() -> int:
     plaunches = pstats.pop("launches")
     line("batch_params_path", **pstats, **{f"launches_{k}": v
                                            for k, v in plaunches.items()})
+
+    # 13. the parallel path: the associative-scan backward pass against
+    # the serial one on a nominal bundle, the full-width solves through it
+    # and B2, and the long single horizon
+    nominal, par_b2 = parallel_nominal(alphas)
+    for name, d in nominal.items():
+        line("parallel_path", part="nominal", case=name, **d)
+        for mode, r in par_b2[name].items():
+            line("parallel_path", part="kernels", case=name,
+                 kernel=f"rollout_{mode}", B=B_MAIN, dtype="float64", **r)
+    par_solves = parallel_solves()
+    for name, d in par_solves.items():
+        line("parallel_path", part="solve", case=name, **d)
+    for N, d in parallel_long_horizon().items():
+        line("parallel_path", part="long_horizon", B=1, N=N, **d)
+
+    # 14. the auxiliary API on the card; 15. float64 fused against kernel
+    line("aux_api", **aux_api(problem))
+    line("fused_vs_kernel", B=B_MAIN, T=T_MAIN,
+         **fused_vs_kernel_f64(problem, f32_counts))
 
     def entry(name, source, replaces, n, d, model="car_parking"):
         # no single PyTorch call computes any of these: library_ms is null
@@ -1658,6 +2183,18 @@ def main() -> int:
         kernels.append(entry("fused", "generated/fused.cu",
                              "pallas_fused.py:715",
                              user[(name, "fused")]["fused"], fu, name))
+    # B2 on the parallel path's models (float64, B=2048), with their
+    # launches on its solves (phase 13b); a mode those solves never
+    # launched (the sweep, where every lane accepts alpha[0]) is checked
+    # above and has no row
+    for name, source in (("brachistochrone", "rollout.cu"),
+                         ("point_mass3_free", "generated/rollout.cu")):
+        for mode in ("multi", "selected"):
+            n = par_solves[name][f"launches_rollout_{mode}"]
+            if n > 0:
+                kernels.append(entry(f"rollout_{mode}", source,
+                                     "pallas_rollout.py:424", n,
+                                     par_b2[name][mode], name))
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

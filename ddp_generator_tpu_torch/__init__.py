@@ -9,8 +9,12 @@ device; on the CPU the same entry points run their plain PyTorch versions.
 The default options run the serial path, eager PyTorch on either device
 (``ops/backpass.py``, ``ops/boxqp.py``, ``ops/chol.py``,
 ``ops/linesearch.py``), as the JAX package's default runs ``lax.scan``.
-Models: ``models.car_parking``, ``models.brachistochrone`` and
-``models.cartpole``.
+``backpass_method="parallel"`` runs the associative-scan backward pass
+of ``ops/parallel_riccati.py`` for unconstrained problems.  Around the
+solver: ``debugging`` (per-step backward-pass traces), ``inspect`` (the
+MMex-style derivative table), ``calc_g`` (user outputs), ``native`` (the
+checkpoint engine) and ``utils``.  Models: ``models.car_parking``,
+``models.brachistochrone`` and ``models.cartpole``.
 
 Quick start::
 
@@ -26,9 +30,11 @@ Quick start::
     sol = solver(np.tile(x0, (B, 1)), u0s, p)    # u0s: (B, T, 2)
 """
 
+from . import debugging
 from .al import Multipliers, init_multipliers, update_multipliers
 from .convert import params_from_jax, to_numpy, to_torch
 from .derivs import DerivBundle, batched_calc_derivs, calc_derivs
+from .inspect_api import ProblemInspector, inspect
 from .models import brachistochrone, car_parking, cartpole
 from .ops.backpass import BackPassResult, back_pass
 from .ops.boxqp import (
@@ -41,6 +47,7 @@ from .ops.boxqp import (
 from .ops.chol import ModCholResult, mod_chol, mod_chol_perturb
 from .ops.cuda_fused import fused_derivs_back_pass
 from .ops.linesearch import LineSearchResult, line_search
+from .outputs import calc_g, get_g_size, make_output_fn
 from .options import DEFAULT_ALPHA, OptionError, SolverOptions, options_from_dict
 from .problem import (
     PER_STEP,
@@ -66,6 +73,7 @@ from .solution import (
 from .solver import (
     StepwiseSolver,
     make_batched_solver,
+    make_solver,
     make_stepwise_solver,
     solve,
 )
@@ -86,6 +94,7 @@ __all__ = [
     "OptionError",
     "PER_STEP",
     "Problem",
+    "ProblemInspector",
     "ProblemValidationError",
     "STATUS_DERIVS_FAILED",
     "STATUS_EXIT_LAMBDA_MAX",
@@ -105,15 +114,21 @@ __all__ = [
     "boxqp_newton",
     "brachistochrone",
     "calc_derivs",
+    "calc_g",
     "car_parking",
     "cartpole",
     "clamp_u",
+    "debugging",
     "fused_derivs_back_pass",
+    "get_g_size",
     "init_multipliers",
+    "inspect",
     "limits_u",
     "line_search",
     "make_batched_solver",
+    "make_output_fn",
     "make_problem",
+    "make_solver",
     "make_stepwise_solver",
     "mod_chol",
     "mod_chol_perturb",

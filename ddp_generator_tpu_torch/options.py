@@ -86,8 +86,9 @@ class SolverOptions:
     # as one hand-written CUDA kernel (B1, ops/cuda_backpass.py) on a CUDA
     # device, its plain PyTorch version on the CPU.  "fused": derivatives
     # and backward pass in one CUDA kernel (B3, ops/cuda_fused.py).
-    # "parallel" validates but is not ported yet: the solver raises
-    # NotImplementedError for it.
+    # "parallel": the associative-scan backward pass of
+    # ops/parallel_riccati.py on the step-major derivatives (unconstrained
+    # problems with full_ddp=False; the solver raises ValueError else).
     backpass_method: str = "serial"
     # "serial": every alpha rolled out by ops/forward.py at once
     # (ops/linesearch.py).  "kernel": the multi-alpha line search as the two

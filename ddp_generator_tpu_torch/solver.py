@@ -8,9 +8,11 @@ into the packed component-major bundle (``ops/cm_derivs.py``) then kernel
 B1, with ``"fused"`` kernel B3, which computes the derivatives inside the
 backward pass (``ops/cuda_fused.py``) -- the lambda retries
 (``lam_retry``), the gradient-tolerance exit, the line search (serial,
-``ops/linesearch.py``, or kernel B2), then the accept/reject updates.  The
-JAX package writes
-one lane and ``vmap``s it, with ``custom_vmap`` rules that hand the batch
+``ops/linesearch.py``, or kernel B2), then the accept/reject updates.
+``backpass_method="parallel"`` takes the step-major bundle through the
+associative-scan pass of ``ops/parallel_riccati.py`` (unconstrained
+problems, ``full_ddp=False``).  The JAX package writes one lane and
+``vmap``s it, with ``custom_vmap`` rules that hand the batch
 to its kernels; here the batch dimension is written out, every masked
 update is a ``torch.where`` per lane, and a lane whose loop condition is
 false keeps its carry.
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import sys
 import time
+from collections import deque
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -52,9 +55,11 @@ from .ops.cuda_fused import fused_derivs_back_pass
 from .ops.cuda_rollout import kernel_line_search, kernel_line_search_staged
 from .ops.forward import cost_only, forward_pass
 from .ops.linesearch import line_search
+from .ops.parallel_riccati import parallel_back_pass
 from .options import SolverOptions
 from .problem import Problem, lanes_last
 from .solution import Solution
+from .utils.tree import tree_map, tree_where
 
 Tensor = torch.Tensor
 
@@ -96,30 +101,20 @@ class _Carry(NamedTuple):
     was_bp_retry: Tensor  # bool: previous call ended in a lambda retry
 
 
-def _tree_map(fn, *trees):
-    """Map over the tensors of (nested) NamedTuples of tensors."""
-    head = trees[0]
-    if isinstance(head, tuple):
-        return type(head)(*(_tree_map(fn, *ts) for ts in zip(*trees)))
-    return fn(*trees)
-
-
-def _lane_where(mask: Tensor, a, b):
-    """Per-lane select over a carry-like tree; ``mask (B,)`` broadcast over
-    each leaf's trailing axes."""
-    def w(x, y):
-        m = mask.reshape(mask.shape + (1,) * (x.dim() - 1))
-        return torch.where(m, x, y)
-    return _tree_map(w, a, b)
-
-
-def _check_ported(problem: Problem, o: SolverOptions) -> None:
-    """Raise for options that validate but whose code is not ported yet,
-    naming the ROADMAP item that ports it."""
+def _check_supported(problem: Problem, o: SolverOptions) -> None:
+    """Raise for options that validate but that this problem cannot run
+    (the JAX package's guards, ``jax:solver.py:395-409``)."""
     if o.backpass_method == "parallel":
-        raise NotImplementedError(
-            "backpass_method='parallel' is not ported yet (ROADMAP.md queue "
-            "A item 8: parallel_riccati); use 'serial', 'kernel' or 'fused'")
+        if problem.n_h > 0:
+            raise ValueError(
+                "backpass_method='parallel' requires an unconstrained "
+                "problem (no h constraints): boxQP clamping is a per-step "
+                "nonlinearity that breaks the associative-scan formulation")
+        if o.full_ddp:
+            raise ValueError(
+                "backpass_method='parallel' requires full_ddp=False (the "
+                "FULL_DDP tensor terms couple the stage cost to the "
+                "downstream Vx)")
     if o.dtype not in _DTYPES:
         raise ValueError(f"dtype must be float32|float64, got {o.dtype!r}")
     if o.backpass_method in ("kernel", "fused") and problem.n_u > 3:
@@ -165,7 +160,7 @@ def _lam_retry_loop(bp_call, bp0, lam0: Tensor, dlam0: Tensor, can: Tensor,
         lam_f = torch.clamp(lam * dlam_f, min=o.lambdaMin)
         do = cont & ~(lam_f > o.lambdaMax)
         bp1 = bp_call(lam_f)
-        bp = _lane_where(do, bp1, bp)
+        bp = tree_where(do, bp1, bp)
         lam = torch.where(cont, lam_f, lam)
         dlam = torch.where(cont, dlam_f, dlam)
         cont = do & bp1.failed
@@ -207,7 +202,7 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
       layout (:class:`~.problem.LaneParams` with ``batch_params``).
     """
     o = options
-    _check_ported(problem, o)
+    _check_supported(problem, o)
     dtype = _DTYPES[o.dtype]
     device = torch.device(device)
     alphas = tuple(float(a) for a in o.alpha)
@@ -243,7 +238,8 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
         # B1 and B3 count a launch only in a body call where a lane runs
         # (launches.py): a graph replay after the last lane retired
         # counts none
-        runs = _running(c, o.max_iter).any() if backpass != "serial" else None
+        runs = (_running(c, o.max_iter).any()
+                if backpass in ("kernel", "fused") else None)
         if backpass == "fused":
             # B3 re-derives the bundle per attempt (it never exists in
             # memory): a retry re-launches the kernel on unchanged inputs.
@@ -269,9 +265,13 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
                 problem, c.xs, c.us, params, m.mu_le, m.mu_li, m.mu_fe,
                 m.mu_fi, w_pen_l_d, w_pen_f_d, o.full_ddp)
             d_ok = d.ok
-
-            def bp_call(lam):
-                return back_pass(d, c.us, lam, o.regType, o.full_ddp, hyper)
+            if backpass == "parallel":
+                def bp_call(lam):
+                    return parallel_back_pass(d, c.us, lam, o.regType, hyper)
+            else:
+                def bp_call(lam):
+                    return back_pass(d, c.us, lam, o.regType, o.full_ddp,
+                                     hyper)
         return bp_call, bp_call(c.lam), d_ok
 
     def prepare_kernels(params) -> None:
@@ -426,7 +426,7 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
                 problem, xs, us, params, c.mult, c.w_pen_l, c.w_pen_f,
                 o.w_pen_max_l, o.w_pen_max_f, o.w_pen_fact1,
                 o.tolConstraint, init=False)
-            mult = _lane_where(do_mult_update, upd.multipliers, c.mult)
+            mult = tree_where(do_mult_update, upd.multipliers, c.mult)
             w_pen_l = where(do_mult_update, upd.w_pen_l, c.w_pen_l)
             w_pen_f = where(do_mult_update, upd.w_pen_f, c.w_pen_f)
         else:
@@ -529,7 +529,7 @@ def _masked(body_fn, max_iter: int):
     """One body call of the loop: the new carry on the lanes whose loop
     condition held, the old one elsewhere (no host read)."""
     def step(c: _Carry, params) -> _Carry:
-        return _lane_where(_running(c, max_iter), body_fn(c, params), c)
+        return tree_where(_running(c, max_iter), body_fn(c, params), c)
     return step
 
 
@@ -543,7 +543,7 @@ def _masked_steps(body_fn, c: _Carry, params, max_iter: int, n: int,
         run = _running(c, max_iter)
         if not read(run.any()):
             return c, calls
-        c = _lane_where(run, body_fn(c, params), c)
+        c = tree_where(run, body_fn(c, params), c)
     return c, n
 
 
@@ -572,13 +572,27 @@ def make_batched_solver(problem: Problem,
     return solve_fn
 
 
+def make_solver(problem: Problem, options: SolverOptions = SolverOptions(),
+                *, device):
+    """One-instance solver ``(x0 (n_x,), u0 (N, n_u), params) -> Solution``
+    (``jax:solver.py:836-861``): the batched solver at ``B=1``.  ``u0``
+    defines the horizon; ``params`` are the problem's (scalars, fixed
+    arrays and ``[k]``-indexed arrays of length N+1)."""
+    batched = make_batched_solver(problem, options, device=device)
+
+    def solve_fn(x0, u0, params) -> Solution:
+        # arrays go to the solve's device; tensors are checked there
+        x0, u0 = (v[None] if isinstance(v, Tensor) else torch.as_tensor(
+            np.asarray(v), device=device)[None] for v in (x0, u0))
+        return Solution(*(f[0] for f in batched(x0, u0, params)))
+
+    return solve_fn
+
+
 def solve(problem: Problem, x0, u0, params: Any,
           options: SolverOptions = SolverOptions(), *, device) -> Solution:
-    """One instance: the batched solver at ``B=1``."""
-    x0, u0 = (v[None] if isinstance(v, Tensor)
-              else torch.as_tensor(np.asarray(v))[None] for v in (x0, u0))
-    out = make_batched_solver(problem, options, device=device)(x0, u0, params)
-    return Solution(*(f[0] for f in out))
+    """One instance: :func:`make_solver`'s solver, called once."""
+    return make_solver(problem, options, device=device)(x0, u0, params)
 
 
 def _n_lam_steps(o: SolverOptions) -> int:
@@ -606,7 +620,7 @@ class LoopStats(NamedTuple):
 
 def _copy_into(dst, src) -> None:
     """``dst.copy_(src)`` leaf by leaf over a carry-like tree."""
-    _tree_map(lambda d, s: d.copy_(s), dst, src)
+    tree_map(lambda d, s: d.copy_(s), dst, src)
 
 
 def _params_key(p):
@@ -644,7 +658,7 @@ class _WidthBody:
     def __init__(self, step, like: _Carry, params, max_iter: int,
                  graph: bool, pool=None):
         self._step, self._max_iter = step, max_iter
-        self.carry = _tree_map(torch.clone, like)
+        self.carry = tree_map(torch.clone, like)
         self.params = params
         self.active = torch.zeros((), dtype=torch.int64,
                                   device=like.cost.device)
@@ -674,6 +688,54 @@ class _WidthBody:
             self._call()
 
 
+class _LaggedCounts:
+    """The active counts of the static route, read ``depth - 1`` chunks
+    after they are computed (``jax:solver.py:1258-1300``): each is copied
+    out when its chunk of replays is enqueued, and the oldest is read once
+    ``depth`` are pending, so the host queues ``depth - 1`` more chunks
+    before it waits on one.  ``depth=1`` reads each count at once.
+
+    On a CUDA device a copy goes into one of at most ``depth`` pinned host
+    slots (reused once read) with an event; ``w.active`` itself is
+    overwritten by the next replay and is never kept.  On the CPU the copy
+    is a clone."""
+
+    def __init__(self, depth: int):
+        self.depth = depth
+        self._pending: deque = deque()  # (host copy, event or None)
+        self._free: list = []  # pinned slots read and ready for reuse
+
+    def push(self, count: Tensor) -> None:
+        if count.device.type != "cuda":
+            self._pending.append((count.clone(), None))
+            return
+        slot = (self._free.pop() if self._free else
+                torch.empty((), dtype=count.dtype, pin_memory=True))
+        slot.copy_(count, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(count.device))
+        self._pending.append((slot, event))
+
+    def pop(self):
+        """The oldest pending count (its one host read) once ``depth`` are
+        pending, else None."""
+        if len(self._pending) < self.depth:
+            return None
+        slot, event = self._pending.popleft()
+        if event is not None:
+            event.synchronize()
+            self._free.append(slot)
+        return int(slot)
+
+    def clear(self) -> None:
+        """Drop the pending counts (a fresher one is known)."""
+        for slot, event in self._pending:
+            if event is not None:
+                event.synchronize()
+                self._free.append(slot)
+        self._pending.clear()
+
+
 class StepwiseSolver:
     """Host-driven batched solver: chunks of iterations with active-lane
     compaction (``ddp_generator_tpu.solver.StepwiseSolver``).
@@ -696,8 +758,8 @@ class StepwiseSolver:
     :meth:`precompile`.  Graphed: ``backpass_method`` ``"kernel"`` or
     ``"fused"``, ``linesearch_method="kernel"``, shared params, deferred
     lambda retries at that width and ``debug_level < 3``.  Eager on the
-    card, one host read per body call: the serial path (its boxQP loops
-    read the host), widths that retry inline (``lam_retry="inline"`` or
+    card, one host read per body call: the serial and parallel paths (the
+    boxQP loops read the host), widths that retry inline (``lam_retry="inline"`` or
     ``inline_below``), ``batch_params=True`` and the per-iteration trace
     of ``debug_level >= 3``.  On the CPU the graphable configurations run
     the same loop on the static carries with eager body calls.  A capture
@@ -714,11 +776,23 @@ class StepwiseSolver:
     ``batch_params``: every params leaf carries a leading lane axis; each
     compaction gathers the working set's params with the carry's index.
 
+    ``pipeline_depth``: on the static route the active count of a chunk of
+    replays is read ``pipeline_depth - 1`` chunks late (:class:`_LaggedCounts`),
+    so the host's read overlaps the replays queued behind it.  The count
+    only shrinks, so ending and compacting on a late count is conservative:
+    every Solution field equals the synchronous read's (``pipeline_depth=1``,
+    each count read as its chunk ends), at the cost of up to
+    ``pipeline_depth - 1`` chunks of masked replays after the last lane
+    retires (``last_stats`` counts them; no lane changes).  The JAX
+    package's depth ``d`` lags ``d`` chunks; here depth 1 is the
+    synchronous read.  The eager route and ``debug_level >= 1`` read every
+    count at once.
+
     The positional parameters are the JAX package's.  ``donate`` is
     accepted and does nothing: torch has no buffer donation.  ``device``
     (keyword only) is where the solve runs; tensor inputs on another device
-    raise.  ``mesh`` (with ``mesh_axis``) and ``pipeline_depth > 1`` are not
-    ported yet and raise ``NotImplementedError``.
+    raise.  ``mesh`` (with ``mesh_axis``) is not ported yet and raises
+    ``NotImplementedError``.
     """
 
     def __init__(
@@ -737,16 +811,10 @@ class StepwiseSolver:
         *,
         device,
     ):
-        not_ported = [
-            (mesh is not None, "mesh (ROADMAP.md queue A item 9: mesh over "
-             "torch.distributed)"),
-            (pipeline_depth > 1,
-             "pipeline_depth > 1 (ROADMAP.md queue A item 3)"),
-        ]
-        for cond, what in not_ported:
-            if cond:
-                raise NotImplementedError(f"StepwiseSolver: {what} is not "
-                                          "ported yet")
+        if mesh is not None:
+            raise NotImplementedError(
+                "StepwiseSolver: mesh (ROADMAP.md queue A item 9: mesh over "
+                "torch.distributed) is not ported yet")
         self.options = options
         self.chunk = chunk
         self.compact_levels = compact_levels
@@ -771,6 +839,8 @@ class StepwiseSolver:
                            and o.lam_retry == "deferred" and not batch_params
                            and o.debug_level < 3)
         self._widths: dict = {}  # (width, N) -> _WidthBody
+        self._counts = _LaggedCounts(
+            1 if o.debug_level >= 1 else self.pipeline_depth)
         self._p_static = self._p_key = self._pool = None
         self.last_stats: LoopStats | None = None
 
@@ -796,7 +866,7 @@ class StepwiseSolver:
             p = self._static_params(p)
             for size in self._compact_sizes(B):
                 if self._on_static(size):
-                    self._width(size, N, _tree_map(lambda a: a[:size], full),
+                    self._width(size, N, tree_map(lambda a: a[:size], full),
                                 p)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -869,7 +939,7 @@ class StepwiseSolver:
         retired = (full.done | (full.it >= o.max_iter)).to(torch.int32)
         order = torch.sort(retired, stable=True).indices
         new_idx = order[:new_size]
-        return full, _tree_map(lambda a: a[new_idx], full), new_idx
+        return full, tree_map(lambda a: a[new_idx], full), new_idx
 
     def _read(self, t: Tensor):
         """One host read of a device value by the loop (counted)."""
@@ -877,17 +947,23 @@ class StepwiseSolver:
         return t.item()
 
     def _static_chunk(self, w: _WidthBody, n: int):
-        """Up to ``n`` body calls of a static width, reading the active count
-        after every ``chunk`` of them; ``(calls, active)``."""
+        """Up to ``n`` body calls of a static width, queueing the active
+        count after every ``chunk`` of them; ``(calls, active)``, with
+        ``active`` the last count read (``pipeline_depth - 1`` chunks late;
+        None if none was due)."""
         calls, active = 0, None
         while calls < n:
             k = min(self.chunk, n - calls)
             for _ in range(k):
                 w.run()
             calls += k
-            active = self._read(w.active)
-            if active == 0:
-                break
+            self._counts.push(w.active)
+            late = self._counts.pop()
+            if late is not None:
+                self._reads += 1
+                active = late
+                if active == 0:
+                    break
         return calls, active
 
     def __call__(self, x0s, u0s, params) -> Solution:
@@ -903,9 +979,10 @@ class StepwiseSolver:
         self._reads, calls_total, replays = 0, 0, 0
         graphed, eager = [], []
         # Lambda retries do not advance `it`: loop on the active count,
-        # bounded by the body-call cap (see _n_lam_steps).
+        # bounded by the body-call cap (see _n_lam_steps), plus the chunks
+        # a late count lags.
         n_calls = max(1, -(-o.max_iter * (1 + _n_lam_steps(o))
-                           // self.chunk)) + 1
+                           // self.chunk)) + self._counts.depth
         exhausted = True
         for chunk_i in range(n_calls):
             n = self._chunk_len(size, B)
@@ -923,8 +1000,11 @@ class StepwiseSolver:
                 small, calls = _masked_steps(self._body_at(size), small, p,
                                              o.max_iter, n, self._read)
                 active = self._read(_running(small, o.max_iter).sum())
+                self._counts.clear()  # older than this exact count
                 eager.append(size)
             calls_total += calls
+            if active is None:  # no late count due yet
+                continue
             if o.debug_level >= 1:
                 self._print_status(chunk_i, small, active, size, t_start)
             if active == 0:
@@ -941,6 +1021,7 @@ class StepwiseSolver:
                     full, small, idx = self._compact(full, small, idx, size)
                 if self.batch_params:
                     p = p_full.take(idx)
+        self._counts.clear()
         if exhausted and self._read(_running(small, o.max_iter).any()):
             raise RuntimeError(
                 f"StepwiseSolver: lanes still active after {n_calls} chunk "
@@ -950,7 +1031,7 @@ class StepwiseSolver:
         else:
             # the result must not alias a static carry: the next call
             # would overwrite the caller's Solution
-            full = _tree_map(torch.clone, small)
+            full = tree_map(torch.clone, small)
         self.last_stats = LoopStats(
             body_calls=calls_total, replays=replays, host_reads=self._reads,
             graphed=tuple(dict.fromkeys(graphed)),
@@ -980,7 +1061,7 @@ def _scatter(full: _Carry, idx: Tensor, small: _Carry) -> _Carry:
         out = f.clone()
         out[idx] = s
         return out
-    return _tree_map(put, full, small)
+    return tree_map(put, full, small)
 
 
 def make_stepwise_solver(problem: Problem,

@@ -26,7 +26,10 @@ CarParking's from its torch functions and the two user problems of
 Prints one JSON object: operations per step, per lane and, for B2, per
 step of one trajectory, CarParking's under plain names and the others'
 with a prefix (``cartpole_``, ``gen_car_parking_``,
-``double_integrator_``, ``point_mass3_``).
+``double_integrator_``, ``point_mass3_``), and B2's alone on the two
+models of the parallel path (``brachistochrone_``: the hand-written model
+of ``brachistochrone()``, ``point_mass3_free_``: the point mass without
+its input boxes).
 ``tests/test_torch_count_ops.py`` holds the constants of ``chip_smoke.py``
 to this count.
 """
@@ -83,6 +86,7 @@ inline bool is_finite(Op a) { return std::isfinite(a.v); }
 #include "backpass.cuh"
 #include "fused.cuh"
 #include "models/car_parking.cuh"
+#include "models/brachistochrone.cuh"
 #include "models/cartpole.cuh"
 @GENERATED@
 
@@ -107,6 +111,11 @@ template <> struct Case<Cartpole> {
       1.0, 0.3, 0.5, 9.81, 0.02, 1e-4, 1e-3, 1.0, 20.0, 0.1, 0.1,
       -15.0, 15.0};
   static constexpr double x[4] = {0.0, 3.1, 0.0, 0.0};
+};
+template <> struct Case<Brachistochrone> {
+  static constexpr double params[Brachistochrone::NP] = {
+      9.81, -4.0, 0.012566370614359173};
+  static constexpr double x[1] = {-1.0};
 };
 @CASES@
 
@@ -210,10 +219,19 @@ static void print_counts(const char* prefix, const char* sep) {
       rollout_step_ops<M>(), sep);
 }
 
+// B2's count alone, for a model that only the parallel path's line search
+// runs on.
+template <class M>
+static void print_rollout(const char* prefix, const char* sep) {
+  std::printf("\"%srollout_per_step\": %ld%s", prefix, rollout_step_ops<M>(),
+              sep);
+}
+
 int main() {
   std::printf("{");
   print_counts<CarParking>("", ", ");
   print_counts<Cartpole>("cartpole_", ", ");
+  print_rollout<Brachistochrone>("brachistochrone_", ", ");
 @PRINTS@
   return 0;
 }
@@ -221,10 +239,11 @@ int main() {
 
 
 def _generated():
-    """``[(label, model, params, nominal x)]``: the models ``chip_smoke.py``
-    generates, CarParking's from its torch functions (the hand-written
-    model stripped) and the two user problems (B1 at their shapes comes
-    with them)."""
+    """``[(label, model, params, nominal x, rollout only)]``: the models
+    ``chip_smoke.py`` generates, CarParking's from its torch functions (the
+    hand-written model stripped), the two user problems (B1 at their shapes
+    comes with them) and the point mass without its input boxes (B2 only:
+    the parallel path's)."""
     import dataclasses
     import importlib.util
 
@@ -241,11 +260,16 @@ def _generated():
     spec.loader.exec_module(smoke)
     car = dataclasses.replace(car_parking.car_parking(), cuda_model=None)
     cases = [("gen_car_parking", car, car_parking.default_params(),
-              [1.0, 1.0, 4.7, 1.0])]
-    for label, (prob, p, _, _) in smoke.user_problems().items():
-        cases.append((label, prob, p, list(np.linspace(0.1, 0.6, prob.n_x))))
-    return [(label, codegen.generate_cuda_model(prob, p), p, x)
-            for label, prob, p, x in cases]
+              [1.0, 1.0, 4.7, 1.0], False)]
+    smoke.USER_PROBLEMS = smoke.user_problems()
+    for label, (prob, p, _, _) in smoke.USER_PROBLEMS.items():
+        cases.append((label, prob, p, list(np.linspace(0.1, 0.6, prob.n_x)),
+                      False))
+    cases.append(("point_mass3_free", smoke.free_point_mass(),
+                  smoke.USER_PROBLEMS["point_mass3"][1],
+                  list(np.linspace(0.1, 0.6, 6)), True))
+    return [(label, codegen.generate_cuda_model(prob, p), p, x, only)
+            for label, prob, p, x, only in cases]
 
 
 def _shim(generated) -> tuple[str, dict]:
@@ -256,7 +280,7 @@ def _shim(generated) -> tuple[str, dict]:
     from ddp_generator_tpu_torch import params_from_jax
 
     files, includes, cases, prints = {}, [], [], []
-    for i, (label, gm, p, x) in enumerate(generated):
+    for i, (label, gm, p, x, rollout_only) in enumerate(generated):
         files[f"{gm.struct}.cuh"] = gm.header
         includes.append(f'#include "{gm.struct}.cuh"')
         flat = gm.flat_params(params_from_jax(p, torch.float64, "cpu"),
@@ -268,7 +292,8 @@ def _shim(generated) -> tuple[str, dict]:
             f"  static constexpr double x[{len(x)}] = "
             f"{{{', '.join(repr(float(v)) for v in x)}}};\n}};")
         sep = '"}\\n"' if i == len(generated) - 1 else '", "'
-        prints.append(f'  print_counts<{gm.struct}>("{label}_", {sep});')
+        what = "print_rollout" if rollout_only else "print_counts"
+        prints.append(f'  {what}<{gm.struct}>("{label}_", {sep});')
     src = (SHIM.replace("@GENERATED@", "\n".join(includes))
            .replace("@CASES@", "\n".join(cases))
            .replace("@PRINTS@", "\n".join(prints)))

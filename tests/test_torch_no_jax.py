@@ -44,7 +44,15 @@ def test_importing_the_port_loads_no_jax():
             "ddp_generator_tpu_torch.models.brachistochrone, "
             "ddp_generator_tpu_torch.ops.cm_derivs, "
             "ddp_generator_tpu_torch.ops.cuda_fused, "
-            "ddp_generator_tpu_torch.codegen; "
+            "ddp_generator_tpu_torch.codegen, "
+            "ddp_generator_tpu_torch.ops.parallel_riccati, "
+            "ddp_generator_tpu_torch.debugging, "
+            "ddp_generator_tpu_torch.inspect_api, "
+            "ddp_generator_tpu_torch.outputs, "
+            "ddp_generator_tpu_torch.native, "
+            "ddp_generator_tpu_torch.utils.debug, "
+            "ddp_generator_tpu_torch.utils.timing, "
+            "ddp_generator_tpu_torch.utils.tree; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ddp_generator_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -106,8 +106,11 @@ def test_invalid_options_raise(bad):
     dict(backpass_method="parallel", linesearch_method="kernel"),
 ])
 def test_unported_paths_validate_then_raise(kw):
-    opts = td.SolverOptions(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``parallel`` on CarParking (box constraints) raises ValueError
+    naming ``parallel``, as JAX's
+    ``test_parallel_rejected_for_constrained_problems``."""
+    opts = td.SolverOptions(full_ddp=False, **kw)
+    with pytest.raises(ValueError, match="parallel"):
         td.StepwiseSolver(tcar.car_parking(), opts, device="cpu")
 
 
@@ -153,11 +156,16 @@ def test_fused_path_is_ported_and_ignores_the_emitter():
     dict(mesh=object()),
 ])
 def test_unported_stepwise_levers_raise(kw):
+    """``pipeline_depth > 1`` constructs and stores its depth; ``mesh`` is
+    not ported and raises."""
     opts = td.SolverOptions(backpass_method="kernel",
                             linesearch_method="kernel")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        td.StepwiseSolver(tcar.car_parking(), opts, device="cpu",
-                          **kw)
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            td.StepwiseSolver(tcar.car_parking(), opts, device="cpu", **kw)
+        return
+    s = td.StepwiseSolver(tcar.car_parking(), opts, device="cpu", **kw)
+    assert s.pipeline_depth == kw["pipeline_depth"]
 
 
 def test_status_codes_and_solution_fields_match():
