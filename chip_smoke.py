@@ -53,7 +53,22 @@ full width:
   2,000, 8,000) timed against B1;
 * the auxiliary API on the card (phase 14: ``backpass_trace``, the
   inspector, a carry checkpointed and resumed) and the main path's
-  CarParking solve in float64 on the kernel and fused paths (phase 15).
+  CarParking solve in float64 on the kernel and fused paths (phase 15);
+* emission history (phase 0, first): each emitter's bundle of the
+  Brachistochrone and of CarParking (B=2048, T/n=500, float32 and
+  float64) emitted, then the other problem's, then again, bit for bit,
+  with its device kernels and ms before and after;
+* the batch mesh (phase 16): the main path's and the fused path's solves
+  as two ranks sharing the card (``torch.multiprocessing``, ``gloo``,
+  ``StepwiseSolver(mesh=make_mesh())``, 1,024 lanes a rank), every
+  Solution field of the reassembled rows bit for bit against the
+  single-process solves, one ``int64`` all-reduce per chunk and no other
+  collective, the global BatchStats; then testBrachi (n=500, B=2048,
+  float64, cut to max_iter 15) through ``make_sharded_solver`` against
+  ``make_batched_solver`` lane by lane;
+* AOT (phase 17): both paths' configurations (B=2048, T=500, float32,
+  cut to max_iter 20) exported, restored in a process that imports no
+  problem module and solved, bit for bit against the direct solve.
 
 The Cartpole instantiations of B1 (4, 1), B2 and B3 are held against their
 plain versions like CarParking's, and small float64 solves of the serial
@@ -974,16 +989,16 @@ def graphs_phase(problem):
 def emitter_launches(problem):
     """Phase 6c: derivative emission at the main path's first body call
     (B=2048, T=500, float32) with each ``derivs_emitter``: device kernels
-    per emission (``torch.profiler``), its wall (host clock between two
-    synchronizes, after a warm-up call), and the largest gap between the
-    two bundles relative to each component's largest value."""
+    and their device ms per emission (``torch.profiler``), its wall (host
+    clock between two synchronizes, after a warm-up call), and the largest
+    gap between the two bundles relative to each component's largest
+    value."""
     import torch
 
     from ddp_generator_tpu_torch.ops.cm_derivs import cm_emit
 
     p, r, m, w = nominal_bundle(problem, B_MAIN, T_MAIN, torch.float32,
                                 "cuda")[:4]
-    acts = [torch.profiler.ProfilerActivity.CUDA]
     out, bundles = {}, {}
     for shared in (False, True):
 
@@ -997,13 +1012,10 @@ def emitter_launches(problem):
         bundles[shared] = emit()
         torch.cuda.synchronize()
         wall = time.time() - t0
-        with torch.profiler.profile(activities=acts) as prof:
-            emit()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type.name == "CUDA"]
+        _, events, device_ms = profiled(emit)
         name = "shared" if shared else "per_family"
-        out[f"{name}_device_events"] = len(kernels)
+        out[f"{name}_device_events"] = events
+        out[f"{name}_device_ms"] = device_ms
         out[f"{name}_ms"] = 1e3 * wall
     worst = 0.0
     for key, a in bundles[True][0].items():
@@ -1417,6 +1429,94 @@ def user_solves(name):
             mean_body_calls=float(s.body_calls.mean()),
             first16_cost_rel_err=cost_rel, cpu16_s=round(cpu_s, 2),
             mean_cost=float(s.cost.mean()), launches=launches)
+    return out
+
+
+def history_emitter(name: str, dtype):
+    """``emit(shared)``: the bundle (every component, the final-stage
+    derivatives and ``ok``) of the initial rollout of CarParking (bench's
+    inputs, B=2048, T=500) or of the Brachistochrone (``testBrachi.m``,
+    ``brachi_plain_inputs(2048, 500, 11)``), FULL_DDP, on the card."""
+    import torch
+
+    import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch.models import brachistochrone, car_parking
+    from ddp_generator_tpu_torch.ops.cm_derivs import cm_emit
+    from ddp_generator_tpu_torch.ops.forward import forward_pass
+
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    if name == "brachistochrone":
+        problem = brachistochrone.brachistochrone()
+        p_np, x0s, u0s = brachi_plain_inputs(B_MAIN, N_BRACHI, 11)
+    else:
+        problem = car_parking.car_parking()
+        p_np, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np_dtype)
+    p = ddp.params_from_jax({k: np.asarray(v, np_dtype)
+                             for k, v in p_np.items()}, dtype, "cuda")
+    B, T = u0s.shape[0], u0s.shape[1]
+    x0 = torch.as_tensor(x0s.astype(np_dtype), device="cuda")
+    u0 = torch.as_tensor(u0s.astype(np_dtype), device="cuda")
+    m = ddp.init_multipliers(problem, B, T, dtype, "cuda")
+    w = torch.ones(B, dtype=dtype, device="cuda")
+    r = forward_pass(problem, x0, None, u0, None, None, 0.0, p, m.mu_le,
+                     m.mu_li, m.mu_fe, m.mu_fi, w, w)
+
+    def emit(shared: bool) -> dict:
+        sd, fcx, fcxx, _, ok = cm_emit(problem, r.xs, r.us, m.mu_le,
+                                       m.mu_li, m.mu_fe, m.mu_fi, w, w, p,
+                                       True, shared)
+        return dict(sd, final_cx=fcx, final_cxx=fcxx, ok=ok)
+    return emit
+
+
+def profiled(fn):
+    """``fn()`` under ``torch.profiler``: ``(result, device kernels, their
+    device ms)``."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    return out, len(dev), sum(e.device_time_total for e in dev) / 1e3
+
+
+def emission_history(strict: bool = True) -> dict:
+    """Phase 0: emission must not depend on what the process did before.
+    For each dtype, each problem's bundle is emitted, then the other
+    problem's, then the first again, with each ``derivs_emitter``; every
+    component of the two emissions must be equal bit for bit.  Also the
+    device kernels and ms of the first and the repeated emission.
+    ``strict=False`` reports a difference instead of failing (to show
+    the fault on an older tree)."""
+    import torch
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        key = str(dtype).replace("torch.", "")
+        emitters = {n: history_emitter(n, dtype)
+                    for n in ("brachistochrone", "car_parking")}
+        for target, other in (("brachistochrone", "car_parking"),
+                              ("car_parking", "brachistochrone")):
+            for shared in (False, True):
+                name = "shared" if shared else "per_family"
+                first, ev0, ms0 = profiled(
+                    lambda: emitters[target](shared))
+                emitters[other](shared)
+                again, ev1, ms1 = profiled(lambda: emitters[target](shared))
+                differ = [k for k, v in first.items()
+                          if not torch.equal(v, again[k])]
+                if differ and strict:
+                    fail(f"emission history: {target} {key} {name}: "
+                         f"{differ} changed after a {other} emission")
+                out[f"{target}_{key}_{name}"] = dict(
+                    bit_equal=not differ, differing=",".join(differ) or "-",
+                    components=len(first), device_events=ev0,
+                    device_ms=round(ms0, 3), device_events_after=ev1,
+                    device_ms_after=round(ms1, 3))
+        del emitters
     return out
 
 
@@ -1872,6 +1972,328 @@ def aux_api(problem):
 
 
 
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 420
+BRACHI_MESH_ITER = 15
+
+
+def mesh_brachi_options():
+    """testBrachi.m's options on the kernel path, cut to max_iter 15."""
+    import ddp_generator_tpu_torch as ddp
+
+    return ddp.SolverOptions(max_iter=BRACHI_MESH_ITER, w_pen_init_f=40.0,
+                             w_pen_fact2=2.0, full_ddp=False, debug_level=0,
+                             backpass_method="kernel",
+                             linesearch_method="kernel")
+
+
+def mesh_rank(rank: int, port: int, out_dir: str) -> None:
+    """One rank of phase 16 (spawned): joins a ``gloo`` world of
+    ``MESH_RANKS`` through ``multihost_initialize``, makes the mesh and
+    solves the main path's global batch with ``StepwiseSolver(mesh=m)`` on
+    the kernel and the fused path (precompiled, every all-reduce
+    recorded), then testBrachi's batch with ``make_sharded_solver``.
+    Writes its rows, walls, launches and loop stats to
+    ``out_dir/rank<r>.npz``."""
+    import torch
+    import torch.distributed as dist
+
+    import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch import _build
+    from ddp_generator_tpu_torch.launches import read_launches, reset_launches
+    from ddp_generator_tpu_torch.models import brachistochrone, car_parking
+    from ddp_generator_tpu_torch.parallel import mesh as pmesh
+
+    torch.cuda.set_device(0)
+    pmesh.multihost_initialize(coordinator_address=f"127.0.0.1:{port}",
+                               num_processes=MESH_RANKS, process_id=rank)
+    mesh = pmesh.make_mesh()
+    _build.load_library()
+    calls = []
+    reduce = dist.all_reduce
+    others = ("broadcast", "all_gather", "all_gather_into_tensor",
+              "reduce_scatter_tensor", "all_to_all_single", "barrier")
+
+    def counted(t, *a, **kw):
+        calls.append((t.numel(), str(t.dtype)))
+        return reduce(t, *a, **kw)
+
+    out = {}
+    problem = car_parking.car_parking()
+    p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float32)
+    for backpass in ("kernel", "fused"):
+        solver = ddp.StepwiseSolver(problem, main_options(backpass),
+                                    chunk=10, compact_levels=4,
+                                    min_compact_batch=128, mesh=mesh,
+                                    device="cuda")
+        out[f"{backpass}_precompile_s"] = solver.precompile(x0s, u0s, p)
+        dist.barrier(group=pmesh.host_group(mesh))
+        reset_launches()
+        del calls[:]
+        dist.all_reduce = counted
+        forbidden = {n: getattr(dist, n) for n in others}
+        for n in others:
+            setattr(dist, n, lambda *a, _n=n, **kw: calls.append((-1, _n)))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sol = solver(x0s, u0s, p)
+        torch.cuda.synchronize()
+        out[f"{backpass}_wall_s"] = time.time() - t0
+        dist.all_reduce = reduce
+        for n, fn in forbidden.items():
+            setattr(dist, n, fn)
+        st = solver.last_stats
+        out[f"{backpass}_collectives"] = np.asarray(
+            [f"{k}:{d}" for k, d in calls])
+        out[f"{backpass}_chunks"] = st.chunks
+        out[f"{backpass}_allreduces"] = st.allreduces
+        out[f"{backpass}_global_counts"] = np.asarray(st.global_counts)
+        out[f"{backpass}_graphed"] = np.asarray(st.graphed)
+        out[f"{backpass}_eager"] = np.asarray(st.eager)
+        for k, v in read_launches().items():
+            out[f"{backpass}_launches_{k}"] = v
+        stats = pmesh.batch_stats(sol, mesh)
+        for k, v in stats._asdict().items():
+            out[f"{backpass}_stats_{k}"] = float(v)
+        for k, v in ddp.to_numpy(sol)._asdict().items():
+            out[f"{backpass}_sol_{k}"] = v
+        del solver, sol
+        torch.cuda.empty_cache()
+    bp, bx0s, bu0s = brachi_plain_inputs(B_MAIN, N_BRACHI, 11)
+    sharded = pmesh.make_sharded_solver(
+        brachistochrone.brachistochrone(), mesh_brachi_options(), mesh=mesh,
+        device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sol, stats = sharded(bx0s, bu0s, bp)
+    torch.cuda.synchronize()
+    out["brachi_wall_s"] = time.time() - t0
+    for k, v in ddp.to_numpy(sol)._asdict().items():
+        out[f"brachi_sol_{k}"] = v
+    for k, v in stats._asdict().items():
+        out[f"brachi_stats_{k}"] = float(v)
+    start, stop = pmesh.shard_range(mesh, B_MAIN)
+    np.savez(f"{out_dir}/rank{rank}.npz", start=start, stop=stop, **out)
+    dist.destroy_process_group()
+
+
+def _global_rows(ranks, key):
+    parts = sorted(ranks, key=lambda r: int(r["start"]))
+    return np.concatenate([r[key] for r in parts])
+
+
+def mesh_phase(problem, refs) -> dict:
+    """Phase 16: the main path as ``MESH_RANKS`` ranks sharing the card
+    (``torch.multiprocessing``, ``gloo`` for the count), on the kernel
+    path (emission + B1, B2) and the fused path (B3, B2), every Solution
+    field of the reassembled rows bit for bit against the single-process
+    solve (``refs[path] = (solution, stats)``), exactly one ``int64``
+    scalar all-reduce per chunk and no other collective, the same global
+    count on every rank, the mesh's BatchStats against the single-process
+    Solution's; then testBrachi (n=500, B=2048, float64, max_iter 15)
+    through ``make_sharded_solver`` against ``make_batched_solver`` lane
+    by lane (counts exact, cost 1e-10)."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch.models import brachistochrone
+    from ddp_generator_tpu_torch.parallel import mesh as pmesh
+
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        ctx = mp.start_processes(mesh_rank, args=(port, tmp),
+                                 nprocs=MESH_RANKS, join=False,
+                                 start_method="spawn")
+        deadline = time.time() + MESH_TIMEOUT_S
+        while not ctx.join(timeout=max(1.0, deadline - time.time())):
+            if time.time() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                fail(f"mesh: the ranks did not finish in {MESH_TIMEOUT_S} s")
+        ranks_s = time.time() - t0
+        ranks = [dict(np.load(f"{tmp}/rank{r}.npz"))
+                 for r in range(MESH_RANKS)]
+    for path, (ref, ref_stats) in refs.items():
+        what = f"mesh {path} path"
+        fields = 0
+        for f in ref._fields:
+            a, b = _global_rows(ranks, f"{path}_sol_{f}"), getattr(ref, f)
+            if a.shape != b.shape or not np.array_equal(
+                    a, b, equal_nan=a.dtype.kind == "f"):
+                fail(f"{what}: Solution.{f} differs from the single-process "
+                     f"solve in {int((a != b).sum())} entries")
+            fields += 1
+        counts = [r[f"{path}_global_counts"].tolist() for r in ranks]
+        if any(c != counts[0] for c in counts) or counts[0][-1] != 0:
+            fail(f"{what}: global counts differ across ranks: {counts}")
+        for r in ranks:
+            calls = r[f"{path}_collectives"].tolist()
+            n = int(r[f"{path}_chunks"])
+            if calls != ["1:torch.int64"] * n or int(
+                    r[f"{path}_allreduces"]) != n:
+                fail(f"{what}: {n} chunks, collectives {calls[:5]}...")
+            if r[f"{path}_eager"].size:
+                fail(f"{what}: widths {r[f'{path}_eager']} ran eagerly")
+            used = ("backpass" if path == "kernel" else "fused",
+                    "rollout_multi", "rollout_selected")
+            for k in used:
+                if int(r[f"{path}_launches_{k}"]) <= 0:
+                    fail(f"{what}: rank {int(r['start']) // (B_MAIN // 2)} "
+                         f"never launched {k}")
+        want = pmesh.batch_stats(types.SimpleNamespace(**{
+            f: torch.as_tensor(getattr(ref, f)) for f in ref._fields}))
+        stats_ok = stats_equal(what, ranks, f"{path}_stats_", want)
+        out[path] = dict(
+            fields_equal=fields, chunks=int(ranks[0][f"{path}_chunks"]),
+            allreduces_per_rank=[int(r[f"{path}_allreduces"])
+                                 for r in ranks],
+            wall_s=max(float(r[f"{path}_wall_s"]) for r in ranks),
+            single_process_wall_s=ref_stats["wall_s"],
+            precompile_s=max(float(r[f"{path}_precompile_s"])
+                             for r in ranks),
+            rank_widths=["/".join(map(str, r[f"{path}_graphed"].tolist()))
+                         for r in ranks],
+            stats_equal=stats_ok,
+            **{f"rank{i}_launches_{k}": int(r[f"{path}_launches_{k}"])
+               for i, r in enumerate(sorted(ranks,
+                                            key=lambda r: int(r["start"])))
+               for k in ("backpass", "fused", "rollout_multi",
+                         "rollout_selected")})
+    # testBrachi through make_sharded_solver against make_batched_solver
+    bp, bx0s, bu0s = brachi_plain_inputs(B_MAIN, N_BRACHI, 11)
+    t0 = time.time()
+    ref = ddp.make_batched_solver(brachistochrone.brachistochrone(),
+                                  mesh_brachi_options(), device="cuda")(
+        bx0s, bu0s, bp)
+    torch.cuda.synchronize()
+    single_wall = time.time() - t0
+    r_np = ddp.to_numpy(ref)
+    for f in ("iterations", "status", "success", "body_calls",
+              "stale_calls", "bp_retry_calls"):
+        a, b = _global_rows(ranks, f"brachi_sol_{f}"), getattr(r_np, f)
+        if not np.array_equal(a, b):
+            fail(f"mesh brachi: {f} differs in {int((a != b).sum())} lanes")
+    cost = _global_rows(ranks, "brachi_sol_cost")
+    rel = float(np.max(np.abs(cost - r_np.cost) / np.abs(r_np.cost)))
+    if not rel <= 1e-10:
+        fail(f"mesh brachi: cost differs by {rel:.3g} relative")
+    stats_ok = stats_equal("mesh brachi", ranks, "brachi_stats_",
+                           pmesh.batch_stats(ref))
+    out["brachi"] = dict(
+        B=B_MAIN, n=N_BRACHI, max_iter=BRACHI_MESH_ITER, cost_max_rel=rel,
+        wall_s=max(float(r["brachi_wall_s"]) for r in ranks),
+        single_process_wall_s=single_wall, stats_equal=stats_ok,
+        solved_pct=100 * float(np.isin(r_np.status, (1, 2)).mean()),
+        ranks_s=ranks_s)
+    return out
+
+
+AOT_MAX_ITER = 20
+# Restores an artifact in a fresh process that imports only the port's aot
+# (no problem module, no JAX), solves once on the card, saves the Solution
+# and prints the load and solve seconds and the launches as one JSON line.
+AOT_LOADER = """
+import json, sys, time
+import numpy as np
+sys.path.insert(0, {root!r})
+import torch
+from ddp_generator_tpu_torch import aot, to_numpy
+from ddp_generator_tpu_torch.launches import read_launches, reset_launches
+d = np.load({inputs!r}, allow_pickle=True)
+t0 = time.time()
+solver = aot.load_solver_file({path!r}, device="cuda")
+load_s = time.time() - t0
+reset_launches()
+torch.cuda.synchronize()
+t0 = time.time()
+sol = solver(d["x0s"], d["u0s"], d["params"].item())
+torch.cuda.synchronize()
+solve_s = time.time() - t0
+np.savez({out!r}, **{{k: v for k, v in to_numpy(sol)._asdict().items()}})
+bad = sorted(m for m in sys.modules if m.startswith(
+    ("ddp_generator_tpu_torch.models", "jax", "ddp_generator_tpu.")))
+assert not bad, bad
+print(json.dumps(dict(load_s=load_s, solve_s=solve_s,
+                      launches=read_launches())))
+"""
+
+
+def aot_phase(problem) -> dict:
+    """Phase 17: the main path's configuration (CarParking, kernel path,
+    float32, fixed batch 2048, T=500) and the fused one, cut to max_iter
+    20 (``make_batched_solver`` is eager on the card), exported with
+    ``aot.export_solver``, restored and solved in a subprocess that
+    imports no problem module, every Solution field and launch count
+    against the direct ``make_batched_solver`` solve bit for bit."""
+    import tempfile
+    from pathlib import Path
+
+    import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch import aot
+
+    p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float32)
+    out = {}
+    for backpass in ("kernel", "fused"):
+        what = f"aot {backpass} path"
+        o = main_options(backpass).replace(max_iter=AOT_MAX_ITER)
+        t0 = time.time()
+        blob = aot.export_solver(problem, o, horizon=T_MAIN, params=p,
+                                 batch=B_MAIN)
+        export_s = time.time() - t0
+        with tempfile.TemporaryDirectory() as tmp:
+            files = {n: f"{tmp}/{n}" for n in ("a.ddpexe", "in.npz",
+                                                "out.npz")}
+            Path(files["a.ddpexe"]).write_bytes(blob)
+            np.savez(files["in.npz"], x0s=x0s, u0s=u0s,
+                     params=np.array(dict(p), dtype=object))
+            code = AOT_LOADER.format(
+                root=str(Path(__file__).resolve().parent),
+                inputs=files["in.npz"], path=files["a.ddpexe"],
+                out=files["out.npz"])
+            t0 = time.time()
+            r = subprocess.run([sys.executable, "-c", code],
+                               capture_output=True, text=True, timeout=400)
+            process_s = time.time() - t0
+            if r.returncode != 0:
+                fail(f"{what}: the restoring process failed:\n"
+                     f"{r.stderr[-3000:]}")
+            info = json.loads(r.stdout.strip().splitlines()[-1])
+            got = dict(np.load(files["out.npz"]))
+        direct = ddp.make_batched_solver(problem, o, device="cuda")
+        want, wall, launches = timed_solve(direct, x0s, u0s, p)
+        got = type(want)(**got)
+        n = same_solution(what, got, want, info["launches"], launches,
+                          ref="direct solve's")
+        out[backpass] = dict(
+            B=B_MAIN, T=T_MAIN, max_iter=AOT_MAX_ITER, dtype="float32",
+            artifact_bytes=len(blob), export_s=export_s,
+            load_s=info["load_s"], first_solve_s=info["solve_s"],
+            process_s=process_s, direct_solve_s=wall, fields_equal=n,
+            **{f"launches_{k}": v for k, v in launches.items()})
+    return out
+
+
+def stats_equal(what, ranks, prefix, want) -> bool:
+    """Fail unless every rank's BatchStats equal ``want`` (counts exactly,
+    the rest to 1e-6 relative)."""
+    for r in ranks:
+        for k, v in want._asdict().items():
+            got, ref = float(r[f"{prefix}{k}"]), float(v)
+            exact = k in ("n_success", "n_instances")
+            if (got != ref) if exact else abs(got - ref) > 1e-6 * abs(ref):
+                fail(f"{what}: BatchStats.{k} {got} != {ref}")
+    return True
+
+
 def main() -> int:
     try:
         import torch
@@ -1925,6 +2347,10 @@ def main() -> int:
     if built["spill_store_bytes"]:
         fail(f"the kernels spill {built['spill_store_bytes']} bytes of "
              "registers (ptxas.txt beside the library)")
+
+    # 0. emission does not depend on what the process emitted before
+    for case, d in emission_history().items():
+        line("emission_history", case=case, **d)
 
     problem = car_parking.car_parking()
     alphas = tuple(ddp.SolverOptions().alpha)
@@ -2061,6 +2487,19 @@ def main() -> int:
     f32_counts = {k: types.SimpleNamespace(status=v.status,
                                            iterations=v.iterations)
                   for k, v in (("kernel", main_sol), ("fused", fused_sol))}
+
+    # 16. the main path as two ranks sharing the card (the batch mesh over
+    # torch.distributed), both paths, against the single-process solves;
+    # testBrachi through make_sharded_solver
+    for path, d in mesh_phase(problem, {"kernel": (main_sol, stats),
+                                        "fused": (fused_sol, fstats)}
+                              ).items():
+        line("mesh", path=path, **d)
+
+    # 17. the main path's and the fused path's configurations exported,
+    # restored in a process without the problem's module, and solved
+    for path, d in aot_phase(problem).items():
+        line("aot", path=path, **d)
 
     # 8. brachistochrone_hli at full width: B3, B2 with the AL families
     bstats, brachi_sol = brachi_path(brachistochrone.brachistochrone_hli())

@@ -13,8 +13,11 @@ The default options run the serial path, eager PyTorch on either device
 of ``ops/parallel_riccati.py`` for unconstrained problems.  Around the
 solver: ``debugging`` (per-step backward-pass traces), ``inspect`` (the
 MMex-style derivative table), ``calc_g`` (user outputs), ``native`` (the
-checkpoint engine) and ``utils``.  Models: ``models.car_parking``,
-``models.brachistochrone`` and ``models.cartpole``.
+checkpoint engine), ``utils``, ``parallel.mesh`` (the batch sharded over
+``torch.distributed`` ranks) and ``aot`` (a solver exported to one
+artifact and loaded without the problem's module).  Models:
+``models.car_parking``, ``models.brachistochrone`` and
+``models.cartpole`` (loaded at first use).
 
 Quick start::
 
@@ -30,12 +33,11 @@ Quick start::
     sol = solver(np.tile(x0, (B, 1)), u0s, p)    # u0s: (B, T, 2)
 """
 
-from . import debugging
+from . import aot, debugging, parallel
 from .al import Multipliers, init_multipliers, update_multipliers
 from .convert import params_from_jax, to_numpy, to_torch
 from .derivs import DerivBundle, batched_calc_derivs, calc_derivs
 from .inspect_api import ProblemInspector, inspect
-from .models import brachistochrone, car_parking, cartpole
 from .ops.backpass import BackPassResult, back_pass
 from .ops.boxqp import (
     BoxQPHyper,
@@ -80,6 +82,19 @@ from .solver import (
 
 __version__ = "0.1.0"
 
+# The example problems load on first use, so that a process restoring an
+# AOT artifact (aot.load_solver) never imports them.
+_MODELS = ("brachistochrone", "car_parking", "cartpole")
+
+
+def __getattr__(name: str):
+    if name in _MODELS:
+        import importlib
+
+        return importlib.import_module(f".models.{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "BackPassResult",
     "BoxConstraint",
@@ -107,6 +122,7 @@ __all__ = [
     "Solution",
     "SolverOptions",
     "StepwiseSolver",
+    "aot",
     "back_pass",
     "batched_calc_derivs",
     "boxqp",
@@ -133,6 +149,7 @@ __all__ = [
     "mod_chol",
     "mod_chol_perturb",
     "options_from_dict",
+    "parallel",
     "params_from_jax",
     "solve",
     "to_numpy",

@@ -940,6 +940,9 @@ def kernel_model(problem: Problem, params: Any, hand_written: tuple):
     from . import _build
 
     model = problem.cuda_model
+    if isinstance(model, GeneratedModel):  # restored with an AOT artifact
+        _BY_NAME.setdefault(model.name, model)
+        return model, model.library()
     if model is None:
         gm = model_for(problem, params)
         return gm, gm.library()

@@ -8,9 +8,9 @@ Final stage: ``cx``, ``cxx`` of the AL-augmented final cost.
 
 :func:`batched_calc_derivs` gives the bundle of a batch, step-major with a
 leading lane axis, as the serial backward pass (``ops/backpass.py``) reads
-it: it unpacks the emission of ``ops/cm_derivs.py`` (reverse mode on the
-whole ``(comp, N, B)`` plane, a sixth of the host time of ``torch.func``'s
-``vmap`` of ``jacfwd`` per step).  :func:`calc_derivs` is its one-instance
+it: it unpacks the emission of ``ops/cm_derivs.py`` (autograd on the
+whole ``(comp, N, B)`` plane, the second order forward-over-reverse), so
+the serial and parallel routes share its rounding.  :func:`calc_derivs` is its one-instance
 case.
 """
 

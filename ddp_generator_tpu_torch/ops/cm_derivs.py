@@ -8,23 +8,32 @@ neighbouring threads read neighbouring addresses.  Symmetric components
 row-major upper triangles: 159 components per step for CarParking with
 FULL_DDP, which the kernel reads beside the 2 of ``us``.
 
-The derivatives come from reverse-mode ``torch.autograd.grad`` on the
-whole ``(comp, N, B)`` plane at once: the user functions are component-
-first and act on each lane separately (see ``problem.py``), so the gradient
-of a lane-sum is every lane's own gradient.  First-order columns keep their
-graph, and each is differentiated once more for the second-order family:
-the bundle is emitted family by family, never as one Jacobian tower.  This
-ports ``ddp_generator_tpu.ops.pallas_fused.step_derivative_components`` and
-``final_derivative_components`` (plain XLA math in the JAX package too;
-reverse mode here because ``torch.func``'s nested forward mode costs ~8x
-more host time per call).  This is torch code, not a hand kernel.  Unlike
-the JAX version there is no 128-lane padding.
+The derivatives come from ``torch.autograd`` on the whole ``(comp, N, B)``
+plane at once: the user functions are component-first and act on each
+lane separately (see ``problem.py``), so the gradient of a lane-sum is
+every lane's own gradient.  First-order columns are reverse mode;
+second-order columns are forward-over-reverse, JAX's own mode
+(``jacfwd(grad(...))``): the lane axis is replicated once per direction
+(``n_x + n_u`` copies, :func:`_replicate`), copy ``b`` carries the tangent
+of direction ``b`` (a ``forward_ad`` dual), and ONE reverse pass through
+the primal graph gives every column of the first order (the primal of
+copy 0) and of the second (the tangent of copy ``b`` is ``d col / d
+dir_b``).  No accumulation order then depends on autograd's sequence
+numbers across passes: reverse-over-reverse differentiated the first
+backward's nodes, which on CUDA are numbered by the autograd device
+thread's counter while the forward's are numbered by the main thread's,
+so the order in which the second pass summed its gradients (and their
+rounding) moved with what each thread had done before in the process.
+This ports ``ddp_generator_tpu.ops.pallas_fused.step_derivative_components``
+and ``final_derivative_components`` (plain XLA math in the JAX package
+too).  This is torch code, not a hand kernel.  Unlike the JAX version
+there is no 128-lane padding.
 
 ``derivs_emitter="shared"`` takes :func:`step_derivative_components_shared`
 instead (JAX's ``step_derivative_components_shared``): one primal trace of
-``(f, L)`` and every column of an order in one batched autograd call.
-Both emitters give the same bundle to rounding; which is faster is a
-question of scheduling (PERF.md records the launches of each).
+``(f, L)`` and every column in one batched reverse call.  Both emitters
+give the same bundle to rounding; which is faster is a question of
+scheduling (PERF.md records the launches of each).
 """
 
 from __future__ import annotations
@@ -32,9 +41,10 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ..al import _eq_penalty, _ineq_penalty
-from ..problem import Problem, step_index
+from ..problem import LaneParams, Problem, step_index
 from .cuda_backpass import BackPassResult, back_pass_cm, result_from_cm
 
 Tensor = torch.Tensor
@@ -55,6 +65,73 @@ def _columns(y: Tensor, xx: Tensor, uu: Tensor, create_graph: bool):
     """``[dy/dx_0, ..., dy/dx_{n_x-1}, dy/du_0, ...]`` as ``(N, B)`` planes."""
     gx, gu = _lane_grads(y, (xx, uu), create_graph)
     return list(gx) + list(gu)
+
+
+def _replicate(t: Tensor, D: int) -> Tensor:
+    """``(..., B) -> (..., D*B)``: ``D`` copies of the lane axis, copy-major
+    (copy ``d`` is lanes ``[d*B, (d+1)*B)``)."""
+    return t.repeat((1,) * (t.dim() - 1) + (D,))
+
+
+def _replicate_params(p, B: int, D: int, device):
+    """Per-lane params follow their lanes into the copies; shared ones
+    broadcast as they are."""
+    if isinstance(p, LaneParams):
+        return p.take(torch.arange(B, device=device).repeat(D))
+    return p
+
+
+def _tangents(like: Tensor, offset: int, D: int) -> Tensor:
+    """The tangent of ``like (n, *mid, B)`` replicated ``D`` times: 1 in
+    component ``a`` of copy ``offset + a``, else 0."""
+    n, B = like.shape[0], like.shape[-1]
+    mid = tuple(like.shape[1:-1])
+    eye = torch.eye(D, dtype=like.dtype, device=like.device)[offset:offset + n]
+    eye = eye.reshape((n,) + (1,) * len(mid) + (D, 1))
+    return eye.expand((n,) + mid + (D, B)).reshape((n,) + mid + (D * B,))
+
+
+def _split(g: Tensor, B: int, D: int):
+    """A dual gradient ``(n, *mid, D*B)`` -> ``(first, second)``: the
+    primal of copy 0 ``(n, *mid, B)`` and the tangents ``(n, *mid, D, B)``
+    (zeros where the gradient carries none)."""
+    primal, tangent = fwAD.unpack_dual(g)
+    shape = tuple(g.shape[:-1]) + (D, B)
+    second = (torch.zeros(shape, dtype=g.dtype, device=g.device)
+              if tangent is None else tangent.reshape(shape))
+    return primal[..., :B], second
+
+
+def _second_order(fn, inputs, lane_args, p):
+    """First- and second-order columns of every output of ``fn`` by
+    forward-over-reverse on lane-replicated inputs.
+
+    ``fn(*inputs, *lane_args, p)`` returns a list of lane planes;
+    ``inputs`` are the differentiated component-first tensors
+    ``(n_i, *mid, B)`` whose components, in order, are the directions;
+    ``lane_args`` other lane tensors (last axis ``B``).  Returns ``(J, H)``
+    with ``J[r][a]`` = ``d y_r / d dir_a`` and ``H[r][a][b]`` = ``d J[r][a]
+    / d dir_b``, planes of ``(*mid, B)``."""
+    B = inputs[0].shape[-1]
+    D = sum(t.shape[0] for t in inputs)
+    offsets = [sum(t.shape[0] for t in inputs[:i]) for i in range(len(inputs))]
+    args = [_replicate(a, D) for a in lane_args]
+    pr = _replicate_params(p, B, D, inputs[0].device)
+    J, H = [], []
+    with fwAD.dual_level(), torch.enable_grad():
+        leaves = [_replicate(t.detach(), D).requires_grad_(True)
+                  for t in inputs]
+        duals = [fwAD.make_dual(leaf, _tangents(t, off, D))
+                 for leaf, t, off in zip(leaves, inputs, offsets)]
+        for y in fn(*duals, *args, pr):
+            cols, secs = [], []
+            for g in _lane_grads(y, leaves, create_graph=False):
+                first, second = _split(g, B, D)
+                cols += list(first)
+                secs += [list(s.unbind(-2)) for s in second]
+            J.append(cols)
+            H.append(secs)
+    return J, H
 
 
 def _box_limit_components(problem: Problem, x, u, p, k):
@@ -104,27 +181,27 @@ def step_derivative_components(problem: Problem, x, u, p, k, mu_le, mu_li,
     component-outer ``(C, N, B)`` tensors."""
     NX, NU = problem.n_x, problem.n_u
 
-    def L_fn(xx, uu):
-        c = problem.L(xx, uu, p, k)
+    def L_fn(xx, uu, mle, mli, w, pp):
+        c = problem.L(xx, uu, pp, k)
         for i, fn in enumerate(problem.hle):
-            c = c + _eq_penalty(mu_le[i], fn(xx, uu, p, k), wpl)
+            c = c + _eq_penalty(mle[i], fn(xx, uu, pp, k), w)
         for i, fn in enumerate(problem.hli):
-            c = c + _ineq_penalty(mu_li[i], fn(xx, uu, p, k), wpl)
-        return c
+            c = c + _ineq_penalty(mli[i], fn(xx, uu, pp, k), w)
+        return [c]
 
     out = {}
-    with torch.enable_grad():
-        xx = x.detach().requires_grad_(True)
-        uu = u.detach().requires_grad_(True)
-        # dynamics: F1[i][j] = d f_i / d dir_j; F2[i][a][b] = d2 f_i / da db
-        fv = problem.f(xx, uu, p, k)
-        F1 = [_columns(fv[i], xx, uu, full_ddp) for i in range(NX)]
-        if full_ddp:
-            F2 = [[_columns(F1[i][a], xx, uu, False) for a in range(NX + NU)]
-                  for i in range(NX)]
-        # cost: C1[a] = dL/da, C2[a][b] = d2L/da db
-        C1 = _columns(L_fn(xx, uu), xx, uu, True)
-        C2 = [_columns(C1[a], xx, uu, False) for a in range(NX + NU)]
+    # dynamics: F1[i][j] = d f_i / d dir_j; F2[i][a][b] = d2 f_i / da db
+    if full_ddp:
+        F1, F2 = _second_order(
+            lambda xx, uu, pp: list(problem.f(xx, uu, pp, k)), (x, u), (), p)
+    else:
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            uu = u.detach().requires_grad_(True)
+            fv = problem.f(xx, uu, p, k)
+            F1 = [_columns(fv[i], xx, uu, False) for i in range(NX)]
+    # cost: C1[a] = dL/da, C2[a][b] = d2L/da db
+    (C1,), (C2,) = _second_order(L_fn, (x, u), (mu_le, mu_li, wpl), p)
     out["fx"] = [F1[i][j] for i in range(NX) for j in range(NX)]
     out["fu"] = [F1[i][NX + j] for i in range(NX) for j in range(NU)]
     out["cx"] = [C1[a] for a in range(NX)]
@@ -167,44 +244,42 @@ def step_derivative_components_shared(problem: Problem, x, u, p, k, mu_le,
     and ``L`` together (port of JAX's
     ``pallas_fused.step_derivative_components_shared``).
 
-    The outputs ``Y = [f_0 .. f_{n_x-1}, L]`` are traced once; one batched
-    vector-Jacobian product (``is_grads_batched``, a one-hot cotangent per
-    output) gives every first-order column ``J[r][a] = dY_r / d dir_a``,
-    and one more over the columns that have a second order (all with
-    ``full_ddp``, else ``L``'s) gives ``d J[r][a] / d dir_b``: two autograd
-    calls where the per-family emitter makes ``(n_x + 1) (1 + n_x + n_u)``.
-    Same contract; values agree to rounding (the association differs where
-    a vmapped backward sums in another order)."""
+    The outputs ``Y = [f_0 .. f_{n_x-1}, L]`` are traced once on the
+    lane-replicated duals; one batched vector-Jacobian product
+    (``is_grads_batched``, a one-hot cotangent per output) gives every
+    first-order column ``J[r][a] = dY_r / d dir_a`` as its primal and
+    ``d J[r][a] / d dir_b`` as its tangent: one reverse call where the
+    per-family emitter makes ``n_x + 1`` (one per output).  Same contract;
+    values agree to rounding (the association may differ where a vmapped
+    backward sums in another order)."""
     NX, NU = problem.n_x, problem.n_u
     D, R = NX + NU, NX + 1
     N, B = x.shape[1], x.shape[2]
-
-    def onehot(m):  # (m, m, N, B) one-hot cotangents, stride 0 over (N, B)
-        eye = torch.eye(m, dtype=x.dtype, device=x.device)
-        return eye[:, :, None, None].expand(m, m, N, B)
-
-    def columns(y, xx, uu, create_graph):  # (m, N, B) -> (m, D, N, B)
-        gs = torch.autograd.grad(y, (xx, uu), onehot(y.shape[0]),
-                                 create_graph=create_graph, allow_unused=True,
-                                 is_grads_batched=True)
-        gx, gu = (torch.zeros((y.shape[0],) + t.shape, dtype=x.dtype,
-                              device=x.device) if g is None else g
-                  for g, t in zip(gs, (xx, uu)))
-        return torch.cat([gx, gu], 1)
-
-    with torch.enable_grad():
-        xx = x.detach().requires_grad_(True)
-        uu = u.detach().requires_grad_(True)
-        c = problem.L(xx, uu, p, k)
+    W = D * B  # lanes of the replicated plane
+    eye = torch.eye(R, dtype=x.dtype, device=x.device)
+    onehot = eye[:, :, None, None].expand(R, R, N, W)  # stride 0 over (N, W)
+    args = [_replicate(a, D) for a in (mu_le, mu_li, wpl)]
+    pr = _replicate_params(p, B, D, x.device)
+    with fwAD.dual_level(), torch.enable_grad():
+        xx = _replicate(x.detach(), D).requires_grad_(True)
+        uu = _replicate(u.detach(), D).requires_grad_(True)
+        xd = fwAD.make_dual(xx, _tangents(x, 0, D))
+        ud = fwAD.make_dual(uu, _tangents(u, NX, D))
+        mle, mli, w = args
+        c = problem.L(xd, ud, pr, k)
         for i, fn in enumerate(problem.hle):
-            c = c + _eq_penalty(mu_le[i], fn(xx, uu, p, k), wpl)
+            c = c + _eq_penalty(mle[i], fn(xd, ud, pr, k), w)
         for i, fn in enumerate(problem.hli):
-            c = c + _ineq_penalty(mu_li[i], fn(xx, uu, p, k), wpl)
-        Y = torch.cat([problem.f(xx, uu, p, k), c.expand(N, B)[None]])
-        J = columns(Y, xx, uu, True)  # (R, D, N, B)
-        rows = J if full_ddp else J[NX:]  # the outputs with a 2nd order
-        H = columns(rows.reshape(-1, N, B), xx, uu, False)
-        H = H.reshape(rows.shape[0], D, D, N, B)
+            c = c + _ineq_penalty(mli[i], fn(xd, ud, pr, k), w)
+        Y = torch.cat([problem.f(xd, ud, pr, k), c.expand(N, W)[None]])
+        gs = torch.autograd.grad(Y, (xx, uu), onehot, allow_unused=True,
+                                 is_grads_batched=True)
+        parts = [_split(torch.zeros((R,) + t.shape, dtype=x.dtype,
+                                    device=x.device) if g is None else g,
+                        B, D) for g, t in zip(gs, (xx, uu))]
+    J = torch.cat([parts[0][0], parts[1][0]], 1)  # (R, D, N, B)
+    H = torch.cat([parts[0][1], parts[1][1]], 1)  # (R, D, N, D, B)
+    H = H.movedim(3, 2)  # H[r, a, b] = d J[r, a] / d dir_b
     C2 = H[-1]  # L's: C2[a][b] = d2L / d dir_a d dir_b
     out = {
         "fx": [J[i, j] for i in range(NX) for j in range(NX)],
@@ -234,19 +309,17 @@ def final_derivative_components(problem: Problem, xF, p, N: int, mu_fe,
     final cost at ``xF (n_x, B)``."""
     NX = problem.n_x
 
-    def F_fn(xx):
-        c = problem.F(xx, p, N)
+    def F_fn(xx, mfe, mfi, w, pp):
+        c = problem.F(xx, pp, N)
         for i, fn in enumerate(problem.hfe):
-            c = c + _eq_penalty(mu_fe[i], fn(xx, p, N), wpf)
+            c = c + _eq_penalty(mfe[i], fn(xx, pp, N), w)
         for i, fn in enumerate(problem.hfi):
-            c = c + _ineq_penalty(mu_fi[i], fn(xx, p, N), wpf)
+            c = c + _ineq_penalty(mfi[i], fn(xx, pp, N), w)
         return c
 
-    with torch.enable_grad():
-        xx = xF.detach().requires_grad_(True)
-        (gx,) = _lane_grads(F_fn(xx), (xx,), True)
-        Fx = list(gx)
-        Fxx = [_lane_grads(Fx[a], (xx,), False)[0] for a in range(NX)]
+    (Fx,), (Fxx,) = _second_order(
+        lambda xx, mfe, mfi, w, pp: [F_fn(xx, mfe, mfi, w, pp)], (xF,),
+        (mu_fe, mu_fi, wpf), p)
     # one value per unordered pair, mirrored (the row of the lower index)
     full = [Fxx[min(a, b)][max(a, b)] for a in range(NX) for b in range(NX)]
     return torch.stack(Fx).detach(), torch.stack(full).detach()

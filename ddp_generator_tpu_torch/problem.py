@@ -28,7 +28,9 @@ gives ``(N, B)``, as the shared ``(N + 1,)`` leaf gives ``(N, 1)``.
 A problem may name the hand-written CUDA model that mirrors its functions
 (:class:`CudaModel`): the kernels cannot trace Python, so on a CUDA device
 they run the model's ``__device__`` functions instead.  A problem that
-names none gets a model generated from its functions (``codegen.py``).
+names none gets a model generated from its functions (``codegen.py``); a
+problem restored from an AOT artifact (``aot.py``) carries the generated
+model it was exported with.
 
 The input-box analysis (:func:`analyze_box_constraints`) probes each ``h``
 constraint numerically, as the JAX package does, unless ``box_meta``

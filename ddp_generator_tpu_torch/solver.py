@@ -616,6 +616,9 @@ class LoopStats(NamedTuple):
     host_reads: int  # device values the loop read (debug prints excluded)
     graphed: tuple  # working widths whose body calls were graph replays
     eager: tuple  # working widths whose body calls ran eagerly
+    chunks: int = 0  # chunks of the loop (each ends in one count read)
+    allreduces: int = 0  # all-reduces of the active count (with a mesh)
+    global_counts: tuple = ()  # the all-reduced count of each chunk
 
 
 def _copy_into(dst, src) -> None:
@@ -788,11 +791,30 @@ class StepwiseSolver:
     synchronous read.  The eager route and ``debug_level >= 1`` read every
     count at once.
 
+    ``mesh`` (a 1-D ``DeviceMesh`` of :func:`.parallel.mesh.make_mesh`,
+    dimension ``mesh_axis``): every rank passes the global inputs and
+    runs its own rows (:func:`.parallel.mesh.shard_range`) through the
+    machinery above on its device, and returns its rows of the Solution.
+    Each chunk is ``chunk`` body calls and ends in exactly one collective:
+    an all-reduce (sum) of one ``int64`` host scalar, the rank's active
+    count as the loop reads it (``pipeline_depth - 1`` chunks late; a
+    rank with no count due yet sends its last one, or its width), on the
+    mesh's ``gloo`` group, so the card's stream never waits on it.  No
+    collective touches the carry, the bundle or the params.  Every rank
+    loops in lockstep until the global count is 0; a rank whose own count
+    is 0 skips its body calls but joins each all-reduce.  Compaction is
+    per rank, from the rank's own count, on its local width; JAX compacts
+    the global working set and moves lanes across devices
+    (``jax:solver.py:925-934``), its ``(size // 2) % n_shards`` rule
+    keeping that width divisible.  Lanes are independent, so every lane's
+    result is the same either way, and here no lane moves between cards.
+    ``last_stats`` counts the chunks and the all-reduces and keeps the
+    global counts.
+
     The positional parameters are the JAX package's.  ``donate`` is
     accepted and does nothing: torch has no buffer donation.  ``device``
     (keyword only) is where the solve runs; tensor inputs on another device
-    raise.  ``mesh`` (with ``mesh_axis``) is not ported yet and raises
-    ``NotImplementedError``.
+    raise.
     """
 
     def __init__(
@@ -811,16 +833,18 @@ class StepwiseSolver:
         *,
         device,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "StepwiseSolver: mesh (ROADMAP.md queue A item 9: mesh over "
-                "torch.distributed) is not ported yet")
         self.options = options
         self.chunk = chunk
         self.compact_levels = compact_levels
         self.min_compact_batch = min_compact_batch
         self.batch_params = batch_params
-        self.mesh = mesh
+        if mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a DeviceMesh "
+                                f"(parallel.mesh.make_mesh), got {mesh!r}")
+        self.mesh, self.mesh_axis = mesh, mesh_axis
         self.pipeline_depth = max(1, pipeline_depth)
         self.inline_below = inline_below
         self.device = torch.device(device)
@@ -859,6 +883,7 @@ class StepwiseSolver:
         t0 = time.time()
         if self.device.type == "cuda":
             _build.load_library()
+        x0s, u0s, params = self._local(x0s, u0s, params)
         p = self._cast_params(params, len(u0s))
         full = self._init(x0s, u0s, p)
         B, N = int(full.cost.shape[0]), int(full.us.shape[1])
@@ -871,6 +896,19 @@ class StepwiseSolver:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.time() - t0
+
+    def _local(self, x0s, u0s, params):
+        """This rank's rows of the global inputs (all of them unmeshed)."""
+        if self.mesh is None:
+            return x0s, u0s, params
+        from .parallel.mesh import local_rows, shard_range
+
+        start, stop = shard_range(self.mesh, len(u0s), self.mesh_axis)
+        if self.batch_params:
+            params = {k: local_rows(v, start, stop)
+                      for k, v in params.items()}
+        return (local_rows(x0s, start, stop), local_rows(u0s, start, stop),
+                params)
 
     def _body_at(self, size: int):
         """The body for working width ``size``: inline retries at widths
@@ -912,7 +950,10 @@ class StepwiseSolver:
 
     def _chunk_len(self, size: int, B0: int) -> int:
         """Iterations per chunk, scaled inversely with the working width
-        (capped 16x), as in the JAX version."""
+        (capped 16x), as in the JAX version; ``chunk`` with a mesh, where
+        the ranks' widths differ and every chunk ends in one all-reduce."""
+        if self.mesh is not None:
+            return self.chunk
         return self.chunk * max(1, min(B0 // max(size, 1), 16))
 
     def _can_halve(self, size: int) -> bool:
@@ -969,6 +1010,7 @@ class StepwiseSolver:
     def __call__(self, x0s, u0s, params) -> Solution:
         t_start = time.time()
         o = self.options
+        x0s, u0s, params = self._local(x0s, u0s, params)
         p_full = p = self._cast_params(params, len(u0s))
         full = self._init(x0s, u0s, p)
         B, N = int(full.cost.shape[0]), int(full.us.shape[1])
@@ -977,7 +1019,12 @@ class StepwiseSolver:
         small, idx, size = full, None, B
         levels_left = self.compact_levels
         self._reads, calls_total, replays = 0, 0, 0
-        graphed, eager = [], []
+        graphed, eager, global_counts = [], [], []
+        meshed = self.mesh is not None
+        if meshed:
+            from .parallel.mesh import all_reduce_count
+        # a meshed rank's last count read, and whether it was 0
+        last_local, idle = size, False
         # Lambda retries do not advance `it`: loop on the active count,
         # bounded by the body-call cap (see _n_lam_steps), plus the chunks
         # a late count lags.
@@ -986,7 +1033,11 @@ class StepwiseSolver:
         exhausted = True
         for chunk_i in range(n_calls):
             n = self._chunk_len(size, B)
-            if self._on_static(size):
+            if idle:
+                # a meshed rank whose lanes are all done only joins the
+                # all-reduce below
+                calls, active = 0, 0
+            elif self._on_static(size):
                 w = self._width(size, N, small, p)
                 if small is not w.carry:
                     _copy_into(w.carry, small)
@@ -1003,6 +1054,16 @@ class StepwiseSolver:
                 self._counts.clear()  # older than this exact count
                 eager.append(size)
             calls_total += calls
+            if meshed:
+                if active is not None:
+                    last_local, idle = active, active == 0
+                glob = all_reduce_count(last_local, self.mesh, self.mesh_axis)
+                global_counts.append(glob)
+                if glob == 0:
+                    exhausted = False
+                    break
+                if idle:
+                    continue
             if active is None:  # no late count due yet
                 continue
             if o.debug_level >= 1:
@@ -1035,7 +1096,9 @@ class StepwiseSolver:
         self.last_stats = LoopStats(
             body_calls=calls_total, replays=replays, host_reads=self._reads,
             graphed=tuple(dict.fromkeys(graphed)),
-            eager=tuple(dict.fromkeys(eager)))
+            eager=tuple(dict.fromkeys(eager)), chunks=chunk_i + 1,
+            allreduces=len(global_counts),
+            global_counts=tuple(global_counts))
         return self._finalize(full)
 
     def _print_status(self, chunk_i, c: _Carry, active, size, t_start):

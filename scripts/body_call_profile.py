@@ -2,7 +2,7 @@
 time, on one CUDA card.
 
     python3 scripts/body_call_profile.py [--paths kernel,fused,serial]
-        [--calls 10] [--dtype float32]
+        [--calls 10] [--dtype float32] [--root DIR] [--history]
 
 For each backward-pass path (``"kernel"``: emission + kernel B1;
 ``"fused"``: kernel B3; ``"serial"``: the step-major bundle and the eager
@@ -21,22 +21,33 @@ counted (B2: the sweep and the selected rollouts; a staged line search
 launches three, of which those its stage flags skip count none).  On the
 kernel and fused paths it then captures the solver's body call (the masked
 step on a static carry, ``solver._WidthBody``) as a CUDA graph and times
-and traces ``--calls`` replays the same way (``graph_*`` keys).  Prints one
-line per path; imports no JAX.
+and traces ``--calls`` replays the same way (``graph_*`` keys).  On the
+kernel path it also traces derivative emission alone, once with each
+``derivs_emitter`` (``emit_*`` keys: device kernels and device ms of one
+emission, and its host ms).  Prints one line per path; imports no JAX.
+
+``--root`` names the checkout whose ``ddp_generator_tpu_torch`` is
+imported (default: this tree; ``chip_smoke.py``'s helpers always come from
+this tree), so an older tree can be profiled by the same code.
+``--history`` first runs ``chip_smoke.emission_history`` on that package
+and prints whether each emission came out bit for bit equal after another
+problem's emission (one line, ``emission_history``), without failing.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import statistics
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
-
-import chip_smoke as cs  # noqa: E402
+_spec = importlib.util.spec_from_file_location("chip_smoke",
+                                               ROOT / "chip_smoke.py")
+cs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(cs)
 
 
 def timed(fn):
@@ -144,6 +155,22 @@ def profile_path(backpass: str, calls: int, dtype: str) -> dict:
                profiled_wall_ms=wall_ms, device_busy_pct=100 * busy_ms
                / wall_ms, device_events_per_call=len(dev) / calls,
                **launches)
+    if backpass == "kernel":
+        for shared in (False, True):
+            name = "shared" if shared else "per_family"
+
+            def emit():
+                m = c.mult
+                return cm_emit(problem, c.xs, c.us, m.mu_le, m.mu_li,
+                               m.mu_fe, m.mu_fi, c.w_pen_l, c.w_pen_f, p,
+                               o.full_ddp, shared)
+
+            emit()
+            host = statistics.median(timed(emit)[1] for _ in range(calls))
+            _, events, dev_ms = cs.profiled(emit)
+            out.update({f"emit_{name}_device_events": events,
+                        f"emit_{name}_device_ms": dev_ms,
+                        f"emit_{name}_host_ms": host})
     if not serial:
         out.update(profile_graphed(slv, o, body_fn, c, p, calls, acts))
     return out
@@ -188,12 +215,21 @@ def main() -> int:
     ap.add_argument("--calls", type=int, default=10)
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "float64"))
+    ap.add_argument("--root", default=str(ROOT))
+    ap.add_argument("--history", action="store_true")
     args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
+    import ddp_generator_tpu_torch
+
+    cs.line("package", root=Path(ddp_generator_tpu_torch.__file__).parent)
+    if args.history:
+        for case, d in cs.emission_history(strict=False).items():
+            cs.line("emission_history", case=case, **d)
     for path in args.paths.split(","):
         cs.line("body_call", **profile_path(path, args.calls, args.dtype))
     return 0

@@ -498,3 +498,57 @@ def test_capture_error_raises(cuda):
     with pytest.raises(RuntimeError):
         solver(x0s, u0s, p)
     torch.cuda.synchronize()
+
+
+def _emitter(name, dtype, device):
+    """``emit(shared)``: the FULL_DDP bundle of the initial rollout of
+    the Brachistochrone (``testBrachi.m``, B=2048, n=500, u0 =
+    -|uniform(0.5, 1.5)| from seed 11) or CarParking (B=2048, T=500,
+    0.1 normal u0 from seed 0), as ``chip_smoke.history_emitter``."""
+    from ddp_generator_tpu_torch.ops.cm_derivs import cm_emit
+
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    Bh, T = 2048, 500
+    if name == "brachistochrone":
+        problem = brachistochrone.brachistochrone()
+        p_np, x0, _ = brachistochrone.default_setup(T)
+        u0s = -np.abs(np.random.default_rng(11).uniform(0.5, 1.5,
+                                                        (Bh, T, 1)))
+    else:
+        problem = car_parking.car_parking()
+        p_np, x0, _ = car_parking.default_setup(T=T, seed=0)
+        u0s = 0.1 * np.random.default_rng(0).standard_normal((Bh, T, 2))
+    p = ddp.params_from_jax(p_np, dtype, device)
+    x0s = torch.as_tensor(np.tile(x0, (Bh, 1)).astype(np_dtype),
+                          device=device)
+    u0 = torch.as_tensor(u0s.astype(np_dtype), device=device)
+    m = ddp.init_multipliers(problem, Bh, T, dtype, device)
+    w = torch.ones(Bh, dtype=dtype, device=device)
+    r = forward_pass(problem, x0s, None, u0, None, None, 0.0, p, m.mu_le,
+                     m.mu_li, m.mu_fe, m.mu_fi, w, w)
+
+    def emit(shared):
+        sd, fcx, fcxx, _, ok = cm_emit(problem, r.xs, r.us, m.mu_le,
+                                       m.mu_li, m.mu_fe, m.mu_fi, w, w, p,
+                                       True, shared)
+        return dict(sd, final_cx=fcx, final_cxx=fcxx, ok=ok)
+    return emit
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("shared", [False, True], ids=["per_family",
+                                                       "shared"])
+@pytest.mark.parametrize("target", ["brachistochrone", "car_parking"])
+def test_emission_independent_of_history(cuda, target, shared, dtype):
+    """Emit, emit the other problem, emit again: every component equal bit
+    for bit (the second order by forward-over-reverse; reverse-over-reverse
+    ordered its accumulation by the autograd threads' sequence numbers)."""
+    other = ("car_parking" if target == "brachistochrone"
+             else "brachistochrone")
+    emit = _emitter(target, dtype, cuda)
+    first = emit(shared)
+    _emitter(other, dtype, cuda)(shared)
+    again = emit(shared)
+    for key, v in first.items():
+        assert torch.equal(v, again[key]), key

@@ -52,7 +52,9 @@ def test_importing_the_port_loads_no_jax():
             "ddp_generator_tpu_torch.native, "
             "ddp_generator_tpu_torch.utils.debug, "
             "ddp_generator_tpu_torch.utils.timing, "
-            "ddp_generator_tpu_torch.utils.tree; "
+            "ddp_generator_tpu_torch.utils.tree, "
+            "ddp_generator_tpu_torch.parallel.mesh, "
+            "ddp_generator_tpu_torch.aot; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ddp_generator_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -156,12 +156,13 @@ def test_fused_path_is_ported_and_ignores_the_emitter():
     dict(mesh=object()),
 ])
 def test_unported_stepwise_levers_raise(kw):
-    """``pipeline_depth > 1`` constructs and stores its depth; ``mesh`` is
-    not ported and raises."""
+    """``pipeline_depth > 1`` constructs and stores its depth; ``mesh``
+    (ported: ``parallel/mesh.py``, ``tests/test_torch_mesh.py``) takes a
+    ``DeviceMesh`` and raises for anything else."""
     opts = td.SolverOptions(backpass_method="kernel",
                             linesearch_method="kernel")
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             td.StepwiseSolver(tcar.car_parking(), opts, device="cpu", **kw)
         return
     s = td.StepwiseSolver(tcar.car_parking(), opts, device="cpu", **kw)
