@@ -68,7 +68,18 @@ full width:
   ``make_batched_solver`` lane by lane;
 * AOT (phase 17): both paths' configurations (B=2048, T=500, float32,
   cut to max_iter 20) exported, restored in a process that imports no
-  problem module and solved, bit for bit against the direct solve.
+  problem module and solved, bit for bit against the direct solve; the
+  restored first solve split into program deserialization, first calls
+  and the kernel library's load, and a second restored solve timed;
+* the bench entry (phase 18): ``bench_torch.py`` on the main path's cell
+  cut to max_iter 20 and one repeat, with no lever and with each of
+  ``bench.py``'s (``--pipeline-depth 4``, ``--shared-derivs``, ``--mesh 2``
+  as two ranks sharing the card, ``--artifact``): one JSON line each, the
+  counts of the runs that change no lane equal to the no-lever run's;
+* the example scripts (phase 19): ``scripts/try_car_torch.py`` (T=500,
+  200 iterations) and ``scripts/try_brachi_torch.py`` (n=500) on the
+  card, the car's controls inside their boxes and the Brachistochrone's
+  gaps to the cycloid within 10x the JAX script's on the CPU.
 
 The Cartpole instantiations of B1 (4, 1), B2 and B3 are held against their
 plain versions like CarParking's, and small float64 solves of the serial
@@ -98,6 +109,7 @@ import subprocess
 import sys
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 
@@ -130,7 +142,9 @@ N_BRACHI = 500
 # LAM_HIGH (the options' lambdaInit: the lane took the tolFun exit while
 # regularized more than at its start); at most HIGH_LAMBDA_MAX_LANES of
 # 2048 (0.2%) may be so excluded.  On an H100 every lane of both cases
-# ended at lambda <= 1.05e-5 in one run; one other run had one such lane.
+# ended at lambda <= 1.05e-5 in one run; one other run had one such lane;
+# with emission free of the process's history, two Brachistochrone lanes
+# still did so in a later run (PERF.md), so the bound stays.
 LAM_HIGH = 1.0
 HIGH_LAMBDA_MAX_LANES = 4
 T_POLE, MAX_ITER_POLE = 150, 150  # cartpole.default_setup's horizon
@@ -1712,11 +1726,12 @@ def parallel_solves():
     Such a lane took the tolFun exit while heavily regularized, short of
     the optimum, and the two passes regularize differently: in one card
     run kernel-path Brachistochrone lane 1846 did so at lambda 8.7, cost
-    2e-4 above the parallel path's gradient exit, through the emission's
-    history dependence on the card (ROADMAP queue C; the CPU is not
-    affected).  Those lanes are counted and their largest gap printed.
-    The first 16 lanes against the CPU's parallel solve (plain B2): equal
-    counts, cost to 1e-8."""
+    2e-4 above the parallel path's gradient exit.  Emission does not
+    depend on the process's history, yet such lanes remain: a property of
+    the two passes' rounding on lanes that end regularized.
+    Those lanes are counted and listed (lane:lambda parallel/kernel) with
+    their largest gap.  The first 16 lanes against the CPU's parallel
+    solve (plain B2): equal counts, cost to 1e-8."""
     import ddp_generator_tpu_torch as ddp
 
     out = {}
@@ -1778,6 +1793,9 @@ def parallel_solves():
                 (gated & (s.status != k_sol.status)).sum()),
             cost_rel_err_vs_kernel=cost_rel,
             high_lambda_lanes=int(high.sum()),
+            high_lambda_at=",".join(
+                f"{i}:{s.lam[i]:.3g}/{k_sol.lam[i]:.3g}"
+                for i in np.flatnonzero(high)) or "none",
             high_lambda_max_cost_rel=float(rel[high].max(initial=0.0)),
             off_terminal=off_terminal(name, p, s),
             kernel_path_off_terminal=off_terminal(name, p, k_sol),
@@ -2208,22 +2226,33 @@ sys.path.insert(0, {root!r})
 import torch
 from ddp_generator_tpu_torch import aot, to_numpy
 from ddp_generator_tpu_torch.launches import read_launches, reset_launches
+from ddp_generator_tpu_torch import _build
 d = np.load({inputs!r}, allow_pickle=True)
 t0 = time.time()
 solver = aot.load_solver_file({path!r}, device="cuda")
 load_s = time.time() - t0
+args = (d["x0s"], d["u0s"], d["params"].item())
 reset_launches()
 torch.cuda.synchronize()
 t0 = time.time()
-sol = solver(d["x0s"], d["u0s"], d["params"].item())
+sol = solver(*args)
 torch.cuda.synchronize()
 solve_s = time.time() - t0
-np.savez({out!r}, **{{k: v for k, v in to_numpy(sol)._asdict().items()}})
+launches = read_launches()
+stages = solver.stage_seconds()
+first = to_numpy(sol)
+np.savez({out!r}, **first._asdict())
+t0 = time.time()
+again = to_numpy(solver(*args))
+second_s = time.time() - t0
 bad = sorted(m for m in sys.modules if m.startswith(
     ("ddp_generator_tpu_torch.models", "jax", "ddp_generator_tpu.")))
 assert not bad, bad
-print(json.dumps(dict(load_s=load_s, solve_s=solve_s,
-                      launches=read_launches())))
+print(json.dumps(dict(
+    load_s=load_s, solve_s=solve_s, launches=launches, **stages,
+    kernel_load_s=sum(_build.LOAD_SECONDS.values()), second_solve_s=second_s,
+    second_equal=all(np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+                     for a, b in zip(first, again)))))
 """
 
 
@@ -2233,9 +2262,12 @@ def aot_phase(problem) -> dict:
     20 (``make_batched_solver`` is eager on the card), exported with
     ``aot.export_solver``, restored and solved in a subprocess that
     imports no problem module, every Solution field and launch count
-    against the direct ``make_batched_solver`` solve bit for bit."""
+    against the direct ``make_batched_solver`` solve bit for bit.  The
+    restored first solve is split into the programs' deserialization,
+    their first calls and the kernel library's load (its build, or the
+    check that it is built, and the dlopen); a second restored solve is
+    timed and must equal the first."""
     import tempfile
-    from pathlib import Path
 
     import ddp_generator_tpu_torch as ddp
     from ddp_generator_tpu_torch import aot
@@ -2273,12 +2305,208 @@ def aot_phase(problem) -> dict:
         got = type(want)(**got)
         n = same_solution(what, got, want, info["launches"], launches,
                           ref="direct solve's")
+        if not info["second_equal"]:
+            fail(f"{what}: a second restored solve differs from the first")
         out[backpass] = dict(
             B=B_MAIN, T=T_MAIN, max_iter=AOT_MAX_ITER, dtype="float32",
             artifact_bytes=len(blob), export_s=export_s,
             load_s=info["load_s"], first_solve_s=info["solve_s"],
-            process_s=process_s, direct_solve_s=wall, fields_equal=n,
+            deserialize_s=info["deserialize_s"],
+            deserialize_max_s=info["deserialize_max_s"],
+            first_calls_s=info["first_calls_s"], programs=info["programs"],
+            kernel_load_s=info["kernel_load_s"],
+            second_solve_s=info["second_solve_s"], process_s=process_s,
+            direct_solve_s=wall, fields_equal=n,
             **{f"launches_{k}": v for k, v in launches.items()})
+    return out
+
+
+# Phase 18: bench_torch.py on the main path's cell cut to this depth
+BENCH_MAX_ITER, BENCH_REPEATS = 20, 1
+BENCH_TIMEOUT_S = 300
+# bench.py's keys (bench.py:290-307) and the port's own
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "solved_pct",
+              "exhausted_pct", "mean_iterations", "mean_body_calls",
+              "stale_pct", "device", "torch_cuda", "launches_per_solve"}
+BENCH_COUNTS = ("solved_pct", "exhausted_pct", "mean_iterations",
+                "mean_body_calls")
+STAGES = {
+    "export_s": r"artifact exported\+written \(([\d.]+)s\)",
+    "load_s": r"artifact loaded in ([\d.]+)s",
+    "first_solve_s": r"artifact first solve: ([\d.]+)s",
+    "deserialize_s": r"deserialize ([\d.]+)s",
+    "programs": r"\((\d+) programs",
+    "deserialize_max_s": r"the longest ([\d.]+)s",
+    "first_calls_s": r"first calls ([\d.]+)s",
+    "kernel_load_s": r"kernel build ([\d.]+)s",
+    "second_solve_s": r"restored solves after the first: \[([\d.]+)",
+}
+
+
+def bench_run(name: str, flags) -> tuple[dict, float, str]:
+    """``bench_torch.py`` at the main path's cell (its defaults), cut to
+    ``BENCH_MAX_ITER`` and ``BENCH_REPEATS``, with ``flags``: its record,
+    the process's seconds and its stderr; fails unless it exits 0 with one
+    JSON line holding every key of ``BENCH_KEYS``."""
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, str(root / "bench_torch.py"), "--max-iter",
+           str(BENCH_MAX_ITER), "--repeats", str(BENCH_REPEATS), *flags]
+    t0 = time.time()
+    r = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
+                       timeout=BENCH_TIMEOUT_S)
+    wall = time.time() - t0
+    if r.returncode != 0:
+        fail(f"bench_entry {name}: exit {r.returncode}:\n{r.stderr[-3000:]}")
+    lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
+    if len(lines) != 1:
+        fail(f"bench_entry {name}: {len(lines)} lines on stdout, not one "
+             f"JSON line: {lines[:3]}")
+    rec = json.loads(lines[0])
+    if BENCH_KEYS - set(rec):
+        fail(f"bench_entry {name}: keys {sorted(BENCH_KEYS - set(rec))} "
+             "missing")
+    return rec, wall, r.stderr
+
+
+def bench_entry() -> dict:
+    """Phase 18: ``bench_torch.py``, the bench entry, as a subprocess on
+    the main path's cell (CarParking, B=2048, T=500, float32, full width,
+    precompiled), cut to ``--max-iter 20 --repeats 1``: with no lever, then
+    with each of ``bench.py``'s.  ``--pipeline-depth 4``, ``--mesh 2`` (two
+    ``gloo`` ranks sharing the card) and ``--artifact`` must repeat the
+    no-lever run's solved, exhausted, iteration and body-call counts
+    (depth 4 repeats depth 1 field by field, the mesh the single process,
+    the restored ``make_batched_solver`` the graphed solve);
+    ``--shared-derivs`` is reported, held only to its exit, its line and
+    its launches.  Every run launches B1 and B2 and never B3.  Returns
+    each run's numbers, the artifact run's set-up stages parsed from its
+    stderr."""
+    import re
+    import tempfile
+
+    torch_release()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, flags in (
+                ("none", ()), ("pipeline_depth_4", ("--pipeline-depth", "4")),
+                ("shared_derivs", ("--shared-derivs",)),
+                ("mesh_2", ("--mesh", "2")),
+                ("artifact", ("--artifact", f"{tmp}/car.ddpexe"))):
+            rec, wall, stderr = bench_run(name, flags)
+            la = rec["launches_per_solve"]
+            if (la["backpass"] <= 0 or la["fused"] or la["rollout_selected"]
+                    <= 0):
+                fail(f"bench_entry {name}: launches {la}: B1 and B2 must "
+                     "run, B3 not")
+            solves_per_s = rec.get("aggregate_solves_per_s", rec["value"])
+            d = dict(solves_per_s=rec["value"], solve_s=B_MAIN / solves_per_s,
+                     process_s=wall,
+                     **{k: rec[k] for k in BENCH_COUNTS + ("stale_pct",)},
+                     **{f"launches_{k}": v for k, v in la.items()})
+            if name == "mesh_2":
+                if (rec.get("n_ranks"), rec.get("n_chips")) != (2, 1):
+                    fail(f"bench_entry mesh_2: n_ranks {rec.get('n_ranks')}"
+                         f", n_chips {rec.get('n_chips')}, not 2 and 1")
+                d.update(n_ranks=2, n_chips=1,
+                         aggregate_solves_per_s=rec["aggregate_solves_per_s"])
+            if name == "artifact":
+                for key, pat in STAGES.items():
+                    m = re.search(pat, stderr)
+                    if not m:
+                        fail(f"bench_entry artifact: no {key} on stderr:\n"
+                             f"{stderr[-2000:]}")
+                    d[key] = float(m.group(1))
+            out[name] = d
+    base = out["none"]
+    for name in ("pipeline_depth_4", "mesh_2", "artifact"):
+        diff = {k: (out[name][k], base[k]) for k in BENCH_COUNTS
+                if out[name][k] != base[k]}
+        if diff:
+            fail(f"bench_entry {name}: counts differ from the no-lever "
+                 f"run's: {diff}")
+    return out
+
+
+def torch_release() -> None:
+    """Give the cached blocks of this process's allocator back to the card
+    before a phase whose subprocesses use it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+# Phase 19: scripts/try_brachi.py (the JAX package, float64, serial path,
+# on the CPU), n=500, printed these gaps to the cycloid at the quarter
+# points (x = pi/2, pi, 3 pi/2, 2 pi); the port's script on the card must
+# stay within 10x each.
+CYCLOID_ERR_JAX_CPU = (0.0016178355419902424, 0.0008701634418981641,
+                       0.0003973690754675019, 1.3463790082823834e-09)
+EXAMPLES_TIMEOUT_S = 300
+
+
+def run_example(args) -> tuple[str, float]:
+    """A port example script on the card: its stdout and seconds; fails
+    unless it exits 0 and reports success."""
+    root = Path(__file__).resolve().parent
+    t0 = time.time()
+    r = subprocess.run([sys.executable, str(root / "scripts" / args[0]),
+                        *args[1:], "--device", "cuda"], capture_output=True,
+                       text=True, cwd=root, timeout=EXAMPLES_TIMEOUT_S)
+    wall = time.time() - t0
+    if r.returncode != 0:
+        fail(f"examples {args[0]}: exit {r.returncode}:\n"
+             f"{r.stderr[-3000:]}")
+    if "success: True" not in r.stdout:
+        fail(f"examples {args[0]}: no success:\n{r.stdout[-2000:]}")
+    return r.stdout, wall
+
+
+def numbers(stdout: str, label: str) -> list:
+    """The numbers on a summary line after its label."""
+    import re
+
+    m = re.search(rf"^{re.escape(label)}(.*)$", stdout, re.M)
+    if not m:
+        fail(f"examples: no {label!r} line:\n{stdout[-2000:]}")
+    return [float(v) for v in re.findall(
+        r"[-+]?(?:\d+\.?\d*|\.\d+)(?:[eE][-+]?\d+)?", m.group(1))]
+
+
+def examples() -> dict:
+    """Phase 19: the example scripts on the card (the kernel path, float64,
+    one instance through ``solve``): ``scripts/try_car_torch.py`` (T=500,
+    200 iterations) with its controls inside the boxes |u0| <= 0.5, |u1| <=
+    2.0, and ``scripts/try_brachi_torch.py`` (n=500) with its cycloid gaps
+    within 10x the JAX script's on the CPU.  Both must exit 0 and report
+    success; returns each one's walls and ms per iteration."""
+    torch_release()
+    out = {}
+    car, wall = run_example(("try_car_torch.py", "500", "200"))
+    w, _, a, _ = numbers(car, "u in bounds:")
+    if not (w <= 0.5 and a <= 2.0):
+        fail(f"examples try_car_torch: |u0| {w}, |u1| {a}: outside the box")
+    status = numbers(car, "success: True status:")
+    out["try_car"] = dict(T=500, max_iter=200, process_s=wall,
+                          first_run_s=numbers(car, "compile+run:")[0],
+                          run_s=numbers(car, "run:")[0],
+                          ms_per_iter=numbers(car, "run:")[1],
+                          status=int(status[0]), iterations=int(status[1]),
+                          cost=numbers(car, "cost:")[0], u0_max=w, u1_max=a)
+    brachi, wall = run_example(("try_brachi_torch.py", "500"))
+    errs = numbers(brachi, "cycloid errors at quarter points:")
+    if len(errs) != 4 or any(not e <= 10 * ref for e, ref in
+                             zip(errs, CYCLOID_ERR_JAX_CPU)):
+        fail(f"examples try_brachi_torch: cycloid errors {errs}, more than "
+             f"10x {CYCLOID_ERR_JAX_CPU}")
+    status = numbers(brachi, "success: True status:")
+    out["try_brachi"] = dict(
+        n=500, max_iter=50, process_s=wall,
+        first_run_s=numbers(brachi, "compile+run:")[0],
+        run_s=numbers(brachi, "run:")[0],
+        ms_per_iter=numbers(brachi, "run:")[1], status=int(status[0]),
+        iterations=int(status[1]), cost=numbers(brachi, "cost:")[0],
+        cycloid_errors="/".join(f"{e:.3g}" for e in errs))
     return out
 
 
@@ -2570,6 +2798,16 @@ def main() -> int:
     line("aux_api", **aux_api(problem))
     line("fused_vs_kernel", B=B_MAIN, T=T_MAIN,
          **fused_vs_kernel_f64(problem, f32_counts))
+
+    # 18. the bench entry on the main path's cell, with each of bench.py's
+    # levers; 19. the example scripts on the card
+    for run, d in bench_entry().items():
+        line("bench_entry", run=run, B=B_MAIN, T=T_MAIN,
+             max_iter=BENCH_MAX_ITER,
+             depth_cut=f"max_iter {MAX_ITER_MAIN}->{BENCH_MAX_ITER}, "
+             f"repeats 3->{BENCH_REPEATS}", **d)
+    for script, d in examples().items():
+        line("examples", script=script, **d)
 
     def entry(name, source, replaces, n, d, model="car_parking"):
         # no single PyTorch call computes any of these: library_ms is null

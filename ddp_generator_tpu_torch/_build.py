@@ -178,23 +178,36 @@ def build_all(jobs) -> list[Path]:
     return [f.result() for f in futures]
 
 
+# library path -> seconds of its first load in this process: the build (or
+# the check that it is built) and the dlopen
+LOAD_SECONDS: dict[str, float] = {}
+
+
+def _load(build_fn) -> ctypes.CDLL:
+    t0 = time.time()
+    path = build_fn()
+    lib = open_library(path)
+    LOAD_SECONDS[str(path)] = time.time() - t0
+    return lib
+
+
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load this package's kernel library."""
-    return open_library(build())
+    return _load(build)
 
 
 @functools.lru_cache(maxsize=None)
 def load_model_library(model) -> ctypes.CDLL:
     """Build (if needed) and load the B2/B3 library of a generated model
     (once per model: the wrappers ask on every launch)."""
-    return open_library(build_model(model))
+    return _load(lambda: build_model(model))
 
 
 @functools.lru_cache(maxsize=None)
 def load_backpass_shape(n_x: int, n_u: int) -> ctypes.CDLL:
     """Build (if needed) and load kernel B1 at ``(n_x, n_u)``."""
-    return open_library(build_backpass_shape(n_x, n_u))
+    return _load(lambda: build_backpass_shape(n_x, n_u))
 
 
 def open_library(path: Path) -> ctypes.CDLL:

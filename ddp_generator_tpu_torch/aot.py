@@ -39,6 +39,7 @@ import dataclasses
 import io
 import json
 import os
+import time
 import zipfile
 from pathlib import Path
 from typing import Any, Optional, Sequence
@@ -241,11 +242,13 @@ class _Exported:
     """A problem function restored from its exported programs: dispatches
     on the call's signature and device, with the step as a tensor.  Each
     program is deserialized at its signature's first call (a solve on the
-    card calls two or three of the four)."""
+    card calls two or three of the four); ``seconds`` keeps the host
+    seconds of each deserialization and of each program's first call."""
 
     def __init__(self, name: str, saved: dict, keys: list):
         self.name, self.saved, self.keys = name, saved, keys
         self.programs: dict = {}
+        self.seconds: dict = {"deserialize": [], "first_calls": []}
 
     def __call__(self, x, *rest):
         *u, p, k = rest
@@ -258,15 +261,22 @@ class _Exported:
         else:
             sig = "plane" if k.dim() else "sweep"
         at = (x.device.type, sig)
-        prog = self.programs.get(at)
-        if prog is None:
-            if at not in self.saved:
-                raise ValueError(f"{self.name}: no exported program for a "
-                                 f"{sig!r} call on {x.device.type}")
-            prog = self.programs[at] = torch.export.load(
-                io.BytesIO(self.saved[at])).module()
         uu = u[0] if u else torch.zeros((), dtype=x.dtype, device=x.device)
-        return prog(x, uu, {key: p[key] for key in self.keys}, k)
+        args = (x, uu, {key: p[key] for key in self.keys}, k)
+        prog = self.programs.get(at)
+        if prog is not None:
+            return prog(*args)
+        if at not in self.saved:
+            raise ValueError(f"{self.name}: no exported program for a "
+                             f"{sig!r} call on {x.device.type}")
+        t0 = time.perf_counter()
+        prog = self.programs[at] = torch.export.load(
+            io.BytesIO(self.saved[at])).module()
+        t1 = time.perf_counter()
+        out = prog(*args)
+        self.seconds["deserialize"].append(t1 - t0)
+        self.seconds["first_calls"].append(time.perf_counter() - t1)
+        return out
 
 
 def _restore_model(meta: dict, header: str):
@@ -348,16 +358,20 @@ def load_solver(blob: bytes, *, device):
         cuda_model=_restore_model(meta, header) if header else None)
     options = options_from_dict(meta["options"])
     meta["device"] = str(device)
-    return RestoredSolver(problem, options, meta)
+    return RestoredSolver(problem, options, meta, list(fns.values()))
 
 
 class RestoredSolver:
     """An exported solver restored by :func:`load_solver`: call it with
     ``(x0, u0, params)``.  ``problem`` (its functions the exported
-    programs), ``options``, ``horizon`` and ``batch`` are as exported."""
+    programs), ``options``, ``horizon`` and ``batch`` are as exported;
+    :meth:`stage_seconds` says what restoring the programs has cost so
+    far."""
 
-    def __init__(self, problem: Problem, options: SolverOptions, meta: dict):
+    def __init__(self, problem: Problem, options: SolverOptions, meta: dict,
+                 functions: Sequence[_Exported] = ()):
         self.problem, self.options = problem, options
+        self._functions = list(functions)
         self.batch, self.horizon = meta["batch"], meta["horizon"]
         self._dtype = _DTYPES[meta["dtype"]]
         self._spec = [(k, tuple(s), getattr(torch, d))
@@ -385,6 +399,17 @@ class RestoredSolver:
         for key, shape, dt in self._spec:
             _check(f"params[{key!r}]", params[key], shape, dt)
         return self._solve(x0, u0, params)
+
+    def stage_seconds(self) -> dict:
+        """Host seconds spent so far deserializing the exported programs
+        (each at its first call; in all, and the longest one) and in those
+        first calls, and the number of programs deserialized."""
+        load = [t for f in self._functions for t in f.seconds["deserialize"]]
+        return dict(
+            deserialize_s=sum(load), deserialize_max_s=max(load, default=0.0),
+            first_calls_s=sum(t for f in self._functions
+                              for t in f.seconds["first_calls"]),
+            programs=len(load))
 
 
 def save_solver(path: str, *args, force: bool = False, **kwargs) -> bool:
