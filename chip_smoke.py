@@ -15,12 +15,16 @@ full width:
 * that solve on the kernel and the fused path, graphed against the eager
   route (``make_batched_solver``): every Solution field bit for bit, the
   same launches, precompile seconds, peak memory, replays and host reads;
-  and derivative emission with each ``derivs_emitter``;
+  and derivative emission with each ``derivs_emitter``; then the same
+  comparison for the routes graphed beside them (phase 6d): the serial
+  path on that CarParking solve in float64 (max_iter 3), per-lane params
+  on the kernel path (max_iter 10) and the parallel backward pass on the
+  Brachistochrone (n=500, float64);
 * the same solve with ``backpass_method="fused"``: kernel B3 (derivatives
   and backward pass in one kernel) in place of emission + B1;
 * the Brachistochrone with its moving floor (``brachistochrone_hli``,
   n=500, B=2048, float64) through B3 and B2, the path of the AL families;
-* the serial path (``SolverOptions()``'s own methods: eager PyTorch, no
+* the serial path (``SolverOptions()``'s own methods: PyTorch, no
   kernel) against the kernel path on CarParking at full width, three
   iterations deep;
 * the Cartpole swing-up (B=2048, T=150) twice: with the default options
@@ -94,7 +98,9 @@ written once, from this run's tensors) over the card's memory rate and
 its operations (per (step, lane), counted by ``scripts/count_ops.py``)
 over its rate for the type.
 
-Every phase prints one line; any failure exits nonzero.  The last two
+Every phase prints one line or more, and a ``phase_seconds`` line; the
+serial, Cartpole, per-lane and parallel solves at full width run graphed
+(``check_graphed``).  Any failure exits nonzero.  The last two
 lines are a JSON line with each kernel's launches on its path, error,
 times and bound, and the contract line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits nonzero and prints no result.  Imports no
@@ -153,11 +159,14 @@ T_POLE, MAX_ITER_POLE = 150, 150  # cartpole.default_setup's horizon
 # eager solve took 164-252 s on an H100; its first lanes are held against
 # the CPU's solve of per_lane_serial.
 MAX_ITER_POLE_SERIAL = 20
-# The full-width per-lane params solve (eager, emission + B1 and the serial
-# line search) is cut from the main path's max_iter 200 to 40: the whole
-# solve took 157-293 s on an H100; its lane checks (every lane inside its
-# own box, launches) hold at any depth.
+# The full-width per-lane params solve (emission + B1 and the serial line
+# search) is cut from the main path's max_iter 200 to 40: the whole solve
+# took 157-293 s on an H100 when it ran eagerly; its lane checks (every
+# lane inside its own box, launches) hold at any depth.
 MAX_ITER_PER_LANE = 40
+# Per-lane params on the kernel path, graphed against the eager route
+# (graphs_routes_phase): the eager reference is cut to max_iter 10.
+MAX_ITER_GRAPHS_PER_LANE = 10
 # The Cartpole swing-up from x0 = [0, pi, 0, 0] + 0.05 normal: the JAX
 # package (float64, serial, on the CPU, max_iter 150) solves 98.4% of the
 # first 64 lanes of cartpole_inputs and 98.2% of the first 512, so the 90%
@@ -811,7 +820,8 @@ def batch_params_path(problem):
     compact_levels 4, min_compact_batch 128), cut to max_iter 40, with
     ``limW`` per lane from +-0.2 to +-0.5, ``backpass_method="kernel"`` and
     ``linesearch_method="kernel"``: emission + B1, and the serial line
-    search, as per-lane params take it.  Every lane keeps its own box
+    search, as per-lane params take it, every body call a graph replay
+    (each width captured at first use).  Every lane keeps its own box
     limits; B1 runs, B2 does not."""
     import ddp_generator_tpu_torch as ddp
 
@@ -825,6 +835,7 @@ def batch_params_path(problem):
                                 compact_levels=4, min_compact_batch=128,
                                 device="cuda")
     s, wall, launches = timed_solve(solver, x0s, u0s, pb)
+    loop = check_graphed("batch_params_path", solver)
     if launches["backpass"] <= 0:
         fail("batch_params_path: kernel backpass was never launched")
     for name in ("fused", "rollout_multi", "rollout_selected"):
@@ -855,7 +866,7 @@ def batch_params_path(problem):
                 mean_body_calls=float(s.body_calls.mean()),
                 max_body_calls=int(s.body_calls.max()),
                 max_w_minus_limW=w_over, max_a_minus_limA=a_over,
-                mean_cost=float(s.cost.mean()), launches=launches)
+                mean_cost=float(s.cost.mean()), **loop, launches=launches)
 
 
 def timed_solve(solver, x0s, u0s, p):
@@ -955,48 +966,130 @@ def main_path(problem, backpass="kernel", dtype="float32", depth=1):
     return stats, s
 
 
-def graphs_phase(problem):
-    """Phase 6b: the precompiled graphed StepwiseSolver against the eager
-    route, ``make_batched_solver`` (one host read per body call, no
-    compaction), at bench.py's CarParking solve (B=2048, T=500, float32)
-    on the kernel and the fused path: every Solution field bit for bit and
-    the same launch counts.  Prints precompile seconds, the peak device
-    memory of precompile + solve, replays and host reads per solve, and
-    the wall of each route."""
+def graphed_busy_share(solver, x0s, u0s, p, calls=3) -> float:
+    """The card's busy share (%) over ``calls`` graph replays of the
+    precompiled solver's full width on the initial carry of ``x0s``,
+    ``u0s``, after one replay (``torch.profiler``: kernel time over host
+    wall).  The timed solve after it copies its own carry and params in."""
+    import torch
+
+    from ddp_generator_tpu_torch.solver import _copy_into, _params_map
+
+    P = solver._cast_params(p, len(u0s))
+    c = solver._init(x0s, u0s, P)
+    w = solver._widths[(len(u0s), u0s.shape[1])]
+    _copy_into(w.carry, c)
+    if solver.batch_params:
+        _params_map(lambda d, v: d.copy_(v), w.params, P)
+    else:
+        solver._static_params(P)
+    w.run()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            w.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.device_time_total for e in prof.events()
+               if e.device_type.name == "CUDA") / 1e6
+    return 100 * busy / wall
+
+
+def graphed_against_eager(what, problem, opts, x0s, u0s, p,
+                          batch_params=False, busy=False) -> dict:
+    """The precompiled graphed StepwiseSolver (bench.py's chunk 10,
+    compact_levels 4, min_compact_batch 128) against the eager route,
+    ``make_batched_solver`` (one host read per body call, no compaction):
+    every Solution field bit for bit and the same launch counts.  Returns
+    precompile seconds, the peak device memory of precompile + solve,
+    replays and host reads per solve, each route's wall and seconds per
+    body call (the graphed route's per replay, masked replays included;
+    the eager route's per loop call, the most body calls of a lane), and
+    with ``busy`` the card's busy share over 3 graphed replays and over 3
+    eager body calls of the full width."""
     import torch
 
     import ddp_generator_tpu_torch as ddp
 
+    solver = ddp.StepwiseSolver(problem, opts, chunk=10,
+                                batch_params=batch_params, compact_levels=4,
+                                min_compact_batch=128, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    precompile_s = solver.precompile(x0s, u0s, p)
+    shares = {}
+    if busy:
+        shares["graphed_busy_pct"] = graphed_busy_share(solver, x0s, u0s, p)
+    g, g_wall, g_launches = timed_solve(solver, x0s, u0s, p)
+    peak = torch.cuda.max_memory_allocated()
+    loop = check_graphed(what, solver)
+    eager = ddp.make_batched_solver(problem, opts, batch_params,
+                                    device="cuda")
+    e, e_wall, e_launches = timed_solve(eager, x0s, u0s, p)
+    n = same_solution(what, g, e, g_launches, e_launches, ref="eager route")
+    if busy:
+        shares["eager_busy_pct"] = busy_share(solver, x0s, u0s, p)
+    eager_calls = int(e.body_calls.max())
+    return dict(
+        B=len(u0s), T=u0s.shape[1], dtype=opts.dtype,
+        precompile_s=precompile_s, peak_mem_gib=peak / 2**30,
+        graphed_wall_s=g_wall, eager_wall_s=e_wall,
+        eager_over_graphed=e_wall / g_wall,
+        graphed_s_per_replay=g_wall / max(1, loop["replays"]),
+        eager_body_calls=eager_calls,
+        eager_s_per_body_call=e_wall / max(1, eager_calls), **shares,
+        **loop, solved_pct=100 * float(np.isin(g.status, (1, 2)).mean()),
+        fields_equal=n, **{f"launches_{k}": v for k, v in g_launches.items()})
+
+
+def graphs_phase(problem):
+    """Phase 6b: the graphed route against the eager one
+    (:func:`graphed_against_eager`) at bench.py's CarParking solve (B=2048,
+    T=500, float32) on the kernel and the fused path."""
     p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float32)
+    return {backpass: graphed_against_eager(
+        f"graphs {backpass}", problem, main_options(backpass), x0s, u0s, p)
+        for backpass in ("kernel", "fused")}
+
+
+def graphs_routes_phase(problem):
+    """Phase 6d: the routes graphed beside the kernel and fused paths,
+    each against the eager route (:func:`graphed_against_eager`) at full
+    width: the serial path (``SolverOptions()``'s methods, float64) on
+    bench.py's CarParking solve, cut to max_iter 3 as serial_vs_kernel;
+    per-lane params (``limW`` per lane) on the kernel path, emission + B1
+    and the serial line search, float32, cut to max_iter 10 for the eager
+    reference; and the parallel backward pass with B2 on the
+    Brachistochrone (n=500, float64) of parallel_solves, nothing cut (its
+    solve takes about 14 body calls), with its busy shares.  The serial
+    and per-lane busy shares come from scripts/body_call_profile.py:
+    tracing ~143k device events a body call takes the profiler minutes."""
+    import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch.models import brachistochrone
+
     out = {}
-    for backpass in ("kernel", "fused"):
-        what = f"graphs {backpass}"
-        solver = main_solver(problem, backpass)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        precompile_s = solver.precompile(x0s, u0s, p)
-        g, g_wall, g_launches = timed_solve(solver, x0s, u0s, p)
-        peak = torch.cuda.max_memory_allocated()
-        loop = check_graphed(what, solver)
-        eager = ddp.make_batched_solver(problem, main_options(backpass),
-                                        device="cuda")
-        e, e_wall, e_launches = timed_solve(eager, x0s, u0s, p)
-        for f in g._fields:
-            a, b = getattr(g, f), getattr(e, f)
-            if a.shape != b.shape or not np.array_equal(
-                    a, b, equal_nan=a.dtype.kind == "f"):
-                fail(f"{what}: Solution.{f} differs from the eager route "
-                     f"in {int((a != b).sum())} entries")
-        if g_launches != e_launches:
-            fail(f"{what}: launches {g_launches} graphed, {e_launches} "
-                 "eager")
-        out[backpass] = dict(
-            B=B_MAIN, T=T_MAIN, precompile_s=precompile_s,
-            peak_mem_gib=peak / 2**30, graphed_wall_s=g_wall,
-            eager_wall_s=e_wall, eager_over_graphed=e_wall / g_wall,
-            **loop, solved_pct=100 * float(np.isin(g.status, (1, 2)).mean()),
-            fields_equal=len(g._fields),
-            **{f"launches_{k}": v for k, v in g_launches.items()})
+    p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float64)
+    opts = ddp.SolverOptions(max_iter=3, dtype="float64", debug_level=0)
+    out["serial"] = dict(
+        depth_cut=f"max_iter {MAX_ITER_MAIN}->3",
+        **graphed_against_eager("graphs serial", problem, opts, x0s, u0s,
+                                p))
+    p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float32)
+    pb, _ = car_limw_per_lane(p, B_MAIN)
+    opts = main_options().replace(max_iter=MAX_ITER_GRAPHS_PER_LANE)
+    out["per_lane_kernel"] = dict(
+        depth_cut=f"max_iter {MAX_ITER_MAIN}->{MAX_ITER_GRAPHS_PER_LANE}",
+        limW="linspace(0.2,0.5)",
+        **graphed_against_eager("graphs per-lane kernel", problem, opts,
+                                x0s, u0s, pb, batch_params=True))
+    p, x0s, u0s = brachi_plain_inputs(B_MAIN, N_BRACHI, seed=11)
+    out["parallel"] = dict(
+        depth_cut="none", **graphed_against_eager(
+            "graphs parallel", brachistochrone.brachistochrone(),
+            parallel_options(), x0s, u0s, p, busy=True))
     return out
 
 
@@ -1160,9 +1253,10 @@ def per_lane_inline():
 def serial_vs_kernel(problem):
     """Phase 9: the serial path against the kernel path on CarParking at
     full width (B=2048, T=500, float64), cut to max_iter=3 (a whole eager
-    serial solve at T=500 takes minutes): per lane equal status,
-    iterations, body and stale calls, cost to a relative 1e-8; seconds per
-    body call of each (wall over the most body calls of a lane)."""
+    serial solve at T=500 took minutes), each graphed (its width captured
+    at first use, inside the wall): per lane equal status, iterations,
+    body and stale calls, cost to a relative 1e-8; seconds per body call
+    of each (wall over the most body calls of a lane)."""
     import ddp_generator_tpu_torch as ddp
 
     p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float64)
@@ -1173,6 +1267,7 @@ def serial_vs_kernel(problem):
                                  linesearch_method=path)
         solver = ddp.StepwiseSolver(problem, opts, device="cuda")
         s, wall, launches = timed_solve(solver, x0s, u0s, p)
+        loop = check_graphed(f"serial_vs_kernel {path}", solver)
         used = sum(launches.values())
         if (path == "serial") != (used == 0):
             fail(f"serial_vs_kernel: the {path} path launched {launches}")
@@ -1181,6 +1276,7 @@ def serial_vs_kernel(problem):
         res[f"{path}_wall_s"] = wall
         res[f"{path}_body_calls"] = calls
         res[f"{path}_s_per_body_call"] = wall / calls
+        res[f"{path}_replays"] = loop["replays"]
     a, b = sols["serial"], sols["kernel"]
     for f in ("status", "iterations", "body_calls", "stale_calls"):
         if not np.array_equal(getattr(a, f), getattr(b, f)):
@@ -1216,6 +1312,7 @@ def cartpole_path(serial: bool, cpu_lanes=None):
     p, x0s, u0s = cartpole_inputs(B_MAIN, T_POLE, np_dtype)
     solver = ddp.StepwiseSolver(cartpole.cartpole(), opts, device="cuda")
     s, wall, launches = timed_solve(solver, x0s, u0s, p)
+    loop = check_graphed(what, solver)
     want = set() if serial else {"fused", "rollout_multi",
                                  "rollout_selected"}
     for name, n in launches.items():
@@ -1255,7 +1352,8 @@ def cartpole_path(serial: bool, cpu_lanes=None):
                 max_abs_u=u_max, mean_iters=float(s.iterations.mean()),
                 mean_body_calls=float(s.body_calls.mean()),
                 max_body_calls=body, s_per_body_call=wall / body,
-                mean_cost=float(s.cost[ok].mean()), launches=launches)
+                mean_cost=float(s.cost[ok].mean()), **loop,
+                launches=launches)
 
 
 def ptxas_summary(lib_path) -> dict:
@@ -1740,6 +1838,7 @@ def parallel_solves():
         solver = ddp.StepwiseSolver(problem, parallel_options(),
                                     device="cuda")
         s, wall, launches = timed_solve(solver, x0s, u0s, p)
+        loop = check_graphed(what, solver)
         # B2's alpha[0] stage (a selected rollout) runs in every body call
         # with a live lane, its sweep only where a lane rejects alpha[0]
         if (launches["rollout_selected"] <= 0 or launches["backpass"]
@@ -1753,6 +1852,7 @@ def parallel_solves():
         kern = ddp.StepwiseSolver(problem, parallel_options("kernel"),
                                   device="cuda")
         k_sol, k_wall, k_launches = timed_solve(kern, x0s, u0s, p)
+        check_graphed(f"{what}: kernel path", kern)
         both = np.isin(s.status, (1, 2)) & np.isin(k_sol.status, (1, 2))
         high = both & ((s.lam > LAM_HIGH) | (k_sol.lam > LAM_HIGH))
         gated = both & ~high
@@ -1782,7 +1882,7 @@ def parallel_solves():
             mean_iters=float(s.iterations.mean()),
             max_iters=int(s.iterations.max()),
             mean_body_calls=float(s.body_calls.mean()),
-            loop_body_calls=solver.last_stats.body_calls,
+            loop_body_calls=solver.last_stats.body_calls, **loop,
             busy_pct=busy_share(solver, x0s, u0s, p),
             kernel_path_wall_s=k_wall,
             kernel_path_solved_pct=100 * float(
@@ -2544,6 +2644,13 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_last = [time.time()]
+
+    def seconds(phase):
+        """A line with the seconds since the previous one (or the start)."""
+        now = time.time()
+        line("phase_seconds", name=phase, s=round(now - t_last[0], 1))
+        t_last[0] = now
 
     # 1. device
     try:
@@ -2575,10 +2682,12 @@ def main() -> int:
     if built["spill_store_bytes"]:
         fail(f"the kernels spill {built['spill_store_bytes']} bytes of "
              "registers (ptxas.txt beside the library)")
+    seconds("build")
 
     # 0. emission does not depend on what the process emitted before
     for case, d in emission_history().items():
         line("emission_history", case=case, **d)
+    seconds("emission_history")
 
     problem = car_parking.car_parking()
     alphas = tuple(ddp.SolverOptions().alpha)
@@ -2609,6 +2718,7 @@ def main() -> int:
     fu64, _ = check_fused_model(problem, p64, r64, m64, w64, lam64, 3)
     line("fused_f64", N=T_MAIN, **fu64)
     line("fused_brachi_f64", N=N_BRACHI, **check_fused_brachi(5))
+    seconds("kernels")
 
     # 12d. B2 and B3 on CarParking's generated model, on the same operands:
     # against their plain versions and the hand-written model's kernels
@@ -2638,11 +2748,13 @@ def main() -> int:
             line("generated_models", kernel=f"rollout_{mode}", model=name,
                  **d)
         line("generated_models", kernel="fused", model=name, **fu)
+    seconds("generated_kernels_and_user_solves")
 
     # 4d. B1, B3 and B2 at the compaction widths: the latency floor
     for w, d in widths_phase(b1_args, b3_args, b2_args, 10).items():
         line("widths_f32", B=w, N=T_MAIN, **d)
     del out32, out64, r32, r64, b1_args, b3_args, b2_args
+    seconds("widths")
 
     # 4e. Cartpole's instantiations of B1 (4, 1), B2 and B3 against their
     # plain versions, on its swing-up's initial rollout
@@ -2664,6 +2776,7 @@ def main() -> int:
         line("cartpole_kernels", kernel="fused", N=T_POLE, dtype=key, **fu)
         pole_kernels[key] = dict(ro, fused=fu)
         del p_, r_, m_, w_, out_, lam_
+    seconds("cartpole_kernels")
 
     # 5. per-lane checks, kernels on the GPU vs plain on the CPU
     line("per_lane", **per_lane_check(problem))
@@ -2678,6 +2791,7 @@ def main() -> int:
     # 5d. per-lane params (batch_params=True), GPU vs CPU
     for what, d in batch_params_per_lane().items():
         line("batch_params_per_lane", case=what, **d)
+    seconds("per_lane")
 
     # 6. the main path: emission + B1, B2
     stats, main_sol = main_path(problem)
@@ -2685,11 +2799,17 @@ def main() -> int:
     stats.pop("launches")
     line("main_path", **stats, **{f"launches_{k}": v
                                   for k, v in launches.items()})
+    seconds("main_path")
 
     # 6b. graphed against eager, both paths; 6c. the two emitters
     for backpass, d in graphs_phase(problem).items():
         line("graphs", path=backpass, **d)
     line("emitters", **emitter_launches(problem))
+    seconds("graphs_and_emitters")
+    # 6d. the serial, per-lane and parallel routes, graphed against eager
+    for route, d in graphs_routes_phase(problem).items():
+        line("graphs", path=route, **d)
+    seconds("graphs_routes")
 
     # 7. the fused path at full width: B3, B2
     fstats, fused_sol = main_path(problem, "fused")
@@ -2697,6 +2817,7 @@ def main() -> int:
     fstats.pop("launches")
     line("fused_path", **fstats, **{f"launches_{k}": v
                                     for k, v in flaunches.items()})
+    seconds("fused_path")
 
     # 7b. the pipelined solve: both paths with pipeline_depth=4 against
     # the depth-1 solves above, every Solution field and launch count
@@ -2715,6 +2836,7 @@ def main() -> int:
     f32_counts = {k: types.SimpleNamespace(status=v.status,
                                            iterations=v.iterations)
                   for k, v in (("kernel", main_sol), ("fused", fused_sol))}
+    seconds("pipelined")
 
     # 16. the main path as two ranks sharing the card (the batch mesh over
     # torch.distributed), both paths, against the single-process solves;
@@ -2723,17 +2845,20 @@ def main() -> int:
                                         "fused": (fused_sol, fstats)}
                               ).items():
         line("mesh", path=path, **d)
+    seconds("mesh")
 
     # 17. the main path's and the fused path's configurations exported,
     # restored in a process without the problem's module, and solved
     for path, d in aot_phase(problem).items():
         line("aot", path=path, **d)
+    seconds("aot")
 
     # 8. brachistochrone_hli at full width: B3, B2 with the AL families
     bstats, brachi_sol = brachi_path(brachistochrone.brachistochrone_hli())
     blaunches = bstats.pop("launches")
     line("brachi_path", **bstats, **{f"launches_{k}": v
                                      for k, v in blaunches.items()})
+    seconds("brachi_path")
 
     # 12a. generated models: the main path's and the fused path's
     # solves with CarParking's hand-written model stripped: B2 and B3 run
@@ -2761,9 +2886,11 @@ def main() -> int:
          fields_equal=n, **gstats,
          **{f"launches_{k}": v for k, v in glaunches.items()})
     del brachi_sol, gsol
+    seconds("generated_solves")
 
     # 9. the serial path against the kernel path at full width, 3 deep
     line("serial_vs_kernel", **serial_vs_kernel(problem))
+    seconds("serial_vs_kernel")
 
     # 10. the Cartpole swing-up at full width: serial float64 (cut to
     # max_iter 20, its first lanes against the CPU), then B3 + B2 in float32
@@ -2772,12 +2899,14 @@ def main() -> int:
         claunches = cstats.pop("launches")
         line("cartpole_path", path="serial" if serial else "fused",
              **cstats, **{f"launches_{k}": v for k, v in claunches.items()})
+    seconds("cartpole_path")
 
     # 11. per-lane params at full width: emission + B1, serial line search
     pstats = batch_params_path(problem)
     plaunches = pstats.pop("launches")
     line("batch_params_path", **pstats, **{f"launches_{k}": v
                                            for k, v in plaunches.items()})
+    seconds("batch_params_path")
 
     # 13. the parallel path: the associative-scan backward pass against
     # the serial one on a nominal bundle, the full-width solves through it
@@ -2793,11 +2922,13 @@ def main() -> int:
         line("parallel_path", part="solve", case=name, **d)
     for N, d in parallel_long_horizon().items():
         line("parallel_path", part="long_horizon", B=1, N=N, **d)
+    seconds("parallel_path")
 
     # 14. the auxiliary API on the card; 15. float64 fused against kernel
     line("aux_api", **aux_api(problem))
     line("fused_vs_kernel", B=B_MAIN, T=T_MAIN,
          **fused_vs_kernel_f64(problem, f32_counts))
+    seconds("aux_api_and_fused_vs_kernel")
 
     # 18. the bench entry on the main path's cell, with each of bench.py's
     # levers; 19. the example scripts on the card
@@ -2806,8 +2937,10 @@ def main() -> int:
              max_iter=BENCH_MAX_ITER,
              depth_cut=f"max_iter {MAX_ITER_MAIN}->{BENCH_MAX_ITER}, "
              f"repeats 3->{BENCH_REPEATS}", **d)
+    seconds("bench_entry")
     for script, d in examples().items():
         line("examples", script=script, **d)
+    seconds("examples")
 
     def entry(name, source, replaces, n, d, model="car_parking"):
         # no single PyTorch call computes any of these: library_ms is null

@@ -79,7 +79,8 @@ def _finite(x: Tensor) -> Tensor:
 @functools.lru_cache(maxsize=None)
 def _pattern_masks(n: int, device: torch.device):
     """The clamp patterns ``(P, n)`` int32 and their at-lower, at-upper,
-    free masks, built once per (n, device)."""
+    free masks, built once per (n, device): by a body call's first eager
+    run, never inside a CUDA graph capture (a copy from host memory)."""
     pat = torch.tensor(_patterns(n), dtype=torch.int32, device=device)
     return pat, pat == 1, pat == 2, pat == 0
 
@@ -313,6 +314,13 @@ def boxqp_newton(H: Tensor, g: Tensor, lower: Tensor, upper: Tensor,
                        n_free=free.sum(-1, dtype=i32))
 
 
+def enumerates(method: str, n: int) -> bool:
+    """Does :func:`boxqp` take the enumeration (no host read) for
+    ``method`` on ``n`` inputs, rather than the Newton iteration (one host
+    read per iteration and per Armijo step)?"""
+    return method == "enumerate" or (method == "auto" and n <= 3)
+
+
 def boxqp(H: Tensor, g: Tensor, lower: Tensor, upper: Tensor, x0: Tensor,
           hyper: BoxQPHyper = BoxQPHyper()) -> BoxQPResult:
     """boxQP dispatcher: MOD_CHOL first when ``hyper.use_mod_chol``, then
@@ -322,7 +330,6 @@ def boxqp(H: Tensor, g: Tensor, lower: Tensor, upper: Tensor, x0: Tensor,
         # MOD_CHOL pre-regularization (boxQP.c:69-72): replace an indefinite
         # H by its Schnabel-Eskow PSD perturbation before solving.
         H, _ = mod_chol_perturb(H)
-    if hyper.method == "enumerate" or (hyper.method == "auto"
-                                       and H.shape[-1] <= 3):
+    if enumerates(hyper.method, H.shape[-1]):
         return boxqp_enumerate(H, g, lower, upper, hyper)
     return boxqp_newton(H, g, lower, upper, x0, hyper)

@@ -37,6 +37,7 @@ the kernel (or raises) for CUDA tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -76,11 +77,19 @@ def tri_index(a: int, b: int, n: int) -> int:
     return a * n - a * (a - 1) // 2 + (b - a)
 
 
+@functools.lru_cache(maxsize=None)
+def _sym_index(n: int, device: torch.device) -> Tensor:
+    """The packed index of every entry of a full ``(n, n)`` matrix, made
+    once per (n, device): a body call's first eager run builds it, never a
+    CUDA graph capture (a copy from host memory)."""
+    return torch.tensor([tri_index(min(a, b), max(a, b), n)
+                         for a in range(n) for b in range(n)], device=device)
+
+
 def _unpack_sym(packed: Tensor, n: int) -> Tensor:
     """``(tri, ...)`` packed upper triangle -> full ``(n, n, ...)``."""
-    idx = [tri_index(min(a, b), max(a, b), n)
-           for a in range(n) for b in range(n)]
-    return packed[idx].reshape((n, n) + tuple(packed.shape[1:]))
+    return packed[_sym_index(n, packed.device)].reshape(
+        (n, n) + tuple(packed.shape[1:]))
 
 
 def _mm(A: Tensor, Bm: Tensor) -> Tensor:

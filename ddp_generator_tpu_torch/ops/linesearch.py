@@ -49,26 +49,30 @@ def first_accept(al: Tensor, costs: Tensor, ok: Tensor, cost: Tensor,
     return idx, any_ok, dcost, expected, z
 
 
-def line_search(problem, alphas: Sequence[float], x0, xs_nom, us_nom, l,
-                L_gain, dV, cost, z_min: float, p: Any, mu_le, mu_li, mu_fe,
-                mu_fi, w_pen_l, w_pen_f) -> LineSearchResult:
+def line_search(problem, alphas: Tensor | Sequence[float], x0, xs_nom,
+                us_nom, l, L_gain, dV, cost, z_min: float, p: Any, mu_le,
+                mu_li, mu_fe, mu_fi, w_pen_l, w_pen_f) -> LineSearchResult:
     """Serial line search of every lane: batch-major operands as
     :func:`.cuda_rollout.kernel_line_search` takes them (``x0 (B, n_x)``,
     ``xs_nom (B, N+1, n_x)``, ``L_gain (B, N, n_u, n_x)``, ``dV (B, 2)``,
     ``cost (B,)``); ``p`` shared, or per lane as
-    :class:`~..problem.LaneParams`."""
+    :class:`~..problem.LaneParams`.  ``alphas`` is the schedule as a
+    tensor in the operands' dtype and device, as the solver's body call
+    passes it (a copy from host memory cannot be captured in a CUDA
+    graph), or a sequence of numbers, copied here."""
     A, B = len(alphas), x0.shape[0]
-    al = torch.tensor(alphas, dtype=us_nom.dtype, device=us_nom.device)
+    al = (alphas if isinstance(alphas, Tensor) else
+          torch.tensor(alphas, dtype=us_nom.dtype, device=us_nom.device))
 
     def rep(t):  # (B, ...) -> (A*B, ...), alpha-major
         return t.expand((A,) + t.shape).reshape((A * B,) + t.shape[1:])
 
     if isinstance(p, LaneParams):  # lane a*B + b reads lane b's params
         p = p.take(torch.arange(A * B, device=x0.device) % B)
+    al_lanes = al[:, None].expand(A, B).reshape(A * B)  # alpha-major
     r = forward_pass(problem, rep(x0), rep(xs_nom), rep(us_nom), rep(l),
-                     rep(L_gain), al.repeat_interleave(B), p, rep(mu_le),
-                     rep(mu_li), rep(mu_fe), rep(mu_fi), rep(w_pen_l),
-                     rep(w_pen_f))
+                     rep(L_gain), al_lanes, p, rep(mu_le), rep(mu_li),
+                     rep(mu_fe), rep(mu_fi), rep(w_pen_l), rep(w_pen_f))
     costs = r.cost.reshape(A, B)
     idx, any_ok, dcost, expected, z = first_accept(
         al[:, None], costs, r.ok.reshape(A, B), cost, dV, z_min)

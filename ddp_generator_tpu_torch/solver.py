@@ -20,9 +20,10 @@ false keeps its carry.
 Two loops share the body: :func:`make_batched_solver` loops until no lane
 is active, eagerly, reading the host before every body call;
 :class:`StepwiseSolver` runs chunks of iterations with active-lane
-compaction, and on a CUDA device replays each body call of the kernel and
-fused paths as one CUDA graph per working width.  Per-lane results are
-identical between them, with compaction on or off and graphed or eager.
+compaction, and on a CUDA device replays each body call that reads nothing
+on the host as one CUDA graph per working width (:func:`_graphable`).
+Per-lane results are identical between them, with compaction on or off and
+graphed or eager.
 
 ``batch_params=True`` gives every lane its own params (the JAX convention:
 each leaf ``(B, *leaf_shape)``), cast once to lanes-last
@@ -48,7 +49,7 @@ from .al import Multipliers, init_multipliers, update_multipliers
 from .convert import to_torch
 from .derivs import batched_calc_derivs
 from .ops.backpass import back_pass
-from .ops.boxqp import BoxQPHyper
+from .ops.boxqp import BoxQPHyper, enumerates
 from .ops import cuda_backpass, cuda_fused
 from .ops.cm_derivs import cm_back_pass_from_bundle, cm_emit
 from .ops.cuda_fused import fused_derivs_back_pass
@@ -120,6 +121,20 @@ def _check_supported(problem: Problem, o: SolverOptions) -> None:
     if o.backpass_method in ("kernel", "fused") and problem.n_u > 3:
         raise ValueError(f"backpass_method={o.backpass_method!r} supports "
                          "n_u <= 3")
+
+
+def _graphable(problem: Problem, o: SolverOptions) -> bool:
+    """Does a body call of these options read nothing on the host, so that
+    :class:`StepwiseSolver` can replay it as a CUDA graph?  Every backward
+    pass and line search qualifies, with shared or per-lane params, as
+    long as boxQP takes the enumeration (the kernels' boxQP always does).
+    Two routes still read the host: boxQP's projected-Newton iteration
+    (``ops/boxqp.py`` ``boxqp_newton``, one read per iteration and per
+    Armijo step; ``boxqp_method="newton"``, or ``"auto"`` with n_u > 3)
+    and the inline lambda retries (``_lam_retry_loop``, one read per
+    retry).  ``debug_level >= 3`` prints every iteration from the host."""
+    return (enumerates(o.boxqp_method, problem.n_u)
+            and o.lam_retry == "deferred" and o.debug_level < 3)
 
 
 def _boxqp_hyper(o: SolverOptions) -> BoxQPHyper:
@@ -389,9 +404,8 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
 
         # ===== STEP 3: line search (iLQG.c:305-309) =====
         ls_alive = alive & ~c.done & (c.it < o.max_iter)
-        ls_args = (problem, alphas if linesearch == "serial" else alphas_t,
-                   c.xs[:, 0], c.xs, c.us, bp.l, bp.L, bp.dV,
-                   c.cost, o.zMin, params, c.mult.mu_le, c.mult.mu_li,
+        ls_args = (problem, alphas_t, c.xs[:, 0], c.xs, c.us, bp.l, bp.L,
+                   bp.dV, c.cost, o.zMin, params, c.mult.mu_le, c.mult.mu_li,
                    c.mult.mu_fe, c.mult.mu_fi, c.w_pen_l, c.w_pen_f)
         if linesearch == "serial":
             ls = line_search(*ls_args)
@@ -627,17 +641,21 @@ def _copy_into(dst, src) -> None:
 
 
 def _params_key(p):
-    """Structure, shapes and dtypes of cast params (dicts of tensors): a
-    captured graph reads a static copy of exactly this."""
+    """Type, structure, shapes and dtypes of cast params (dicts of tensors,
+    :class:`~.problem.LaneParams` per lane): a captured graph reads a
+    static copy of exactly this."""
     if isinstance(p, dict):
-        return tuple((k, _params_key(v)) for k, v in sorted(p.items()))
+        return (type(p),) + tuple((k, _params_key(v))
+                                  for k, v in sorted(p.items()))
     return (tuple(p.shape), p.dtype)
 
 
 def _params_map(fn, *trees):
-    """``fn`` over the tensors of cast params (dicts of tensors)."""
+    """``fn`` over the tensors of cast params (dicts of tensors), keeping
+    each dict's type (:class:`~.problem.LaneParams` stays one)."""
     if isinstance(trees[0], dict):
-        return {k: _params_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+        return type(trees[0])({k: _params_map(fn, *(t[k] for t in trees))
+                               for k in trees[0]})
     return fn(*trees)
 
 
@@ -749,24 +767,27 @@ class StepwiseSolver:
     below ``min_compact_batch``).  Per-lane results are bit-identical with
     compaction on or off: every lane sees the same iteration sequence.
 
-    **CUDA graphs.**  On a CUDA device a body call of the kernel and fused
-    paths is one replay of a CUDA graph captured for its working width
+    **CUDA graphs.**  On a CUDA device a body call that reads nothing on
+    the host is one replay of a CUDA graph captured for its working width
     (the port's counterpart of JAX's jitted chunk program, one per width):
     the graph reads and updates a static carry of that width and static
     params in place, and computes the active count inside it.  The host
     reads that count once every ``chunk`` replays and ends a chunk early
     when it is 0 (masked replays change no lane); compaction copies the
-    gathered working set into the next width's static carry.  Widths are
-    captured at first use, or all before the timed call by
-    :meth:`precompile`.  Graphed: ``backpass_method`` ``"kernel"`` or
-    ``"fused"``, ``linesearch_method="kernel"``, shared params, deferred
-    lambda retries at that width and ``debug_level < 3``.  Eager on the
-    card, one host read per body call: the serial and parallel paths (the
-    boxQP loops read the host), widths that retry inline (``lam_retry="inline"`` or
-    ``inline_below``), ``batch_params=True`` and the per-iteration trace
-    of ``debug_level >= 3``.  On the CPU the graphable configurations run
-    the same loop on the static carries with eager body calls.  A capture
-    or replay error raises; nothing falls back to the eager body.
+    gathered working set into the next width's static carry, and with
+    ``batch_params`` its params into the width's own static params.
+    Widths are captured at first use, or all before the timed call by
+    :meth:`precompile`.  Graphed (:func:`_graphable`): every
+    ``backpass_method`` and ``linesearch_method``, shared or per-lane
+    params, when boxQP on the serial and parallel backward passes takes
+    the enumeration, with deferred lambda retries at that width and
+    ``debug_level < 3``.  Eager on the card, one host read per body call:
+    boxQP's Newton iteration (``boxqp_method="newton"``, or ``"auto"``
+    with n_u > 3), widths that retry inline (``lam_retry="inline"`` or
+    ``inline_below``) and the per-iteration trace of ``debug_level >= 3``.
+    On the CPU the graphable configurations run the same loop on the
+    static carries with eager body calls.  A capture or replay error
+    raises; nothing falls back to the eager body.
     ``last_stats`` (:class:`LoopStats`) says what the last call did:
     replays, host reads, which widths ran graphed.
 
@@ -857,11 +878,7 @@ class StepwiseSolver:
                 problem, options.replace(lam_retry="inline"), self.device,
                 batch_params)[1]
         o = options
-        # configurations whose body call holds no host read
-        self._static_ok = (o.backpass_method in ("kernel", "fused")
-                           and o.linesearch_method == "kernel"
-                           and o.lam_retry == "deferred" and not batch_params
-                           and o.debug_level < 3)
+        self._static_ok = _graphable(problem, o)
         self._widths: dict = {}  # (width, N) -> _WidthBody
         self._counts = _LaggedCounts(
             1 if o.debug_level >= 1 else self.pipeline_depth)
@@ -873,13 +890,14 @@ class StepwiseSolver:
         first timed call (JAX: compile every chunk program): load the kernel
         library, run ``init`` (which generates and builds the problem's
         CUDA model and B1 shape where the built-in ones do not serve), then
-        capture, in the order the loop reaches
-        them, the body-call graph of every width of
-        :meth:`_compact_sizes` (warm-up calls on scratch carries, then the
-        capture; each width's static carry is allocated here).  Returns the
-        elapsed seconds.  ``max_workers`` is accepted and unused: capture is
-        serial (a graph captures one stream).  On the CPU it validates the
-        shapes and allocates the static carries, and captures nothing."""
+        capture, in the order the loop reaches them, the body-call graph of
+        every width of :meth:`_compact_sizes` (warm-up calls on scratch
+        carries, then the capture; each width's static carry is allocated
+        here, and with ``batch_params`` its static params, from the first
+        lanes of ``params``).  Returns the elapsed seconds.
+        ``max_workers`` is accepted and unused: capture is serial (a graph
+        captures one stream).  On the CPU it validates the shapes and
+        allocates the static carries, and captures nothing."""
         t0 = time.time()
         if self.device.type == "cuda":
             _build.load_library()
@@ -891,8 +909,10 @@ class StepwiseSolver:
             p = self._static_params(p)
             for size in self._compact_sizes(B):
                 if self._on_static(size):
+                    p_size = (p.take(torch.arange(size, device=self.device))
+                              if self.batch_params else p)
                     self._width(size, N, tree_map(lambda a: a[:size], full),
-                                p)
+                                p_size)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.time() - t0
@@ -923,18 +943,27 @@ class StepwiseSolver:
         return self._static_ok and not 0 < size <= self.inline_below
 
     def _static_params(self, p):
-        """``p`` copied into the static params the graphs read; a change of
-        their structure or shapes drops every captured width."""
+        """Shared params: ``p`` copied into the one static copy every
+        width's graph reads.  Per-lane params: ``p`` as it is; each width
+        owns static params of its width (:meth:`_width`), into which
+        :meth:`__call__` copies its working set's.  A change of their type,
+        structure or shapes drops every captured width."""
         key = _params_key(p)
         if key != self._p_key:
             self._widths.clear()
-            self._p_static, self._p_key = _params_map(torch.clone, p), key
+            self._p_key, self._p_static = key, None
+        if self.batch_params:
+            return p
+        if self._p_static is None:
+            self._p_static = _params_map(torch.clone, p)
         else:
             _params_map(lambda d, v: d.copy_(v), self._p_static, p)
         return self._p_static
 
     def _width(self, size: int, N: int, like: _Carry, params) -> _WidthBody:
-        """The width's body call, captured (or set up) at first use."""
+        """The width's body call, captured (or set up) at first use on a
+        scratch copy of ``like`` and, per lane, of ``params`` (lanes-last
+        leaves of this width)."""
         w = self._widths.get((size, N))
         if w is None:
             graph = self.device.type == "cuda"
@@ -942,6 +971,8 @@ class StepwiseSolver:
                 # widths never replay concurrently and keep nothing in the
                 # pool across calls: one pool serves them all
                 self._pool = torch.cuda.graph_pool_handle()
+            if self.batch_params:
+                params = _params_map(torch.clone, params)
             w = _WidthBody(_masked(self._body_at(size), self.options.max_iter),
                            like, params, self.options.max_iter, graph,
                            self._pool)
@@ -1042,6 +1073,9 @@ class StepwiseSolver:
                 if small is not w.carry:
                     _copy_into(w.carry, small)
                     small = w.carry
+                if p is not w.params:  # per-lane params of a new width
+                    _params_map(lambda d, v: d.copy_(v), w.params, p)
+                    p = w.params
                 calls, active = self._static_chunk(w, n)
                 if w.graph is not None:
                     replays += calls

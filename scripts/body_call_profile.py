@@ -1,15 +1,19 @@
 """Where a full-width body call of the port's CarParking solve spends its
 time, on one CUDA card.
 
-    python3 scripts/body_call_profile.py [--paths kernel,fused,serial]
-        [--calls 10] [--dtype float32] [--root DIR] [--history]
+    python3 scripts/body_call_profile.py
+        [--paths kernel,fused,serial,per_lane] [--calls 10]
+        [--dtype float32] [--root DIR] [--history]
 
-For each backward-pass path (``"kernel"``: emission + kernel B1;
-``"fused"``: kernel B3; ``"serial"``: the step-major bundle and the eager
-backward pass of ``ops/backpass.py``, with the serial line search) it
-builds the solver's parts for ``bench.py``'s workload (CarParking, B=2048,
-T=500, ``chip_smoke.py``'s inputs and options, float32 unless
-``--dtype``), runs the initial rollout and 3 warm-up body calls, then
+For each path (``"kernel"``: emission + kernel B1; ``"fused"``: kernel
+B3; ``"serial"``: the step-major bundle and the backward pass of
+``ops/backpass.py``, with the serial line search; ``"per_lane"``:
+per-lane params, ``limW`` from +-0.2 to +-0.5 over the lanes as
+``chip_smoke.py``'s, on the kernel path, so emission + B1 and the serial
+line search) it builds the solver's parts for ``bench.py``'s workload
+(CarParking, B=2048, T=500, ``chip_smoke.py``'s inputs and options,
+float32 unless ``--dtype``), runs the initial rollout and 3 warm-up body
+calls, then
 ``--calls`` body calls, each timed on the host clock between two
 ``torch.cuda.synchronize()``; on the same carries it times the stages of a
 body call alone: the derivatives and backward pass, and the line search
@@ -18,10 +22,13 @@ body call alone: the derivatives and backward pass, and the line search
 is the device time of all kernels over the wall time, and the device
 events and the launches of each hand-written kernel per body call are
 counted (B2: the sweep and the selected rollouts; a staged line search
-launches three, of which those its stage flags skip count none).  On the
-kernel and fused paths it then captures the solver's body call (the masked
-step on a static carry, ``solver._WidthBody``) as a CUDA graph and times
-and traces ``--calls`` replays the same way (``graph_*`` keys).  On the
+launches three, of which those its stage flags skip count none).  Then it
+captures the solver's body call (the masked step on a static carry,
+``solver._WidthBody``) as a CUDA graph and times and traces ``--calls``
+replays the same way (``graph_*`` keys), with the capture's seconds
+(warm-up calls included) and the graph's node count (``graph_nodes``:
+the same body call captured once more with the graph kept, its nodes
+counted by ``libcuda``'s ``cuGraphGetNodes``).  On the
 kernel path it also traces derivative emission alone, once with each
 ``derivs_emitter`` (``emit_*`` keys: device kernels and device ms of one
 emission, and its host ms).  Prints one line per path; imports no JAX.
@@ -60,7 +67,7 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def profile_path(backpass: str, calls: int, dtype: str) -> dict:
+def profile_path(path: str, calls: int, dtype: str) -> dict:
     import numpy as np
     import torch
 
@@ -79,14 +86,19 @@ def profile_path(backpass: str, calls: int, dtype: str) -> dict:
     from ddp_generator_tpu_torch.ops.linesearch import line_search
 
     problem = car_parking.car_parking()
+    per_lane = path == "per_lane"
+    backpass = "kernel" if per_lane else path
     serial = backpass == "serial"
+    serial_ls = serial or per_lane
     o = ddp.SolverOptions(max_iter=cs.MAX_ITER_MAIN, dtype=dtype,
                           tolFun=1e-5 if dtype == "float32" else 1e-7,
                           debug_level=0, backpass_method=backpass,
                           linesearch_method="serial" if serial else "kernel")
-    init_fn, body_fn, _, cast = slv._make_parts(problem, o, "cuda")
+    init_fn, body_fn, _, cast = slv._make_parts(problem, o, "cuda", per_lane)
     np_dtype = np.float32 if dtype == "float32" else np.float64
     p_np, x0s, u0s = cs.bench_inputs(cs.B_MAIN, cs.T_MAIN, np_dtype)
+    if per_lane:
+        p_np, _ = cs.car_limw_per_lane(p_np, cs.B_MAIN)
     p = cast(ddp.params_from_jax(p_np, getattr(torch, dtype), "cuda"),
              cs.B_MAIN)
     c = init_fn(torch.as_tensor(x0s, device="cuda"),
@@ -113,7 +125,7 @@ def profile_path(backpass: str, calls: int, dtype: str) -> dict:
 
     def ls_stage(c, bp):
         m = c.mult
-        if serial:
+        if serial_ls:
             return line_search(
                 problem, alphas, c.xs[:, 0], c.xs, c.us, bp.l, bp.L, bp.dV,
                 c.cost, o.zMin, p, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi,
@@ -148,7 +160,7 @@ def profile_path(backpass: str, calls: int, dtype: str) -> dict:
     dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy_ms = sum(e.device_time_total for e in dev) / 1e3
     med = statistics.median
-    out = dict(path=backpass, dtype=dtype, calls=calls, body_ms=med(body),
+    out = dict(path=path, dtype=dtype, calls=calls, body_ms=med(body),
                bp_ms=med(bps), ls_ms=med(lss),
                rest_ms=med(body) - med(bps) - med(lss),
                body_ms_all=[round(v, 3) for v in body],
@@ -171,8 +183,7 @@ def profile_path(backpass: str, calls: int, dtype: str) -> dict:
             out.update({f"emit_{name}_device_events": events,
                         f"emit_{name}_device_ms": dev_ms,
                         f"emit_{name}_host_ms": host})
-    if not serial:
-        out.update(profile_graphed(slv, o, body_fn, c, p, calls, acts))
+    out.update(profile_graphed(slv, o, body_fn, c, p, calls, acts))
     return out
 
 
@@ -189,6 +200,7 @@ def profile_graphed(slv, o, body_fn, c, p, calls, acts) -> dict:
                        graph=True)
     torch.cuda.synchronize()
     capture_ms = (time.perf_counter() - t0) * 1e3
+    nodes = graph_nodes(w)
     body = [timed(w.run)[1] for _ in range(calls)]
     reset_launches()
     with torch.profiler.profile(activities=acts) as prof:
@@ -199,7 +211,7 @@ def profile_graphed(slv, o, body_fn, c, p, calls, acts) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy_ms = sum(e.device_time_total for e in dev) / 1e3
-    return dict(graph_capture_ms=capture_ms,
+    return dict(graph_capture_ms=capture_ms, graph_nodes=nodes,
                 graph_body_ms=statistics.median(body),
                 graph_body_ms_all=[round(v, 3) for v in body],
                 graph_profiled_wall_ms=wall_ms,
@@ -207,6 +219,32 @@ def profile_graphed(slv, o, body_fn, c, p, calls, acts) -> dict:
                 graph_device_events_per_call=len(dev) / calls,
                 **{f"graph_{k}_launches_per_call": v / calls
                    for k, v in read_launches().items()})
+
+
+def graph_nodes(w):
+    """The node count of the width's body call captured once more into a
+    graph that torch keeps (``CUDAGraph(keep_graph=True)``, never
+    instantiated), from ``libcuda``'s ``cuGraphGetNodes``; "not
+    measured" where this torch cannot keep the graph."""
+    import ctypes
+
+    import torch
+
+    try:
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError as e:
+        return f"not measured ({e})"
+    with torch.cuda.graph(g):
+        w._call()
+    torch.cuda.synchronize()
+    get_nodes = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    get_nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.POINTER(ctypes.c_size_t)]
+    get_nodes.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    rc = get_nodes(g.raw_cuda_graph(), None, ctypes.byref(n))
+    del g
+    return int(n.value) if rc == 0 else f"not measured (CUresult {rc})"
 
 
 def main() -> int:

@@ -16,7 +16,9 @@ exercised; the ``*_ragged`` cases of B1, B2 and B3 also take ``B = G+3``,
 compaction width, with ``G`` and ``S`` read from the built kernel.  B2's
 stage flag: a stage whose flag is 0 writes nothing.  ``StepwiseSolver``'s
 CUDA graphs: the graphed solve equals the eager one bit for bit on the
-kernel and fused paths (B=64), and a capture error raises.  Needs
+kernel and fused paths (B=64), and on the serial, parallel and per-lane
+routes (``tests/test_torch_graphs.py``'s ``ROUTES``), and a capture error
+raises.  Needs
 a CUDA device and ``nvcc``;
 skips elsewhere.  The file imports no JAX, so on a machine without it run
 it past ``tests/conftest.py``::
@@ -42,6 +44,7 @@ from ddp_generator_tpu_torch.ops import cuda_backpass as cb
 from ddp_generator_tpu_torch.ops import cuda_fused as cf
 from ddp_generator_tpu_torch.ops import cuda_rollout as cr
 from ddp_generator_tpu_torch.ops.forward import forward_pass
+from test_torch_graphs import ROUTES, route_case
 
 pytestmark = pytest.mark.cuda
 
@@ -478,6 +481,27 @@ def test_graphed_stepwise_equals_eager(cuda, backpass):
         assert torch.equal(a, b), name
         assert torch.equal(a, c), name
         assert torch.equal(d, b), name
+
+
+@pytest.mark.parametrize("route", [r for r in ROUTES
+                                   if r not in ("kernel", "fused")])
+def test_graphed_routes_equal_eager(cuda, route):
+    """Each route graphed beside the kernel and fused paths, precompiled
+    (widths 64, 32, 16), gives every Solution field of make_batched_solver
+    bit for bit, every width graphed."""
+    problem, opts, x0s, u0s, p, lanes = route_case(ROUTES[route], 64, 40)
+    ref = ddp.make_batched_solver(problem, opts, lanes, device=cuda)(
+        x0s, u0s, p)
+    solver = ddp.StepwiseSolver(problem, opts, chunk=3, batch_params=lanes,
+                                compact_levels=2, min_compact_batch=16,
+                                device=cuda)
+    assert solver.precompile(x0s, u0s, p) > 0
+    sol = solver(x0s, u0s, p)
+    st = solver.last_stats
+    assert st.eager == () and st.replays == st.body_calls > 0
+    for name, a, b in zip(sol._fields, sol, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                   msg=name)
 
 
 def test_capture_error_raises(cuda):

@@ -1,9 +1,12 @@
 """What a CUDA graph of ``StepwiseSolver``'s body call needs, checked on the
-CPU: the body call reads nothing on the host, the staged line search
-decides its stages on the device and equals the host-branch schedule it
-replaced, the loop reads the host at most once every ``chunk`` body calls,
-and ``precompile`` changes no result.  CarParking, float64, B <= 16,
-T <= 40, through the kernels' plain versions."""
+CPU: the body call of every graphed route (each backward pass and line
+search, shared and per-lane params) reads nothing on the host and copies
+nothing to the device from Python data, the staged line search decides
+its stages on the device and equals the host-branch schedule it replaced,
+the loop reads the host at most once every ``chunk`` body calls, and
+``precompile`` changes no result.  CarParking (the parallel route: the
+Brachistochrone), float64, B <= 16, T <= 40, through the kernels' plain
+versions."""
 
 import contextlib
 import math
@@ -11,9 +14,11 @@ import math
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 import ddp_generator_tpu_torch as td
 from ddp_generator_tpu_torch import solver as slv
+from ddp_generator_tpu_torch.models import brachistochrone as tbr
 from ddp_generator_tpu_torch.models import car_parking as tcar
 from ddp_generator_tpu_torch.ops import cuda_rollout as cr
 from ddp_generator_tpu_torch.ops.forward import forward_pass
@@ -45,6 +50,44 @@ def host_reads(count=None):
             setattr(torch.Tensor, name, f)
 
 
+class _NoHostCopies(TorchFunctionMode):
+    """Raise at an index a capture refuses: a Python list (copied from host
+    memory) or a boolean mask (its size is read on the host)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in (torch.Tensor.__getitem__, torch.Tensor.__setitem__):
+            idx = args[1] if isinstance(args[1], tuple) else (args[1],)
+            for i in idx:
+                if isinstance(i, list) or (isinstance(i, torch.Tensor)
+                                           and i.dtype == torch.bool):
+                    raise AssertionError(f"index by {type(i).__name__} "
+                                         f"{getattr(i, 'dtype', '')}")
+        return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def no_host_copies():
+    """Raise at a copy from Python data to a tensor (``torch.tensor``, or
+    ``torch.as_tensor`` of anything but a tensor) and at the indices of
+    :class:`_NoHostCopies`: a CUDA graph capture refuses both."""
+    saved = torch.tensor, torch.as_tensor
+
+    def refuse(name, f):
+        def g(data, *a, **kw):
+            if name == "tensor" or not isinstance(data, torch.Tensor):
+                raise AssertionError(f"torch.{name} of {type(data).__name__}")
+            return f(data, *a, **kw)
+        return g
+
+    torch.tensor, torch.as_tensor = (refuse("tensor", saved[0]),
+                                     refuse("as_tensor", saved[1]))
+    try:
+        with _NoHostCopies():
+            yield
+    finally:
+        torch.tensor, torch.as_tensor = saved
+
+
 def _workload(B=16, T=30, seed=7):
     """tests/test_mesh_stepwise.py's workload, in float64."""
     problem = tcar.car_parking()
@@ -55,27 +98,84 @@ def _workload(B=16, T=30, seed=7):
     return problem, p, x0s, u0s
 
 
-def _options(backpass="kernel", **kw):
+def _options(backpass="kernel", linesearch="kernel", **kw):
     return td.SolverOptions(max_iter=25, dtype="float64", debug_level=0,
                             backpass_method=backpass,
-                            linesearch_method="kernel", **kw)
+                            linesearch_method=linesearch, **kw)
 
 
-@pytest.mark.parametrize("backpass", ["kernel", "fused"])
-def test_body_call_reads_nothing_on_the_host(backpass):
+def per_lane(p, B):
+    """``batch_params=True`` params: every leaf with a leading lane axis."""
+    return {k: np.tile(np.asarray(v, np.float64), (B,) + (1,) * np.ndim(v))
+            for k, v in p.items()}
+
+
+def route_case(route, B, T):
+    """``(problem, options, x0s, u0s, params, batch_params)`` of a graphed
+    route: ``(backpass, linesearch, per_lane)``.  Per-lane CarParking params
+    vary ``limW`` from +-0.2 to +-0.5 over the lanes; the parallel
+    backward pass (unconstrained, ``full_ddp=False``) runs the
+    Brachistochrone of tests/test_parallel_riccati.py, its terminal
+    height ``yf`` per lane."""
+    backpass, linesearch, lanes = route
+    if backpass == "parallel":
+        problem = tbr.brachistochrone()
+        p, x0, u0 = tbr.default_setup(T)
+        rng = np.random.default_rng(2)
+        x0s = np.tile(x0, (B, 1)) - rng.random((B, 1))
+        u0s = np.minimum(u0[None] * (0.2 + 3 * rng.random((B, 1, 1)))
+                         + 0.3 * rng.standard_normal((B, T, 1)), -0.05)
+        opts = td.SolverOptions(max_iter=50, w_pen_init_f=40.0,
+                                w_pen_fact2=2.0, full_ddp=False,
+                                dtype="float64", debug_level=0,
+                                backpass_method=backpass,
+                                linesearch_method=linesearch)
+        if lanes:
+            p = per_lane(p, B)
+            p["yf"] = np.linspace(-3.0, -5.0, B)
+        return problem, opts, x0s, u0s, p, lanes
+    problem, p, x0s, u0s = _workload(B=B, T=T)
+    if lanes:
+        p = per_lane(p, B)
+        lim = np.linspace(0.2, 0.5, B)
+        p["limW"] = np.stack([-lim, lim], axis=1)
+    return problem, _options(backpass, linesearch), x0s, u0s, p, lanes
+
+
+# (backpass_method, linesearch_method, batch_params) of each graphed route
+ROUTES = {"kernel": ("kernel", "kernel", False),
+          "fused": ("fused", "kernel", False),
+          "serial": ("serial", "serial", False),
+          "serial_kernel_ls": ("serial", "kernel", False),
+          "parallel_serial_ls": ("parallel", "serial", False),
+          "parallel_kernel_ls": ("parallel", "kernel", False),
+          "per_lane_serial": ("serial", "serial", True),
+          "per_lane_kernel": ("kernel", "kernel", True),
+          "per_lane_fused": ("fused", "kernel", True),
+          "per_lane_parallel": ("parallel", "serial", True)}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_body_call_reads_nothing_on_the_host(route):
     """The body call a graph captures -- the masked step on the static
-    carry -- runs with every host read patched to raise, twice (the second
-    call sees lanes that accepted and a lambda that moved)."""
-    problem, p, x0s, u0s = _workload(B=8, T=20)
-    init, body, _, cast = slv._make_parts(problem, _options(backpass), "cpu")
+    carry -- runs with every host read patched to raise and with every copy
+    from Python data refused, twice (the second call sees lanes that
+    accepted and a lambda that moved), after the one eager call that a
+    capture's warm-up makes first (it builds the per-device index tables
+    of ``ops/boxqp.py`` and ``ops/cuda_backpass.py``)."""
+    problem, o, x0s, u0s, p, lanes = route_case(ROUTES[route], 8, 20)
+    assert slv._graphable(problem, o)
+    init, body, _, cast = slv._make_parts(problem, o, "cpu", lanes)
     params = cast(p, 8)
     c = init(x0s, u0s, params)
-    w = slv._WidthBody(slv._masked(body, 25), c, params, 25, graph=False)
-    with host_reads():
+    w = slv._WidthBody(slv._masked(body, o.max_iter), c, params,
+                       o.max_iter, graph=False)
+    w.run()  # the warm-up
+    with host_reads(), no_host_copies():
         w.run()
         w.run()
     assert int(w.active) > 0
-    assert int(w.carry.body_calls.max()) == 2
+    assert int(w.carry.body_calls.max()) == 3
 
 
 def _host_branch_staged(problem, alphas, x0, xs_nom, us_nom, l, L_gain, dV,

@@ -5,9 +5,9 @@ The late read only changes when the host learns that lanes are done,
 never the lane math: every Solution field must equal the synchronous
 ``pipeline_depth=1`` solve bit for bit, on the static route (the kernel
 path, whose CPU run is the graphed route's loop with eager body calls) and
-on the eager route (the serial path), with compaction under way: every
-third lane fails its initial rollout and the others finish at different
-iterations.
+on the eager route (the serial path with boxQP's Newton iteration, whose
+body call reads the host), with compaction under way: every third lane
+fails its initial rollout and the others finish at different iterations.
 """
 
 import numpy as np
@@ -32,7 +32,7 @@ def _inputs():
 def test_pipeline_depth_bit_identical(route):
     p, x0s, u0s = _inputs()
     kw = (dict(backpass_method="kernel", linesearch_method="kernel")
-          if route == "static" else {})
+          if route == "static" else dict(boxqp_method="newton"))
     opts = td.SolverOptions(max_iter=40, debug_level=0, **kw)
     out, stats = {}, {}
     for depth in (1, 4):
