@@ -40,9 +40,11 @@ on stdout; everything else goes to stderr.  Imports no JAX.
   with no JSON line;
 * ``--artifact PATH``: ``aot.save_solver`` (exported and written unless
   PATH holds an artifact) and ``aot.load_solver_file``; the timed solve is
-  the restored solver (``make_batched_solver``, eager, as ``bench.py``'s is
-  the plain while_loop), so it implies ``--no-precompile``, and the
-  library is built inside the first restored solve.  stderr gets the set-up
+  the restored solver (``make_batched_solver``: on the card the whole
+  solve one CUDA graph whose loop is a WHILE node, as ``bench.py``'s is
+  the device's while_loop), so it implies ``--no-precompile``; the
+  library is built, and the graph captured, inside the first restored
+  solve.  stderr gets the set-up
   stages: export and write (or "reused"), load, the first solve split into
   program deserialization, the programs' first calls and the kernel build,
   and every restored solve's seconds.

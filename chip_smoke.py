@@ -13,7 +13,8 @@ full width:
   (backward pass) and B2 (line-search rollouts), precompiled: every
   working width's body call is a CUDA graph replay;
 * that solve on the kernel and the fused path, graphed against the eager
-  route (``make_batched_solver``): every Solution field bit for bit, the
+  route (``make_batched_solver`` under ``eager_loops()``, every loop on
+  the host): every Solution field bit for bit, the
   same launches, precompile seconds, peak memory, replays and host reads;
   and derivative emission with each ``derivs_emitter``; then the same
   comparison for the routes graphed beside them (phase 6d): the serial
@@ -22,6 +23,15 @@ full width:
   Brachistochrone (n=500, float64);
 * the same solve with ``backpass_method="fused"``: kernel B3 (derivatives
   and backward pass in one kernel) in place of emission + B1;
+* the device loops (phase 6e, ``ops/device_loop.py``): that solve on both
+  paths through ``make_batched_solver``, the whole solve one CUDA graph
+  whose loop is a WHILE node, every Solution field and launch count
+  against the ``StepwiseSolver`` solves above, one graph launch and one
+  host read a solve, capture seconds, peak memory and node counts;
+  ``solve`` on testCar (T=500, float64) graphed and under
+  ``eager_loops()``; the inline-retry route (kernel path, B=2048, cut to
+  max_iter 20) and the Newton-boxQP route (serial, float64, B=256,
+  max_iter 3) graphed by ``StepwiseSolver`` against ``eager_loops()``;
 * the Brachistochrone with its moving floor (``brachistochrone_hli``,
   n=500, B=2048, float64) through B3 and B2, the path of the AL families;
 * the serial path (``SolverOptions()``'s own methods: PyTorch, no
@@ -69,10 +79,12 @@ full width:
   single-process solves, one ``int64`` all-reduce per chunk and no other
   collective, the global BatchStats; then testBrachi (n=500, B=2048,
   float64, cut to max_iter 15) through ``make_sharded_solver`` against
-  ``make_batched_solver`` lane by lane;
+  ``make_batched_solver`` under ``eager_loops()`` lane by lane;
 * AOT (phase 17): both paths' configurations (B=2048, T=500, float32,
   cut to max_iter 20) exported, restored in a process that imports no
-  problem module and solved, bit for bit against the direct solve; the
+  problem module and solved (the restored solve one graph, its loop a
+  WHILE node), bit for bit against the direct solve under
+  ``eager_loops()``; the
   restored first solve split into program deserialization, first calls
   and the kernel library's load, and a second restored solve timed;
 * the bench entry (phase 18): ``bench_torch.py`` on the main path's cell
@@ -109,6 +121,7 @@ JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -276,12 +289,14 @@ def bound(n_bytes: int, n_ops: int, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, warm: bool = True) -> float:
     """Mean device time of ``fn`` over ``reps`` calls, CUDA events, after a
-    warm-up call."""
+    warm-up call (``warm=False``: the caller has just made the same call,
+    as before a plain version's timing its reference call)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -466,7 +481,7 @@ def check_backpass(problem, B, T, dtype, tol, reps, rng, device="cuda",
             fail(f"backpass {dtype}: {name} differs, rel err {e_rel:.3g} > "
                  f"{tol}")
     ms = time_ms(lambda: cb.back_pass_cm(*args), reps)
-    plain_ms = time_ms(lambda: cb.back_pass_cm_plain(*args), 1)
+    plain_ms = time_ms(lambda: cb.back_pass_cm_plain(*args), 1, warm=False)
     bound_ms, bound_by = bound(
         nbytes(args, out),
         ops(model, "backpass_per_step") * T * B
@@ -512,7 +527,8 @@ def compare_fused(name, args, tol, reps, label=None):
             fail(f"fused {name}: {field} differs, rel err {e_rel:.3g} > "
                  f"{tol}")
     ms = time_ms(lambda: cf.fused_derivs_back_pass(*args), reps)
-    plain_ms = time_ms(lambda: cf.fused_derivs_back_pass_plain(*args), 1)
+    plain_ms = time_ms(lambda: cf.fused_derivs_back_pass_plain(*args), 1,
+                       warm=False)
     problem, us, reg_type, full_ddp = args[0], args[2], args[11], args[12]
     res = dict(B=B, failed_lanes=n_failed, derivs_ok=int(ok.sum()),
                max_abs_err=worst_abs, max_rel_err=worst_rel, tol=tol,
@@ -667,7 +683,8 @@ def check_rollout(problem, alphas, p, r, m, w, bp, tol, reps, label=None,
         if not worst_rel <= tol:
             fail(f"rollout {mode}: rel err {worst_rel:.3g} > {tol}")
         ms = time_ms(lambda: cr.rollout_call(*operands(av), **kw), reps)
-        plain_ms = time_ms(lambda: cr.rollout_plain(*operands(av), **kw), 1)
+        plain_ms = time_ms(lambda: cr.rollout_plain(*operands(av), **kw), 1,
+                           warm=False)
         trajectories = len(alphas) * B if mode == "multi" else B
         bound_ms, bound_by = bound(
             nbytes(operands(av), out),
@@ -999,10 +1016,12 @@ def graphed_busy_share(solver, x0s, u0s, p, calls=3) -> float:
 
 
 def graphed_against_eager(what, problem, opts, x0s, u0s, p,
-                          batch_params=False, busy=False) -> dict:
+                          batch_params=False, busy=False,
+                          min_compact_batch=128) -> dict:
     """The precompiled graphed StepwiseSolver (bench.py's chunk 10,
-    compact_levels 4, min_compact_batch 128) against the eager route,
-    ``make_batched_solver`` (one host read per body call, no compaction):
+    compact_levels 4, ``min_compact_batch`` 128) against the eager route,
+    ``make_batched_solver`` under ``eager_loops()`` (one host read per
+    body call, no compaction, every loop on the host):
     every Solution field bit for bit and the same launch counts.  Returns
     precompile seconds, the peak device memory of precompile + solve,
     replays and host reads per solve, each route's wall and seconds per
@@ -1013,10 +1032,12 @@ def graphed_against_eager(what, problem, opts, x0s, u0s, p,
     import torch
 
     import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch.ops.device_loop import eager_loops
 
     solver = ddp.StepwiseSolver(problem, opts, chunk=10,
                                 batch_params=batch_params, compact_levels=4,
-                                min_compact_batch=128, device="cuda")
+                                min_compact_batch=min_compact_batch,
+                                device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     precompile_s = solver.precompile(x0s, u0s, p)
@@ -1028,7 +1049,8 @@ def graphed_against_eager(what, problem, opts, x0s, u0s, p,
     loop = check_graphed(what, solver)
     eager = ddp.make_batched_solver(problem, opts, batch_params,
                                     device="cuda")
-    e, e_wall, e_launches = timed_solve(eager, x0s, u0s, p)
+    with eager_loops():
+        e, e_wall, e_launches = timed_solve(eager, x0s, u0s, p)
     n = same_solution(what, g, e, g_launches, e_launches, ref="eager route")
     if busy:
         shares["eager_busy_pct"] = busy_share(solver, x0s, u0s, p)
@@ -1066,7 +1088,11 @@ def graphs_routes_phase(problem):
     Brachistochrone (n=500, float64) of parallel_solves, nothing cut (its
     solve takes about 14 body calls), with its busy shares.  The serial
     and per-lane busy shares come from scripts/body_call_profile.py:
-    tracing ~143k device events a body call takes the profiler minutes."""
+    tracing ~143k device events a body call takes the profiler minutes.
+    The serial and per-lane solves retire no lane at their cut depths, so
+    only their full width is precompiled (``min_compact_batch`` B): the
+    serial route's four narrower captures took 45-60 s and were never
+    replayed."""
     import ddp_generator_tpu_torch as ddp
     from ddp_generator_tpu_torch.models import brachistochrone
 
@@ -1076,7 +1102,7 @@ def graphs_routes_phase(problem):
     out["serial"] = dict(
         depth_cut=f"max_iter {MAX_ITER_MAIN}->3",
         **graphed_against_eager("graphs serial", problem, opts, x0s, u0s,
-                                p))
+                                p, min_compact_batch=B_MAIN))
     p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float32)
     pb, _ = car_limw_per_lane(p, B_MAIN)
     opts = main_options().replace(max_iter=MAX_ITER_GRAPHS_PER_LANE)
@@ -1084,12 +1110,173 @@ def graphs_routes_phase(problem):
         depth_cut=f"max_iter {MAX_ITER_MAIN}->{MAX_ITER_GRAPHS_PER_LANE}",
         limW="linspace(0.2,0.5)",
         **graphed_against_eager("graphs per-lane kernel", problem, opts,
-                                x0s, u0s, pb, batch_params=True))
+                                x0s, u0s, pb, batch_params=True,
+                                min_compact_batch=B_MAIN))
     p, x0s, u0s = brachi_plain_inputs(B_MAIN, N_BRACHI, seed=11)
     out["parallel"] = dict(
         depth_cut="none", **graphed_against_eager(
             "graphs parallel", brachistochrone.brachistochrone(),
             parallel_options(), x0s, u0s, p, busy=True))
+    return out
+
+
+@contextlib.contextmanager
+def counted_host_reads(count):
+    """Count into ``count`` (a dict) every host read of a tensor
+    (``Tensor.__bool__``/``item``/``tolist``/``__int__``/``__float__``) and
+    every CUDA graph replay made inside."""
+    import torch
+
+    names = ("__bool__", "item", "tolist", "__int__", "__float__")
+    saved = {n: getattr(torch.Tensor, n) for n in names}
+    replay = torch.cuda.CUDAGraph.replay
+    count.update(host_reads=0, graph_launches=0)
+
+    def patched(name):
+        def f(self, *a, **kw):
+            count["host_reads"] += 1
+            return saved[name](self, *a, **kw)
+        return f
+
+    def counted_replay(self):
+        count["graph_launches"] += 1
+        return replay(self)
+
+    for n in names:
+        setattr(torch.Tensor, n, patched(n))
+    torch.cuda.CUDAGraph.replay = counted_replay
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(torch.Tensor, n, f)
+        torch.cuda.CUDAGraph.replay = replay
+
+
+def loop_solve(what, solver, args):
+    """A :func:`make_batched_solver` solver's first call (its capture),
+    then a second call with its launches, host reads and graph launches
+    counted: ``(numpy Solution, wall of the second call, its launches, a
+    dict of the capture and counts)``.  Fails unless the second call was
+    one graph launch and one host read."""
+    import torch
+
+    import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch.launches import read_launches, reset_launches
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    solver(*args)
+    torch.cuda.synchronize()
+    first_wall = time.time() - t0
+    st = solver.last_stats
+    if not (st.graphed and st.captured):
+        fail(f"{what}: the first call did not capture a graph: {st}")
+    count = {}
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with counted_host_reads(count):
+        sol = solver(*args)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    sol, launches = ddp.to_numpy(sol), read_launches()
+    if count != {"host_reads": 1, "graph_launches": 1}:
+        fail(f"{what}: a solve made {count}, not one graph launch and one "
+             "host read")
+    g = next(iter(solver.graphs.values()))
+    return sol, wall, launches, dict(
+        capture_s=st.capture_s, first_call_s=first_wall,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        **count, **{f"nodes_{k}": v for k, v in g.nodes.items()})
+
+
+# Phase 6e's reduced cells: the inline route's max_iter cut, the Newton
+# route's width and depth
+MAX_ITER_LOOP_INLINE = 20
+B_LOOP_NEWTON, MAX_ITER_LOOP_NEWTON = 256, 3
+
+
+def device_loops_phase(problem, refs) -> dict:
+    """Phase 6e: the device loops (``ops/device_loop.py``, WHILE nodes).
+
+    * ``make_batched_solver`` on the main path's cell (B=2048, T=500,
+      float32, max_iter 200), kernel and fused paths: the whole solve one
+      graph; every Solution field and launch count against the main
+      path's ``StepwiseSolver`` solve (``refs``); one graph launch and one
+      host read a solve; capture seconds, wall, peak memory, WHILE and
+      total node counts.
+    * ``solve`` on ``testCar`` (T=500, float64, max_iter 200, the kernel
+      path as ``scripts/try_car_torch.py``): ms per trip, graphed and
+      under ``eager_loops()``, every field bit for bit.
+    * The inline route (kernel path, float32, B=2048, max_iter cut to
+      :data:`MAX_ITER_LOOP_INLINE`) and the Newton route (serial, float64,
+      ``boxqp_method="newton"``, B=:data:`B_LOOP_NEWTON`, max_iter
+      :data:`MAX_ITER_LOOP_NEWTON`, one width) graphed by
+      ``StepwiseSolver`` (no eager width), each against the
+      ``eager_loops()`` solve (:func:`graphed_against_eager`)."""
+    import torch
+
+    import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch.models import car_parking
+    from ddp_generator_tpu_torch.ops.device_loop import eager_loops
+
+    out = {}
+    p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float32)
+    for backpass in ("kernel", "fused"):
+        what = f"device loops {backpass} path"
+        ref_sol, ref_launches = refs[backpass]
+        solver = ddp.make_batched_solver(problem, main_options(backpass),
+                                         device="cuda")
+        sol, wall, launches, d = loop_solve(what, solver, (x0s, u0s, p))
+        n = same_solution(what, sol, ref_sol, launches, ref_launches,
+                          ref="graphed StepwiseSolver's")
+        out[backpass] = dict(
+            B=B_MAIN, T=T_MAIN, max_iter=MAX_ITER_MAIN, dtype="float32",
+            wall_s=wall, **d, fields_equal=n,
+            solved_pct=100 * float(np.isin(sol.status, (1, 2)).mean()),
+            max_body_calls=int(sol.body_calls.max()),
+            **{f"launches_{k}": v for k, v in launches.items()})
+        del solver
+        torch.cuda.empty_cache()
+
+    # testCar through solve(): one instance, B=1
+    pc, x0, u0 = car_parking.default_setup(T_MAIN, seed=0)
+    o = ddp.SolverOptions(max_iter=MAX_ITER_MAIN, backpass_method="kernel",
+                          linesearch_method="kernel")
+    args = (x0[None], u0[None], pc)
+    one = ddp.make_batched_solver(problem, o, device="cuda")
+    g, g_wall, g_launches, d = loop_solve("device loops testCar", one, args)
+    with eager_loops():
+        e, e_wall, e_launches = timed_solve(one, *args)
+    n = same_solution("device loops testCar", g, e, g_launches, e_launches,
+                      ref="eager_loops() solve's")
+    trips = int(g.body_calls[0])
+    sol = ddp.to_numpy(ddp.solve(problem, x0, u0, pc, o, device="cuda"))
+    if not ddp.make_batched_solver(problem, o, device="cuda").last_stats \
+            .graphed or not np.array_equal(sol.us, g.us[0]):
+        fail("device loops testCar: solve() is not the cached graph's")
+    out["testCar"] = dict(
+        T=T_MAIN, dtype="float64", status=int(g.status[0]),
+        iterations=int(g.iterations[0]), trips=trips, wall_s=g_wall,
+        eager_wall_s=e_wall, ms_per_trip=1e3 * g_wall / trips,
+        eager_ms_per_trip=1e3 * e_wall / trips, **d, fields_equal=n)
+
+    # the inline and Newton routes, graphed by StepwiseSolver at one width
+    # each: neither cut solve retires a lane, and each width's precompile
+    # is three eager warm-up calls (~5 s each on Newton's)
+    o = main_options("kernel").replace(lam_retry="inline",
+                                       max_iter=MAX_ITER_LOOP_INLINE)
+    r = graphed_against_eager("device loops inline", problem, o, x0s, u0s,
+                              p, min_compact_batch=B_MAIN)
+    out["inline"] = dict(r, max_iter=MAX_ITER_LOOP_INLINE)
+    pn, x0n, u0n = bench_inputs(B_LOOP_NEWTON, T_MAIN, np.float64)
+    o = ddp.SolverOptions(max_iter=MAX_ITER_LOOP_NEWTON, debug_level=0,
+                          boxqp_method="newton")
+    r = graphed_against_eager("device loops newton", problem, o, x0n, u0n,
+                              pn, min_compact_batch=B_LOOP_NEWTON)
+    out["newton"] = dict(r, max_iter=MAX_ITER_LOOP_NEWTON)
     return out
 
 
@@ -2209,8 +2396,9 @@ def mesh_phase(problem, refs) -> dict:
     scalar all-reduce per chunk and no other collective, the same global
     count on every rank, the mesh's BatchStats against the single-process
     Solution's; then testBrachi (n=500, B=2048, float64, max_iter 15)
-    through ``make_sharded_solver`` against ``make_batched_solver`` lane
-    by lane (counts exact, cost 1e-10)."""
+    through ``make_sharded_solver`` (each rank's solve one graph with a
+    WHILE node) against ``make_batched_solver`` under ``eager_loops()``
+    lane by lane (counts exact, cost 1e-10)."""
     import socket
     import tempfile
 
@@ -2219,6 +2407,7 @@ def mesh_phase(problem, refs) -> dict:
 
     import ddp_generator_tpu_torch as ddp
     from ddp_generator_tpu_torch.models import brachistochrone
+    from ddp_generator_tpu_torch.ops.device_loop import eager_loops
     from ddp_generator_tpu_torch.parallel import mesh as pmesh
 
     torch.cuda.empty_cache()
@@ -2289,9 +2478,10 @@ def mesh_phase(problem, refs) -> dict:
     # testBrachi through make_sharded_solver against make_batched_solver
     bp, bx0s, bu0s = brachi_plain_inputs(B_MAIN, N_BRACHI, 11)
     t0 = time.time()
-    ref = ddp.make_batched_solver(brachistochrone.brachistochrone(),
-                                  mesh_brachi_options(), device="cuda")(
-        bx0s, bu0s, bp)
+    with eager_loops():
+        ref = ddp.make_batched_solver(brachistochrone.brachistochrone(),
+                                      mesh_brachi_options(), device="cuda")(
+            bx0s, bu0s, bp)
     torch.cuda.synchronize()
     single_wall = time.time() - t0
     r_np = ddp.to_numpy(ref)
@@ -2317,8 +2507,11 @@ def mesh_phase(problem, refs) -> dict:
 
 AOT_MAX_ITER = 20
 # Restores an artifact in a fresh process that imports only the port's aot
-# (no problem module, no JAX), solves once on the card, saves the Solution
-# and prints the load and solve seconds and the launches as one JSON line.
+# (no problem module, no JAX), solves twice on the card (the first solve
+# warms up and captures the graph, the second replays it), saves the first
+# Solution and prints the load and solve seconds and each solve's launches
+# (the second's alone are the solve's: the first's include the warm-up
+# body calls) as one JSON line.
 AOT_LOADER = """
 import json, sys, time
 import numpy as np
@@ -2338,18 +2531,24 @@ t0 = time.time()
 sol = solver(*args)
 torch.cuda.synchronize()
 solve_s = time.time() - t0
-launches = read_launches()
+first_launches = read_launches()
 stages = solver.stage_seconds()
 first = to_numpy(sol)
 np.savez({out!r}, **first._asdict())
+reset_launches()
+torch.cuda.synchronize()
 t0 = time.time()
-again = to_numpy(solver(*args))
+again = solver(*args)
+torch.cuda.synchronize()
 second_s = time.time() - t0
+launches = read_launches()
+again = to_numpy(again)
 bad = sorted(m for m in sys.modules if m.startswith(
     ("ddp_generator_tpu_torch.models", "jax", "ddp_generator_tpu.")))
 assert not bad, bad
 print(json.dumps(dict(
-    load_s=load_s, solve_s=solve_s, launches=launches, **stages,
+    load_s=load_s, solve_s=solve_s, launches=launches,
+    first_launches=first_launches, **stages,
     kernel_load_s=sum(_build.LOAD_SECONDS.values()), second_solve_s=second_s,
     second_equal=all(np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
                      for a, b in zip(first, again)))))
@@ -2359,18 +2558,23 @@ print(json.dumps(dict(
 def aot_phase(problem) -> dict:
     """Phase 17: the main path's configuration (CarParking, kernel path,
     float32, fixed batch 2048, T=500) and the fused one, cut to max_iter
-    20 (``make_batched_solver`` is eager on the card), exported with
-    ``aot.export_solver``, restored and solved in a subprocess that
-    imports no problem module, every Solution field and launch count
-    against the direct ``make_batched_solver`` solve bit for bit.  The
+    20, exported with ``aot.export_solver``, restored and solved in a
+    subprocess that imports no problem module (the restored solver is
+    ``make_batched_solver``'s: its first solve captures the whole solve as
+    one graph with a WHILE node, around the exported programs), every
+    Solution field and launch count against the direct
+    ``make_batched_solver`` solve under ``eager_loops()`` bit for bit.  The
     restored first solve is split into the programs' deserialization,
     their first calls and the kernel library's load (its build, or the
     check that it is built, and the dlopen); a second restored solve is
-    timed and must equal the first."""
+    timed and must equal the first; its launches are the ones held
+    against the direct solve's (the first solve's also count its eager
+    warm-up body calls)."""
     import tempfile
 
     import ddp_generator_tpu_torch as ddp
     from ddp_generator_tpu_torch import aot
+    from ddp_generator_tpu_torch.ops.device_loop import eager_loops
 
     p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float32)
     out = {}
@@ -2401,7 +2605,8 @@ def aot_phase(problem) -> dict:
             info = json.loads(r.stdout.strip().splitlines()[-1])
             got = dict(np.load(files["out.npz"]))
         direct = ddp.make_batched_solver(problem, o, device="cuda")
-        want, wall, launches = timed_solve(direct, x0s, u0s, p)
+        with eager_loops():
+            want, wall, launches = timed_solve(direct, x0s, u0s, p)
         got = type(want)(**got)
         n = same_solution(what, got, want, info["launches"], launches,
                           ref="direct solve's")
@@ -2416,6 +2621,7 @@ def aot_phase(problem) -> dict:
             first_calls_s=info["first_calls_s"], programs=info["programs"],
             kernel_load_s=info["kernel_load_s"],
             second_solve_s=info["second_solve_s"], process_s=process_s,
+            first_solve_launches_backpass=info["first_launches"]["backpass"],
             direct_solve_s=wall, fields_equal=n,
             **{f"launches_{k}": v for k, v in launches.items()})
     return out
@@ -2818,6 +3024,15 @@ def main() -> int:
     line("fused_path", **fstats, **{f"launches_{k}": v
                                     for k, v in flaunches.items()})
     seconds("fused_path")
+
+    # 6e. the device loops: make_batched_solver as one graph with a WHILE
+    # node, on both paths against the graphed StepwiseSolver solves above;
+    # solve() on testCar; the inline and Newton routes graphed
+    for case, d in device_loops_phase(
+            problem, {"kernel": (main_sol, launches),
+                      "fused": (fused_sol, flaunches)}).items():
+        line("device_loops", case=case, **d)
+    seconds("device_loops")
 
     # 7b. the pipelined solve: both paths with pipeline_depth=4 against
     # the depth-1 solves above, every Solution field and launch count

@@ -223,7 +223,12 @@ def open_library(path: Path) -> ctypes.CDLL:
             ("ddp_fused", [i, name, i, i, i, i, pp, p]),
             ("ddp_fused_info", [i, name, i, i, ip]),
             ("ddp_rollout", [i, name, i, i, i, i, i, i, pp, p]),
-            ("ddp_rollout_info", [i, name, i, i, ip])):
+            ("ddp_rollout_info", [i, name, i, i, ip]),
+            ("ddp_loop_versions", [ip]),
+            ("ddp_stream_create", [i, pp]),
+            ("ddp_while_begin", [p, p, p, ctypes.POINTER(ctypes.c_ulonglong)]),
+            ("ddp_while_end", [p, ctypes.c_ulonglong, p]),
+            ("ddp_while_abort", [p])):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = i

@@ -253,7 +253,8 @@ class _Exported:
     def __call__(self, x, *rest):
         *u, p, k = rest
         if not isinstance(k, Tensor):
-            k = torch.tensor(int(k), device=x.device)
+            # a fill, not a copy from host memory: a CUDA graph captures it
+            k = torch.full((), int(k), dtype=torch.int64, device=x.device)
         if x.dim() == 1:
             sig = "point"
         elif x.dim() == 2:
@@ -366,7 +367,10 @@ class RestoredSolver:
     ``(x0, u0, params)``.  ``problem`` (its functions the exported
     programs), ``options``, ``horizon`` and ``batch`` are as exported;
     :meth:`stage_seconds` says what restoring the programs has cost so
-    far."""
+    far.  The solve is :func:`~.solver.make_batched_solver`'s: on a CUDA
+    device its first call captures the whole solve, the exported programs'
+    calls included, as one CUDA graph (a WHILE node for the loop), and
+    every call replays it."""
 
     def __init__(self, problem: Problem, options: SolverOptions, meta: dict,
                  functions: Sequence[_Exported] = ()):

@@ -29,6 +29,8 @@ enum ErrorCode {
   kBadDtype = -2,      // dtype code not 0 (float32) or 1 (float64)
   kBadVariant = -3,    // (n_x, n_u) / reg_type / model not instantiated
   kNullPointer = -4,   // a required operand pointer is NULL
+  kNotCapturing = -5,  // a device loop outside a CUDA graph capture
+  kOldCuda = -6,       // built with a CUDA toolkit before 12.4
 };
 
 // Length of a per-lane array of n entries (C++ has no zero-length arrays).
@@ -137,6 +139,9 @@ inline const char* error_string(int code) {
     case kBadVariant:
       return "no kernel instantiated for these widths/options/model";
     case kNullPointer: return "a required operand pointer is NULL";
+    case kNotCapturing: return "the stream is not capturing a CUDA graph";
+    case kOldCuda:
+      return "built with a CUDA toolkit before 12.4 (no WHILE nodes)";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

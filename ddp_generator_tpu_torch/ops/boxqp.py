@@ -32,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import device_loop
 from .chol import mod_chol_perturb
 from .small import dot, mv, total
 
@@ -195,6 +196,17 @@ def boxqp_enumerate(H: Tensor, g: Tensor, lower: Tensor, upper: Tensor,
                        n_free=free_out.sum(-1, dtype=torch.int32))
 
 
+class _Armijo(NamedTuple):
+    """The Armijo backtracking's per-lane state (``boxQP.c:198-227``)."""
+
+    step: Tensor
+    xc: Tensor  # the last trial point and its value
+    vc: Tensor
+    done: Tensor  # bool: accepted
+    failed: Tensor  # bool: the step fell below min_step
+    pending: Tensor  # bool: still backtracking
+
+
 class _Carry(NamedTuple):
     x: Tensor
     value: Tensor
@@ -218,10 +230,12 @@ def boxqp_newton(H: Tensor, g: Tensor, lower: Tensor, upper: Tensor,
                  x0: Tensor, hyper: BoxQPHyper = BoxQPHyper()) -> BoxQPResult:
     """The projected-Newton iteration (``boxQP.c:39-238``), batched.
 
-    The loop runs while any lane has ``res == 0`` and ``it < max_iter``
-    (one host read per iteration); a lane whose loop is over keeps its
-    carry, every field of it.  The Armijo backtracking inside is masked the
-    same way, so each lane's numbers are those of its own solve."""
+    The loop runs while any lane has ``res == 0`` and ``it < max_iter``; a
+    lane whose loop is over keeps its carry, every field of it.  The Armijo
+    backtracking inside is masked the same way, so each lane's numbers are
+    those of its own solve.  Both loops are :func:`.device_loop.while_loop`
+    (``jax:ops/boxqp.py:340``, ``:366``): nested WHILE nodes inside a CUDA
+    graph capture, host loops elsewhere; neither body reads the host."""
     i32 = torch.int32
     x_init = torch.minimum(torch.maximum(x0, lower), upper)
     batch = H.shape[:-2]
@@ -276,24 +290,30 @@ def boxqp_newton(H: Tensor, g: Tensor, lower: Tensor, upper: Tensor,
         live = res == 0
 
         # --- Armijo backtracking (boxQP.c:198-227), masked per lane ---
-        step = torch.ones_like(c.value)
-        xc, vc = c.x, c.value
-        a_done = torch.zeros_like(live)
-        a_failed = torch.zeros_like(live)
-        pending = run & live
-        while bool(pending.any()):
-            xn = torch.minimum(torch.maximum(c.x + step[..., None] * search,
+        def a_cond(a: _Armijo) -> Tensor:
+            return a.pending.any()
+
+        def a_body(a: _Armijo) -> _Armijo:
+            xn = torch.minimum(torch.maximum(c.x + a.step[..., None] * search,
                                              lower), upper)
             vn = _quad_value(H, g, xn)
-            accept = (vn - oldvalue) / (step * sdotg) >= hyper.armijo
-            next_step = step * hyper.step_dec
+            accept = (vn - oldvalue) / (a.step * sdotg) >= hyper.armijo
+            next_step = a.step * hyper.step_dec
             failed = ~accept & (next_step < hyper.min_step)
-            xc = torch.where(pending[..., None], xn, xc)
-            vc = torch.where(pending, vn, vc)
-            a_done = torch.where(pending, accept, a_done)
-            a_failed = torch.where(pending, failed, a_failed)
-            step = torch.where(pending & ~accept, next_step, step)
-            pending = pending & ~(accept | failed)
+            p = a.pending
+            return _Armijo(
+                step=torch.where(p & ~accept, next_step, a.step),
+                xc=torch.where(p[..., None], xn, a.xc),
+                vc=torch.where(p, vn, a.vc),
+                done=torch.where(p, accept, a.done),
+                failed=torch.where(p, failed, a.failed),
+                pending=p & ~(accept | failed))
+
+        a = device_loop.while_loop(a_cond, a_body, _Armijo(
+            step=torch.ones_like(c.value), xc=c.x, vc=c.value,
+            done=torch.zeros_like(live), failed=torch.zeros_like(live),
+            pending=run & live))
+        xc, vc, a_done, a_failed = a.xc, a.vc, a.done, a.failed
         res = torch.where(live & a_failed, 2, res).to(i32)
         accepted = live & a_done
         return _Carry(x=torch.where(accepted[..., None], xc, c.x),
@@ -301,11 +321,14 @@ def boxqp_newton(H: Tensor, g: Tensor, lower: Tensor, upper: Tensor,
                       oldvalue=oldvalue, clamped=clamped, inv_h=inv_h,
                       res=res, it=c.it + 1)
 
-    while True:
-        run = (c.res == 0) & (c.it < hyper.max_iter)
-        if not bool(run.any()):
-            break
-        c = _where(run, body(c, run), c)
+    def running(c: _Carry) -> Tensor:
+        return (c.res == 0) & (c.it < hyper.max_iter)
+
+    def step(c: _Carry) -> _Carry:
+        run = running(c)
+        return _where(run, body(c, run), c)
+
+    c = device_loop.while_loop(lambda c: running(c).any(), step, c)
     # Loop exhausted without another exit => maxIter (boxQP.c:237)
     res = torch.where(c.res == 0, 1, c.res).to(i32)
     free = c.clamped == 0
@@ -315,9 +338,8 @@ def boxqp_newton(H: Tensor, g: Tensor, lower: Tensor, upper: Tensor,
 
 
 def enumerates(method: str, n: int) -> bool:
-    """Does :func:`boxqp` take the enumeration (no host read) for
-    ``method`` on ``n`` inputs, rather than the Newton iteration (one host
-    read per iteration and per Armijo step)?"""
+    """Does :func:`boxqp` take the enumeration for ``method`` on ``n``
+    inputs, rather than the Newton iteration (two nested device loops)?"""
     return method == "enumerate" or (method == "auto" and n <= 3)
 
 

@@ -170,7 +170,8 @@ def make_sharded_solver(problem: Problem,
     Every rank passes the global batch; rank ``r`` solves its rows
     (:func:`shard_range`; a ``B`` the mesh does not divide raises
     ``ValueError``) with :func:`~..solver.make_batched_solver` on
-    ``device`` and returns its own rows of the Solution.  With
+    ``device`` (on a card one CUDA graph, its loop a WHILE node) and
+    returns its own rows of the Solution.  With
     ``batch_params`` each rank takes its rows of every param leaf; shared
     params are used whole.  The statistics are over the global batch."""
     if mesh is None:

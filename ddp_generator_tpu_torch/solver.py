@@ -18,12 +18,16 @@ update is a ``torch.where`` per lane, and a lane whose loop condition is
 false keeps its carry.
 
 Two loops share the body: :func:`make_batched_solver` loops until no lane
-is active, eagerly, reading the host before every body call;
+is active, and on a CUDA device runs the whole solve as one CUDA graph
+whose loop is a WHILE node (``ops/device_loop.py``, the counterpart of
+JAX's ``lax.while_loop``), so the host reads the device once a solve;
 :class:`StepwiseSolver` runs chunks of iterations with active-lane
-compaction, and on a CUDA device replays each body call that reads nothing
-on the host as one CUDA graph per working width (:func:`_graphable`).
-Per-lane results are identical between them, with compaction on or off and
-graphed or eager.
+compaction, and on a CUDA device replays each body call as one CUDA graph
+per working width (:func:`_graphable`: every route but ``debug_level >=
+3``).  The loops inside a body call -- the inline lambda retries, boxQP's
+Newton iteration and its Armijo backtracking -- are device loops too.
+Per-lane results are identical between them, with compaction on or off,
+graphed or eager (:func:`.ops.device_loop.eager_loops`).
 
 ``batch_params=True`` gives every lane its own params (the JAX convention:
 each leaf ``(B, *leaf_shape)``), cast once to lanes-last
@@ -35,6 +39,7 @@ derivatives and backward pass, the kernel line search the serial one;
 
 from __future__ import annotations
 
+import functools
 import sys
 import time
 from collections import deque
@@ -49,8 +54,8 @@ from .al import Multipliers, init_multipliers, update_multipliers
 from .convert import to_torch
 from .derivs import batched_calc_derivs
 from .ops.backpass import back_pass
-from .ops.boxqp import BoxQPHyper, enumerates
-from .ops import cuda_backpass, cuda_fused
+from .ops.boxqp import BoxQPHyper
+from .ops import cuda_backpass, cuda_fused, device_loop
 from .ops.cm_derivs import cm_back_pass_from_bundle, cm_emit
 from .ops.cuda_fused import fused_derivs_back_pass
 from .ops.cuda_rollout import kernel_line_search, kernel_line_search_staged
@@ -126,15 +131,13 @@ def _check_supported(problem: Problem, o: SolverOptions) -> None:
 def _graphable(problem: Problem, o: SolverOptions) -> bool:
     """Does a body call of these options read nothing on the host, so that
     :class:`StepwiseSolver` can replay it as a CUDA graph?  Every backward
-    pass and line search qualifies, with shared or per-lane params, as
-    long as boxQP takes the enumeration (the kernels' boxQP always does).
-    Two routes still read the host: boxQP's projected-Newton iteration
-    (``ops/boxqp.py`` ``boxqp_newton``, one read per iteration and per
-    Armijo step; ``boxqp_method="newton"``, or ``"auto"`` with n_u > 3)
-    and the inline lambda retries (``_lam_retry_loop``, one read per
-    retry).  ``debug_level >= 3`` prints every iteration from the host."""
-    return (enumerates(o.boxqp_method, problem.n_u)
-            and o.lam_retry == "deferred" and o.debug_level < 3)
+    pass and line search qualifies, with shared or per-lane params, boxQP's
+    enumeration or its projected-Newton iteration, deferred or inline
+    lambda retries: the loops inside a body call (Newton and its Armijo
+    backtracking, the inline retries) are device loops
+    (:func:`.ops.device_loop.while_loop`).  Only ``debug_level >= 3``
+    reads the host: it prints every iteration from there."""
+    return o.debug_level < 3
 
 
 def _boxqp_hyper(o: SolverOptions) -> BoxQPHyper:
@@ -156,31 +159,45 @@ def _boxqp_hyper(o: SolverOptions) -> BoxQPHyper:
         method=o.boxqp_method, use_mod_chol=o.use_mod_chol)
 
 
+class _Retry(NamedTuple):
+    """The inline lambda retries' per-lane state."""
+
+    bp: Any  # BackPassResult: the last attempt's, on the lanes that made one
+    lam: Tensor
+    dlam: Tensor
+    cont: Tensor  # bool: failed, and lambda may still rise
+    n: Tensor  # int32: attempts made
+
+
 def _lam_retry_loop(bp_call, bp0, lam0: Tensor, dlam0: Tensor, can: Tensor,
                     o: SolverOptions):
     """The reference's inner lambda-escalation loop (``iLQG.c:261-284``),
     batched: a failed backward pass escalates lambda and re-runs ONLY the
     backward pass (``bp_call(lam)``, closed over the frozen derivatives).
 
-    One host read of ``any(cont)`` per retry; each retry runs ``bp_call``
-    on the whole batch and keeps its result on the lanes that retried.  Per
-    lane the (lambda, attempt) sequence is that of ``lam_retry="deferred"``.
-    Returns ``(bp, lam, dlam, n_attempts)``; a lane that exhausts the
-    schedule keeps ``bp.failed`` with lambda past ``lambdaMax``."""
-    lam, dlam, bp = lam0, dlam0, bp0
-    cont = bp0.failed & can
-    n = torch.zeros_like(cont, dtype=torch.int32)
-    while bool(cont.any()):
-        dlam_f = torch.clamp(dlam * o.lambdaFactor, min=o.lambdaFactor)
-        lam_f = torch.clamp(lam * dlam_f, min=o.lambdaMin)
-        do = cont & ~(lam_f > o.lambdaMax)
+    A :func:`.ops.device_loop.while_loop` while any lane retries
+    (``jax:solver.py:148-183``; a WHILE node in a CUDA graph, reading
+    nothing on the host); each retry runs ``bp_call`` on the whole batch
+    and keeps its result on the lanes that retried.  Per lane the (lambda,
+    attempt) sequence is that of ``lam_retry="deferred"``.  Returns ``(bp,
+    lam, dlam, n_attempts)``; a lane that exhausts the schedule keeps
+    ``bp.failed`` with lambda past ``lambdaMax``."""
+    def body(r: _Retry) -> _Retry:
+        dlam_f = torch.clamp(r.dlam * o.lambdaFactor, min=o.lambdaFactor)
+        lam_f = torch.clamp(r.lam * dlam_f, min=o.lambdaMin)
+        do = r.cont & ~(lam_f > o.lambdaMax)
         bp1 = bp_call(lam_f)
-        bp = tree_where(do, bp1, bp)
-        lam = torch.where(cont, lam_f, lam)
-        dlam = torch.where(cont, dlam_f, dlam)
-        cont = do & bp1.failed
-        n = n + do.to(torch.int32)
-    return bp, lam, dlam, n
+        return _Retry(bp=tree_where(do, bp1, r.bp),
+                      lam=torch.where(r.cont, lam_f, r.lam),
+                      dlam=torch.where(r.cont, dlam_f, r.dlam),
+                      cont=do & bp1.failed, n=r.n + do.to(torch.int32))
+
+    cont = bp0.failed & can
+    r = device_loop.while_loop(
+        lambda r: r.cont.any(), body,
+        _Retry(bp0, lam0, dlam0, cont,
+               torch.zeros_like(cont, dtype=torch.int32)))
+    return r.bp, r.lam, r.dlam, r.n
 
 
 def _same_device(t: Tensor, device: torch.device) -> bool:
@@ -561,37 +578,192 @@ def _masked_steps(body_fn, c: _Carry, params, max_iter: int, n: int,
     return c, n
 
 
+class _Loop(NamedTuple):
+    """The whole solve's loop state: the carry and the body calls made."""
+
+    carry: _Carry
+    calls: Tensor  # int32, 0-d
+
+
+def _solve_loop(body_fn, c: _Carry, params, o: SolverOptions) -> _Carry:
+    """Masked body calls while a lane runs, at most
+    :func:`_max_body_calls` of them: ``jax:solver.py:854``'s
+    ``lax.while_loop`` of the whole solve, as one
+    :func:`.ops.device_loop.while_loop` (a WHILE node in a CUDA graph
+    capture; on the host elsewhere, one read before every body call)."""
+    step = _masked(body_fn, o.max_iter)
+    cap = _max_body_calls(o)
+
+    def cond(s: _Loop) -> Tensor:
+        return _running(s.carry, o.max_iter).any() & (s.calls < cap)
+
+    def body(s: _Loop) -> _Loop:
+        return _Loop(step(s.carry, params), s.calls + 1)
+
+    zero = torch.zeros((), dtype=torch.int32, device=c.cost.device)
+    return device_loop.while_loop(cond, body, _Loop(c, zero)).carry
+
+
+def _check_done(running: Tensor) -> None:
+    """Raise if a lane still runs after the loop (a host read): each lane
+    runs at most max_iter*(1+n_lam_steps) body calls."""
+    if bool(running):
+        raise RuntimeError("batched solver: lanes still active after "
+                           "the body-call bound; this is a masking bug")
+
+
+class SolveStats(NamedTuple):
+    """What the last call of a :func:`make_batched_solver` solver did."""
+
+    graphed: bool  # the solve was one CUDA graph replay
+    captured: bool  # this call captured that graph (first call of its shapes)
+    capture_s: float  # seconds of the capture, warm-up included (0 if none)
+
+
+class _SolveGraph:
+    """One input signature's whole solve as one CUDA graph: ``init_fn``,
+    the WHILE node of :func:`_solve_loop`, ``finalize_fn`` and the count of
+    still-running lanes, on static inputs that each call copies its own
+    into.  Before the capture, ``init_fn``, :data:`_WARMUP_CALLS` masked
+    body calls and ``finalize_fn`` run eagerly on a side stream (emission's
+    autograd and the kernels' index tables must not meet their first use
+    inside a capture).  The WHILE bodies allocate from a pool of their own,
+    kept as long as the graph.  A capture error raises: there is no eager
+    fallback.  ``nodes`` counts the graph's top-level nodes, its WHILE
+    nodes and the nodes of their bodies."""
+
+    def __init__(self, parts, o: SolverOptions, x0: Tensor, u0: Tensor,
+                 params):
+        init_fn, body_fn, finalize_fn = parts
+        t0 = time.time()
+        dev = x0.device
+        self.x0, self.u0 = x0.clone(), u0.clone()
+        self.params = _params_map(torch.clone, params)
+        launches.device_counts(dev)  # before the capture records adds to it
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            c = init_fn(self.x0, self.u0, self.params)
+            step = _masked(body_fn, o.max_iter)
+            for _ in range(_WARMUP_CALLS):
+                c = step(c, self.params)
+            finalize_fn(c)
+            del c
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.pool = device_loop.BodyPool(dev)
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = dict(device_loop.NODE_COUNTS)
+        with device_loop.body_pool(self.pool), torch.cuda.graph(self.graph):
+            c = _solve_loop(body_fn, init_fn(self.x0, self.u0, self.params),
+                            self.params, o)
+            self.running = _running(c, o.max_iter).any()
+            self.out = finalize_fn(c)
+            del c
+        top = device_loop.graph_nodes(self.graph.raw_cuda_graph())
+        loops = {k: device_loop.NODE_COUNTS[k] - before[k] for k in before}
+        self.nodes = dict(top=top, while_nodes=loops["while"],
+                          body_nodes=loops["body"],
+                          total=top + loops["body"])
+        self.graph.instantiate()
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.time() - t0
+
+    def __call__(self, x0: Tensor, u0: Tensor, params) -> Solution:
+        self.x0.copy_(x0)
+        self.u0.copy_(u0)
+        _params_map(lambda d, v: d.copy_(v), self.params, params)
+        self.graph.replay()
+        _check_done(self.running)  # the one host read
+        # the result must not alias the graph's outputs, which the next
+        # call overwrites
+        return Solution(*(t.clone() for t in self.out))
+
+
+class _BatchedSolver:
+    """The solver :func:`make_batched_solver` returns (one per problem,
+    options, ``batch_params`` and device).  ``graphs`` holds a
+    :class:`_SolveGraph` per input signature; ``last_stats``
+    (:class:`SolveStats`) says what the last call did."""
+
+    def __init__(self, problem: Problem, options: SolverOptions,
+                 batch_params: bool, device: torch.device):
+        self.options, self.device = options, device
+        init_fn, body_fn, finalize_fn, self._cast = _make_parts(
+            problem, options, device, batch_params)
+        self._parts = (init_fn, body_fn, finalize_fn)
+        self.graphs: dict = {}
+        self.last_stats: SolveStats | None = None
+
+    def graphed(self) -> bool:
+        """Does a call run as a CUDA graph (a CUDA device, ``debug_level <
+        3`` and no :func:`.ops.device_loop.eager_loops`)?"""
+        return (self.device.type == "cuda" and self.options.debug_level < 3
+                and not device_loop.loops_eager())
+
+    def __call__(self, x0s, u0s, params) -> Solution:
+        o = self.options
+        p = self._cast(params, len(u0s))
+        init_fn, body_fn, finalize_fn = self._parts
+        if not self.graphed():
+            c = _solve_loop(body_fn, init_fn(x0s, u0s, p), p, o)
+            _check_done(_running(c, o.max_iter).any())
+            self.last_stats = SolveStats(False, False, 0.0)
+            return finalize_fn(c)
+        _check_device(x0s, self.device, "x0s")
+        _check_device(u0s, self.device, "u0s")
+        dtype = _DTYPES[o.dtype]
+        x0 = torch.as_tensor(x0s, device=self.device).to(dtype)
+        u0 = torch.as_tensor(u0s, device=self.device).to(dtype)
+        key = (tuple(x0.shape), tuple(u0.shape), _params_key(p))
+        g = self.graphs.get(key)
+        captured = g is None
+        if captured:
+            g = self.graphs[key] = _SolveGraph(self._parts, o, x0, u0, p)
+        sol = g(x0, u0, p)
+        self.last_stats = SolveStats(True, captured,
+                                     g.capture_s if captured else 0.0)
+        return sol
+
+
+@functools.lru_cache(maxsize=16)
+def _batched_solver(problem: Problem, options: SolverOptions,
+                    batch_params: bool, device: torch.device):
+    return _BatchedSolver(problem, options, batch_params, device)
+
+
 def make_batched_solver(problem: Problem,
                         options: SolverOptions = SolverOptions(),
                         batch_params: bool = False, *, device):
     """Batched solver ``(x0s (B, n_x), u0s (B, N, n_u), params) -> Solution``
-    looping until no lane is active (JAX: ``vmap`` of the whole solve).
-    ``params`` are shared by all lanes, or with ``batch_params`` per lane,
-    every leaf ``(B, *leaf_shape)``.  ``device`` is where the solve runs;
-    tensor inputs on another device raise."""
-    init_fn, body_fn, finalize_fn, cast_params = _make_parts(
-        problem, options, device, batch_params)
+    looping until no lane is active (JAX: ``jit(vmap(...))`` of the whole
+    solve, ``jax:solver.py:878-892``).  ``params`` are shared by all lanes,
+    or with ``batch_params`` per lane, every leaf ``(B, *leaf_shape)``.
+    ``device`` is where the solve runs; tensor inputs on another device
+    raise.
 
-    def solve_fn(x0s, u0s, params) -> Solution:
-        p = cast_params(params, len(u0s))
-        c = init_fn(x0s, u0s, p)
-        # each lane runs at most max_iter*(1+n_lam_steps) body calls
-        c, _ = _masked_steps(body_fn, c, p, options.max_iter,
-                             _max_body_calls(options))
-        if bool(_running(c, options.max_iter).any()):
-            raise RuntimeError("batched solver: lanes still active after "
-                               "the body-call bound; this is a masking bug")
-        return finalize_fn(c)
-
-    return solve_fn
+    On a CUDA device the whole solve is one CUDA graph (:class:`_SolveGraph`:
+    the loop a WHILE node, its body the masked body call), captured at the
+    first call of each input signature and replayed by every call; the
+    host reads one value after the replay, the check that no lane is still
+    running.  The solver, and so its graphs, is cached per (problem,
+    options, ``batch_params``, device), as JAX caches its jitted solver per
+    (problem, options).  Two cases keep the host loop, one read before
+    every body call: ``debug_level >= 3``, whose per-iteration print reads
+    the device from the host (JAX prints with ``jax.debug.print``, a host
+    callback; a WHILE body holds no host node), and calls under
+    :func:`.ops.device_loop.eager_loops` (the reference); on the CPU the
+    same loop runs on the host."""
+    return _batched_solver(problem, options, batch_params,
+                           torch.device(device))
 
 
 def make_solver(problem: Problem, options: SolverOptions = SolverOptions(),
                 *, device):
     """One-instance solver ``(x0 (n_x,), u0 (N, n_u), params) -> Solution``
-    (``jax:solver.py:836-861``): the batched solver at ``B=1``.  ``u0``
-    defines the horizon; ``params`` are the problem's (scalars, fixed
-    arrays and ``[k]``-indexed arrays of length N+1)."""
+    (``jax:solver.py:836-861``): the batched solver at ``B=1``, so on a
+    CUDA device one graph replay per call.  ``u0`` defines the horizon;
+    ``params`` are the problem's (scalars, fixed arrays and ``[k]``-indexed
+    arrays of length N+1)."""
     batched = make_batched_solver(problem, options, device=device)
 
     def solve_fn(x0, u0, params) -> Solution:
@@ -605,7 +777,9 @@ def make_solver(problem: Problem, options: SolverOptions = SolverOptions(),
 
 def solve(problem: Problem, x0, u0, params: Any,
           options: SolverOptions = SolverOptions(), *, device) -> Solution:
-    """One instance: :func:`make_solver`'s solver, called once."""
+    """One instance: :func:`make_solver`'s solver, called once (its graph
+    is cached with the solver: a second call with the same problem,
+    options and shapes replays it)."""
     return make_solver(problem, options, device=device)(x0, u0, params)
 
 
@@ -673,11 +847,14 @@ class _WidthBody:
     Capture follows ``torch.cuda.graph``'s rules: a few eager calls on a
     side stream first (emission's autograd must not meet its first use
     inside a capture), all on the static carry, a scratch copy of ``like``;
-    the caller copies its working set in before the first ``run()``.  A
-    capture error raises: there is no eager fallback."""
+    the caller copies its working set in before the first ``run()``.  The
+    device loops inside a body call (Newton boxQP, inline retries) are
+    WHILE nodes whose bodies allocate from ``body_pool`` (a
+    :class:`.ops.device_loop.BodyPool` the caller keeps).  A capture error
+    raises: there is no eager fallback."""
 
     def __init__(self, step, like: _Carry, params, max_iter: int,
-                 graph: bool, pool=None):
+                 graph: bool, pool=None, body_pool=None):
         self._step, self._max_iter = step, max_iter
         self.carry = tree_map(torch.clone, like)
         self.params = params
@@ -695,7 +872,8 @@ class _WidthBody:
                 self._call()
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool):
+        with device_loop.body_pool(body_pool), \
+                torch.cuda.graph(self.graph, pool=pool):
             self._call()
 
     def _call(self) -> None:
@@ -779,15 +957,15 @@ class StepwiseSolver:
     Widths are captured at first use, or all before the timed call by
     :meth:`precompile`.  Graphed (:func:`_graphable`): every
     ``backpass_method`` and ``linesearch_method``, shared or per-lane
-    params, when boxQP on the serial and parallel backward passes takes
-    the enumeration, with deferred lambda retries at that width and
-    ``debug_level < 3``.  Eager on the card, one host read per body call:
-    boxQP's Newton iteration (``boxqp_method="newton"``, or ``"auto"``
-    with n_u > 3), widths that retry inline (``lam_retry="inline"`` or
-    ``inline_below``) and the per-iteration trace of ``debug_level >= 3``.
-    On the CPU the graphable configurations run the same loop on the
-    static carries with eager body calls.  A capture or replay error
-    raises; nothing falls back to the eager body.
+    params, boxQP's enumeration or Newton iteration, deferred or inline
+    lambda retries (``lam_retry="inline"`` or ``inline_below`` widths):
+    the loops inside a body call are WHILE nodes of its graph.  Eager on
+    the card, one host read per body call: the per-iteration trace of
+    ``debug_level >= 3``, and every width under
+    :func:`.ops.device_loop.eager_loops`.  On the CPU the graphable
+    configurations run the same loop on the static carries with eager body
+    calls.  A capture or replay error raises; nothing falls back to the
+    eager body.
     ``last_stats`` (:class:`LoopStats`) says what the last call did:
     replays, host reads, which widths ran graphed.
 
@@ -882,7 +1060,7 @@ class StepwiseSolver:
         self._widths: dict = {}  # (width, N) -> _WidthBody
         self._counts = _LaggedCounts(
             1 if o.debug_level >= 1 else self.pipeline_depth)
-        self._p_static = self._p_key = self._pool = None
+        self._p_static = self._p_key = self._pool = self._body_pool = None
         self.last_stats: LoopStats | None = None
 
     def precompile(self, x0s, u0s, params, max_workers: int = 8) -> float:
@@ -939,8 +1117,8 @@ class StepwiseSolver:
 
     def _on_static(self, size: int) -> bool:
         """Does width ``size`` run on a static carry (graphed on a CUDA
-        device)?"""
-        return self._static_ok and not 0 < size <= self.inline_below
+        device)?  Every width does unless ``debug_level >= 3``."""
+        return self._static_ok
 
     def _static_params(self, p):
         """Shared params: ``p`` copied into the one static copy every
@@ -964,18 +1142,21 @@ class StepwiseSolver:
         """The width's body call, captured (or set up) at first use on a
         scratch copy of ``like`` and, per lane, of ``params`` (lanes-last
         leaves of this width)."""
+        graph = (self.device.type == "cuda"
+                 and not device_loop.loops_eager())
         w = self._widths.get((size, N))
-        if w is None:
-            graph = self.device.type == "cuda"
+        if w is None or (w.graph is not None) != graph:
             if graph and self._pool is None:
                 # widths never replay concurrently and keep nothing in the
-                # pool across calls: one pool serves them all
+                # pool across calls: one pool serves them all, and one more
+                # the bodies of their device loops
                 self._pool = torch.cuda.graph_pool_handle()
+                self._body_pool = device_loop.BodyPool(self.device)
             if self.batch_params:
                 params = _params_map(torch.clone, params)
             w = _WidthBody(_masked(self._body_at(size), self.options.max_iter),
                            like, params, self.options.max_iter, graph,
-                           self._pool)
+                           self._pool, self._body_pool)
             self._widths[(size, N)] = w
         return w
 

@@ -18,7 +18,12 @@ stage flag: a stage whose flag is 0 writes nothing.  ``StepwiseSolver``'s
 CUDA graphs: the graphed solve equals the eager one bit for bit on the
 kernel and fused paths (B=64), and on the serial, parallel and per-lane
 routes (``tests/test_torch_graphs.py``'s ``ROUTES``), and a capture error
-raises.  Needs
+raises.  Device loops (``ops/device_loop.py``): the whole
+``make_batched_solver`` solve as one graph with a WHILE node equals the
+``eager_loops()`` solve bit for bit on the kernel, fused, serial/Newton
+and inline routes (B=64, ragged lanes), ``StepwiseSolver`` graphs the
+inline and Newton routes, a WHILE nested two deep equals its host loop,
+and a CUDA older than 12.4 raises.  Needs
 a CUDA device and ``nvcc``;
 skips elsewhere.  The file imports no JAX, so on a machine without it run
 it past ``tests/conftest.py``::
@@ -43,6 +48,8 @@ from ddp_generator_tpu_torch.models import (
 from ddp_generator_tpu_torch.ops import cuda_backpass as cb
 from ddp_generator_tpu_torch.ops import cuda_fused as cf
 from ddp_generator_tpu_torch.ops import cuda_rollout as cr
+from ddp_generator_tpu_torch.ops import device_loop as dl
+from ddp_generator_tpu_torch.ops.device_loop import eager_loops
 from ddp_generator_tpu_torch.ops.forward import forward_pass
 from test_torch_graphs import ROUTES, route_case
 
@@ -467,7 +474,8 @@ def test_graphed_stepwise_equals_eager(cuda, backpass):
     width graphed, and a second call neither changes the first result
     (no aliasing of the static carries) nor its own."""
     problem, opts, x0s, u0s, p = _graph_case(backpass)
-    ref = ddp.make_batched_solver(problem, opts, device=cuda)(x0s, u0s, p)
+    with eager_loops():
+        ref = ddp.make_batched_solver(problem, opts, device=cuda)(x0s, u0s, p)
     solver = ddp.StepwiseSolver(problem, opts, chunk=4, compact_levels=2,
                                 min_compact_batch=16, device=cuda)
     assert solver.precompile(x0s, u0s, p) > 0
@@ -490,8 +498,9 @@ def test_graphed_routes_equal_eager(cuda, route):
     (widths 64, 32, 16), gives every Solution field of make_batched_solver
     bit for bit, every width graphed."""
     problem, opts, x0s, u0s, p, lanes = route_case(ROUTES[route], 64, 40)
-    ref = ddp.make_batched_solver(problem, opts, lanes, device=cuda)(
-        x0s, u0s, p)
+    with eager_loops():
+        ref = ddp.make_batched_solver(problem, opts, lanes, device=cuda)(
+            x0s, u0s, p)
     solver = ddp.StepwiseSolver(problem, opts, chunk=3, batch_params=lanes,
                                 compact_levels=2, min_compact_batch=16,
                                 device=cuda)
@@ -502,6 +511,129 @@ def test_graphed_routes_equal_eager(cuda, route):
     for name, a, b in zip(sol._fields, sol, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
                                    msg=name)
+
+
+def _loop_case(route, B=64, T=40):
+    """A B=64 CarParking workload with ragged lanes (perturbed starts,
+    controls of per-lane scale, three lanes retired at init) on a device
+    loop route: ``(problem, options, x0s, u0s, params)``."""
+    p, x0, _ = car_parking.default_setup(T=T)
+    rng = np.random.default_rng(5)
+    x0s = np.tile(x0, (B, 1)) + 0.3 * rng.standard_normal((B, 4))
+    x0s[[1, 6, 11], 0] = np.nan
+    u0s = ((0.05 + 0.5 * rng.random((B, 1, 1)))
+           * rng.standard_normal((B, T, 2)))
+    kw = {"kernel": dict(backpass_method="kernel", linesearch_method="kernel",
+                         dtype="float32", tolFun=1e-5),
+          "fused": dict(backpass_method="fused", linesearch_method="kernel",
+                        dtype="float32", tolFun=1e-5),
+          "serial_newton": dict(boxqp_method="newton", dtype="float64"),
+          "inline": dict(backpass_method="kernel", linesearch_method="kernel",
+                         lam_retry="inline", full_ddp=True,
+                         dtype="float64")}[route]
+    if route == "inline":  # FULL_DDP from large controls: lambda retries
+        u0s = 4.0 * rng.standard_normal((B, T, 2))
+    opts = ddp.SolverOptions(max_iter=30, debug_level=0, **kw)
+    return car_parking.car_parking(), opts, x0s, u0s, p
+
+
+@pytest.mark.parametrize("route", ["kernel", "fused", "serial_newton",
+                                   "inline"])
+def test_device_loop_solve_equals_eager(cuda, route):
+    """``make_batched_solver`` on the card: the first call captures the
+    solve (a WHILE node), every call is one replay; every Solution field
+    equals the ``eager_loops()`` solve bit for bit, twice (a second replay
+    does not alias the first result), and the graphed ``StepwiseSolver``
+    (its Newton and inline routes now graphed too) equals it as well."""
+    problem, opts, x0s, u0s, p = _loop_case(route)
+    with eager_loops():
+        ref = ddp.make_batched_solver(problem, opts, device=cuda)(
+            x0s, u0s, p)
+    solve = ddp.make_batched_solver(problem, opts, device=cuda)
+    sol = solve(x0s, u0s, p)
+    st = solve.last_stats
+    assert st.graphed and st.captured
+    g = next(iter(solve.graphs.values()))
+    assert g.nodes["while_nodes"] >= 1
+    if route in ("serial_newton", "inline"):  # nested loops
+        assert g.nodes["while_nodes"] >= 2
+    first = [t.clone() for t in sol]
+    again = solve(x0s, u0s, p)
+    assert not solve.last_stats.captured
+    stepwise = ddp.StepwiseSolver(problem, opts, chunk=4, compact_levels=2,
+                                  min_compact_batch=16, device=cuda)
+    sw = stepwise(x0s, u0s, p)
+    assert stepwise.last_stats.eager == ()
+    assert stepwise.last_stats.replays == stepwise.last_stats.body_calls
+    if route == "inline":
+        assert int(ref.bp_retry_calls.sum()) > 0
+    for name, a, b, c, d, e in zip(sol._fields, sol, ref, first, again, sw):
+        for x, what in ((a, "graph"), (d, "second replay"),
+                        (e, "StepwiseSolver")):
+            torch.testing.assert_close(x, b, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"{name} ({what})")
+        torch.testing.assert_close(a, c, rtol=0, atol=0, equal_nan=True,
+                                   msg=name)
+
+
+def test_while_nested_two_deep_equals_host_loop(cuda):
+    """A WHILE inside a WHILE body, the inner trip count read from a device
+    table at the outer counter, replayed at several outer counts against
+    the same loops run on the host."""
+    dev = torch.device(cuda)
+    m = torch.tensor(3, device=dev, dtype=torch.int32)
+    lens = torch.tensor([2, 0, 4, 1, 7], device=dev, dtype=torch.int32)
+
+    def outer(c):
+        acc, j = c
+        nj = lens.gather(0, j.long().reshape(1))[0]
+
+        def inner(d):
+            a, i = d
+            return (a + torch.zeros_like(a)
+                    + (j + 1).to(a.dtype) * (i + 1).to(a.dtype), i + 1)
+
+        acc, _ = dl.while_loop(lambda d: d[1] < nj, inner,
+                               (acc, torch.zeros_like(j)))
+        return (acc, j + 1)
+
+    def loop():
+        return dl.while_loop(
+            lambda c: c[1] < m, outer,
+            (torch.zeros(3, device=dev, dtype=torch.float64),
+             torch.zeros((), device=dev, dtype=torch.int32)))
+
+    loop()  # warm-up, on the host
+    pool, g = dl.BodyPool(dev), torch.cuda.CUDAGraph()
+    # the bodies' streams are their own: torch's pool hands out 32 a
+    # device round robin, so two of its streams may be one
+    pooled = {torch.cuda.Stream(dev).cuda_stream for _ in range(64)}
+    bodies = {s.cuda_stream for (i, _), s in dl._streams.items()
+              if i == torch.cuda.current_device()}
+    assert len(bodies) == dl.MAX_NESTING and not bodies & pooled
+    before = dict(dl.NODE_COUNTS)
+    with dl.body_pool(pool), torch.cuda.graph(g):
+        out = loop()
+    assert dl.NODE_COUNTS["while"] - before["while"] == 2
+    for k in (0, 1, 3, 5):
+        m.fill_(k)
+        g.replay()
+        ref = loop()
+        assert torch.equal(out[0], ref[0]) and int(out[1]) == k, k
+
+
+def test_old_cuda_raises(cuda, monkeypatch):
+    """A runtime or driver older than 12.4 raises with both numbers, before
+    any node is added (the version read mocked)."""
+    monkeypatch.setattr(dl, "_checked", [])
+    monkeypatch.setattr(dl, "cuda_versions", lambda: (12090, 12020, 12080))
+    x = torch.zeros((), device=cuda)
+    pool, g = dl.BodyPool(cuda), torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match=r"runtime 12\.2, driver 12\.8"):
+        with dl.body_pool(pool), torch.cuda.graph(g):
+            dl.while_loop(lambda c: c < 3, lambda c: c + 1, x)
+    torch.cuda.synchronize()
+    assert pool.captured == 0
 
 
 def test_capture_error_raises(cuda):

@@ -4,9 +4,12 @@ the serial and parallel backward passes, the serial line search and
 per-lane params (``batch_params=True``).  On the CPU each equals the eager
 reference ``make_batched_solver`` in every Solution field, bit for bit,
 through a compaction that halves the working width twice (so a wrong
-gather into a width's static params would show); and the three routes
-whose body call reads the host -- boxQP's Newton iteration, inline lambda
-retries and ``debug_level=3`` -- stay eager.  Float64, B=16, T <= 40."""
+gather into a width's static params would show); ``debug_level=3``, whose
+body call prints from the host, stays eager, while boxQP's Newton
+iteration and the inline lambda retries run on the static carries: their
+loops are device loops (``ops/device_loop.py``), which read their
+condition on the host only in the CPU's plain loop.  Float64, B=16,
+T <= 40."""
 
 import numpy as np
 import pytest
@@ -92,9 +95,13 @@ EAGER = {
 
 @pytest.mark.parametrize("case", list(EAGER))
 def test_routes_that_read_the_host_stay_eager(case, capsys):
-    """Each route that keeps the solver off the static carries: ``_on_static``
-    is false at every width, and its body call does read the host (boxQP's
-    Newton loop, the inline retry loop, the per-iteration print)."""
+    """``debug_level=3`` keeps the solver off the static carries:
+    ``_on_static`` is false at every width, and its body call reads the
+    host (the per-iteration print).  The Newton and inline-retry routes
+    read the host only through ``device_loop.while_loop``: on the CPU its
+    plain loop reads each condition, so their body call reads the host
+    here too, yet every width runs on a static carry, which a CUDA device
+    replays as a graph with WHILE nodes."""
     kw = dict(EAGER[case])
     lanes = kw.pop("batch_params", False)
     if case == "newton_auto_n_u_4":
@@ -111,8 +118,9 @@ def test_routes_that_read_the_host_stay_eager(case, capsys):
                          **kw)
     s = td.StepwiseSolver(problem, o, batch_params=lanes,
                           min_compact_batch=1, device="cpu")
-    assert not s._static_ok
-    assert not any(s._on_static(w) for w in s._compact_sizes(4))
+    eager = case == "debug_level_3"
+    assert s._static_ok is not eager
+    assert all(s._on_static(w) is not eager for w in s._compact_sizes(4))
     init, body, _, cast = slv._make_parts(problem, o, "cpu", lanes)
     params = cast(p, 4)
     c = init(x0s, u0s, params)
@@ -120,4 +128,5 @@ def test_routes_that_read_the_host_stay_eager(case, capsys):
         with host_reads():
             slv._masked(body, o.max_iter)(c, params)
     s(x0s, u0s, p)
-    assert s.last_stats.graphed == () and not s._widths
+    assert s.last_stats.graphed == ()
+    assert bool(s._widths) is not eager
