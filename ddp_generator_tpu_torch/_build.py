@@ -228,7 +228,8 @@ def open_library(path: Path) -> ctypes.CDLL:
             ("ddp_stream_create", [i, pp]),
             ("ddp_while_begin", [p, p, p, ctypes.POINTER(ctypes.c_ulonglong)]),
             ("ddp_while_end", [p, ctypes.c_ulonglong, p]),
-            ("ddp_while_abort", [p])):
+            ("ddp_while_abort", [p]),
+            ("ddp_stamp", [p, i, p])):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = i

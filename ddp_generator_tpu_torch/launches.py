@@ -22,9 +22,26 @@ one ``int64`` tensor per device that :func:`on_device` adds to:
 
 So a solve counts the same launches whether its body calls were replayed or
 run eagerly.  :func:`read_launches` synchronizes to read the device counts.
+
+Three more records trace a solve; the stamp ring and the lane-steps follow
+the counts' rules (made before any capture, emptied by
+:func:`reset_launches`):
+
+* host spans (:func:`span`): ``torch.profiler.record_function`` ranges
+  named ``ddp.*``, entered only while a profiler records, so they land in
+  its trace on the clock of the device operations;
+* device stamps (:func:`stamp`): a one-thread kernel that appends ``(tag,
+  %globaltimer ns)`` to a ring per device, a node of any graph it is
+  captured in, WHILE bodies included, where the profiler sees no kernel;
+  :func:`read_stamps` reads them back in order;
+* lane-steps (:func:`add_lane_steps`): the working width summed over the
+  body calls of every :class:`~.solver.StepwiseSolver` call, on the host
+  (each call's own in ``LoopStats.lane_steps``).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -32,21 +49,133 @@ KERNELS = ("backpass", "fused", "rollout_multi", "rollout_selected")
 _DEVICE: dict = {}  # torch.device -> int64 (len(KERNELS),) counts
 
 
+#: the tags a stamp takes, by their index in the ring
+STAMP_TAGS = ("body", "derivs", "backpass", "linesearch", "body_end",
+              "solve", "loop", "loop_end", "solve_end")
+STAMP_CAPACITY = 1 << 20  # stamps a device's ring holds before it wraps
+_STAMPS: dict = {}  # torch.device -> int64 ring (see stamp_ring)
+_HOST = {"lane_steps": 0}
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _cuda_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    return device
+
+
+def _made_before_capture(table: dict, device, make, what: str):
+    device = _cuda_device(device)
+    t = table.get(device)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{what} must exist before a CUDA graph "
+                               "capture: call launches.before_capture(device)")
+        t = table[device] = make(device)
+    return t
+
+
 def device_counts(device) -> torch.Tensor:
     """The device counts of ``device`` (a CUDA device), made at first use.
     Made outside a capture: a tensor made inside one would be zeroed by
     every replay."""
+    return _made_before_capture(
+        _DEVICE, device, lambda d: torch.zeros(len(KERNELS),
+                                               dtype=torch.int64, device=d),
+        "launch counts")
+
+
+def _new_ring(device) -> torch.Tensor:
+    ring = torch.zeros(2 + 2 * STAMP_CAPACITY, dtype=torch.int64,
+                       device=device)
+    ring[1] = STAMP_CAPACITY
+    return ring
+
+
+def stamp_ring(device) -> torch.Tensor:
+    """The stamp ring of ``device`` (a CUDA device), made at first use,
+    outside a capture: ``[cursor, capacity, tag_0, ns_0, tag_1, ns_1,
+    ...]``, int64; stamp ``i`` (the cursor's value when it was taken) lies
+    at slot ``i % capacity``."""
+    return _made_before_capture(_STAMPS, device, _new_ring, "the stamp ring")
+
+
+def before_capture(device) -> None:
+    """Make the launch counts and the stamp ring of ``device``: a graph
+    captured afterwards adds to them on every replay."""
+    device_counts(device)
+    stamp_ring(device)
+
+
+def span(name: str, solve_id: int):
+    """A host span: ``torch.profiler.record_function(name)`` with
+    ``solve_id`` (the caller's count of its calls, shared by the spans of
+    one call) as its argument while a profiler records, else a context
+    that does nothing; the cost off is one bool check.  The profiler's
+    Chrome trace keeps the name and interval; an execution trace
+    (``torch.profiler.ExecutionTraceObserver``) keeps the argument too."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name, args=str(solve_id))
+
+
+def stamp(tag: str, device) -> None:
+    """Append ``(tag, ns)`` to ``device``'s stamp ring: a one-thread kernel
+    (``csrc/stamps.cu``) on the current stream reads the device's
+    ``%globaltimer`` when it runs.  Captured, it is a node of the graph and
+    stamps every replay.  Nothing on the CPU."""
     device = torch.device(device)
-    if device.index is None:
-        device = torch.device(device.type, torch.cuda.current_device())
-    t = _DEVICE.get(device)
-    if t is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("launch counts must exist before a CUDA graph "
-                               "capture: call launches.device_counts(device)")
-        t = torch.zeros(len(KERNELS), dtype=torch.int64, device=device)
-        _DEVICE[device] = t
-    return t
+    if device.type != "cuda":
+        return
+    from . import _build
+
+    lib = _build.load_library()
+    ring = stamp_ring(device)
+    stream = torch.cuda.current_stream(ring.device).cuda_stream
+    _build.check(lib, lib.ddp_stamp(ring.data_ptr(), STAMP_TAGS.index(tag),
+                                    stream), "ddp_stamp")
+
+
+def decode_stamps(ring: torch.Tensor):
+    """``(entries, lost)`` of a ring as :func:`stamp_ring` lays it out (on
+    any device): ``entries`` the stamps still held, oldest first, each
+    ``(tag, ns)``; ``lost`` those overwritten by wrap-around."""
+    ring = ring.cpu()
+    n, cap = int(ring[0]), int(ring[1])
+    slots = ring[2:2 + 2 * cap].view(cap, 2)
+    if n <= cap:
+        rows = slots[:n]
+    else:
+        start = n % cap
+        rows = torch.cat([slots[start:], slots[:start]])
+    return ([(STAMP_TAGS[t], ns) for t, ns in rows.tolist()],
+            max(0, n - cap))
+
+
+def read_stamps(device=None):
+    """``(entries, lost)`` (:func:`decode_stamps`) of ``device``'s ring
+    (the current CUDA device by default) since the last
+    :func:`reset_launches`, after a synchronize; ``([], 0)`` where no
+    stamp ring was made."""
+    if not _STAMPS:  # none made (the CPU has none)
+        return [], 0
+    device = _cuda_device(device or "cuda")
+    ring = _STAMPS.get(device)
+    if ring is None:
+        return [], 0
+    torch.cuda.synchronize(device)
+    return decode_stamps(ring)
+
+
+def add_lane_steps(n: int) -> None:
+    """Count ``n`` lane-steps (lanes of a body call's working width)."""
+    _HOST["lane_steps"] += n
+
+
+def read_lane_steps() -> int:
+    """Lane-steps counted since the last :func:`reset_launches`."""
+    return _HOST["lane_steps"]
 
 
 def on_device(kernel: str, device, when=None) -> bool:
@@ -62,7 +191,8 @@ def on_device(kernel: str, device, when=None) -> bool:
 
 
 def reset_launches() -> None:
-    """Set every count to 0 (the device counts in place: captured graphs
+    """Set every count to 0 and empty the stamp rings and the lane-steps
+    (the device counts and the rings' cursors in place: captured graphs
     hold their address)."""
     from .ops import cuda_backpass as _cb
     from .ops import cuda_fused as _cf
@@ -73,6 +203,9 @@ def reset_launches() -> None:
     _cr.rollout_call.launches = {"multi": 0, "selected": 0}
     for t in _DEVICE.values():
         t.zero_()
+    for ring in _STAMPS.values():
+        ring[:1].zero_()
+    _HOST["lane_steps"] = 0
 
 
 def read_launches() -> dict:

@@ -287,6 +287,7 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
             sd_cm, fcx, fcxx, us_cm, d_ok = cm_emit(
                 problem, c.xs, c.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi,
                 w_pen_l_d, w_pen_f_d, params, o.full_ddp, shared)
+            launches.stamp("derivs", device)
 
             def bp_call(lam):
                 return cm_back_pass_from_bundle(sd_cm, fcx, fcxx, us_cm, lam,
@@ -296,6 +297,7 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
             d = batched_calc_derivs(
                 problem, c.xs, c.us, params, m.mu_le, m.mu_li, m.mu_fe,
                 m.mu_fi, w_pen_l_d, w_pen_f_d, o.full_ddp)
+            launches.stamp("derivs", device)
             d_ok = d.ok
             if backpass == "parallel":
                 def bp_call(lam):
@@ -366,6 +368,7 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
         return torch.where(alive[:, None], new, log)
 
     def body_fn(c: _Carry, params) -> _Carry:
+        launches.stamp("body", device)
         where = torch.where
         lf = o.lambdaFactor
         status = c.status
@@ -405,6 +408,7 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
             dlam = where(bp_failed, dlam_f, c.dlam)
             bp_retry_calls = c.bp_retry_calls + processed * (
                 c.was_bp_retry & ~c.new_deriv).to(i32)
+        launches.stamp("backpass", device)
         status = where(gave_up, sol.STATUS_NO_DESCENT, status)
         alive = alive & ~bp_failed
         back_pass_done = c.back_pass_done | alive
@@ -430,6 +434,7 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
             ls = kernel_line_search_staged(*ls_args, alive=ls_alive)
         else:
             ls = kernel_line_search(*ls_args)
+        launches.stamp("linesearch", device)
         log_linesearch = set_log(c.log_linesearch, c.it, alive,
                                  torch.clamp(ls.alpha_index + 1, max=A))
         log_z = set_log(c.log_z, c.it, alive, ls.z)
@@ -560,7 +565,9 @@ def _masked(body_fn, max_iter: int):
     """One body call of the loop: the new carry on the lanes whose loop
     condition held, the old one elsewhere (no host read)."""
     def step(c: _Carry, params) -> _Carry:
-        return tree_where(_running(c, max_iter), body_fn(c, params), c)
+        c = tree_where(_running(c, max_iter), body_fn(c, params), c)
+        launches.stamp("body_end", c.cost.device)
+        return c
     return step
 
 
@@ -575,6 +582,7 @@ def _masked_steps(body_fn, c: _Carry, params, max_iter: int, n: int,
         if not read(run.any()):
             return c, calls
         c = tree_where(run, body_fn(c, params), c)
+        launches.stamp("body_end", c.cost.device)
     return c, n
 
 
@@ -600,8 +608,12 @@ def _solve_loop(body_fn, c: _Carry, params, o: SolverOptions) -> _Carry:
     def body(s: _Loop) -> _Loop:
         return _Loop(step(s.carry, params), s.calls + 1)
 
-    zero = torch.zeros((), dtype=torch.int32, device=c.cost.device)
-    return device_loop.while_loop(cond, body, _Loop(c, zero)).carry
+    dev = c.cost.device
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    launches.stamp("loop", dev)
+    c = device_loop.while_loop(cond, body, _Loop(c, zero)).carry
+    launches.stamp("loop_end", dev)
+    return c
 
 
 def _check_done(running: Tensor) -> None:
@@ -630,7 +642,12 @@ class _SolveGraph:
     inside a capture).  The WHILE bodies allocate from a pool of their own,
     kept as long as the graph.  A capture error raises: there is no eager
     fallback.  ``nodes`` counts the graph's top-level nodes, its WHILE
-    nodes and the nodes of their bodies."""
+    nodes and the nodes of their bodies.  The captured solve stamps
+    ``solve`` before ``init_fn`` and ``solve_end`` after ``finalize_fn``
+    (``launches.stamp``; ``loop`` and ``loop_end`` around the WHILE node,
+    and each trip its body call's stamps); a call is the span
+    ``ddp.solve_graph.call``, its host read ``ddp.solve_graph.read_wait``
+    (``launches.span``), ``calls`` their id."""
 
     def __init__(self, parts, o: SolverOptions, x0: Tensor, u0: Tensor,
                  params):
@@ -639,7 +656,8 @@ class _SolveGraph:
         dev = x0.device
         self.x0, self.u0 = x0.clone(), u0.clone()
         self.params = _params_map(torch.clone, params)
-        launches.device_counts(dev)  # before the capture records adds to it
+        self.calls = 0
+        launches.before_capture(dev)  # the capture records adds to them
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -654,10 +672,12 @@ class _SolveGraph:
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = dict(device_loop.NODE_COUNTS)
         with device_loop.body_pool(self.pool), torch.cuda.graph(self.graph):
+            launches.stamp("solve", dev)
             c = _solve_loop(body_fn, init_fn(self.x0, self.u0, self.params),
                             self.params, o)
             self.running = _running(c, o.max_iter).any()
             self.out = finalize_fn(c)
+            launches.stamp("solve_end", dev)
             del c
         top = device_loop.graph_nodes(self.graph.raw_cuda_graph())
         loops = {k: device_loop.NODE_COUNTS[k] - before[k] for k in before}
@@ -669,14 +689,17 @@ class _SolveGraph:
         self.capture_s = time.time() - t0
 
     def __call__(self, x0: Tensor, u0: Tensor, params) -> Solution:
-        self.x0.copy_(x0)
-        self.u0.copy_(u0)
-        _params_map(lambda d, v: d.copy_(v), self.params, params)
-        self.graph.replay()
-        _check_done(self.running)  # the one host read
-        # the result must not alias the graph's outputs, which the next
-        # call overwrites
-        return Solution(*(t.clone() for t in self.out))
+        self.calls += 1
+        with launches.span("ddp.solve_graph.call", self.calls):
+            self.x0.copy_(x0)
+            self.u0.copy_(u0)
+            _params_map(lambda d, v: d.copy_(v), self.params, params)
+            self.graph.replay()
+            with launches.span("ddp.solve_graph.read_wait", self.calls):
+                _check_done(self.running)  # the one host read
+            # the result must not alias the graph's outputs, which the next
+            # call overwrites
+            return Solution(*(t.clone() for t in self.out))
 
 
 class _BatchedSolver:
@@ -807,6 +830,7 @@ class LoopStats(NamedTuple):
     chunks: int = 0  # chunks of the loop (each ends in one count read)
     allreduces: int = 0  # all-reduces of the active count (with a mesh)
     global_counts: tuple = ()  # the all-reduced count of each chunk
+    lane_steps: int = 0  # working width summed over the body calls
 
 
 def _copy_into(dst, src) -> None:
@@ -864,7 +888,7 @@ class _WidthBody:
         if not graph:
             return
         dev = like.cost.device
-        launches.device_counts(dev)  # before the capture records adds to it
+        launches.before_capture(dev)  # the capture records adds to them
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -914,6 +938,10 @@ class _LaggedCounts:
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(count.device))
         self._pending.append((slot, event))
+
+    def pending(self) -> int:
+        """Counts pushed and not yet read."""
+        return len(self._pending)
 
     def pop(self):
         """The oldest pending count (its one host read) once ``depth`` are
@@ -1061,6 +1089,7 @@ class StepwiseSolver:
         self._counts = _LaggedCounts(
             1 if o.debug_level >= 1 else self.pipeline_depth)
         self._p_static = self._p_key = self._pool = self._body_pool = None
+        self._calls = 0  # calls made: the id of a call's spans
         self.last_stats: LoopStats | None = None
 
     def precompile(self, x0s, u0s, params, max_workers: int = 8) -> float:
@@ -1171,6 +1200,12 @@ class StepwiseSolver:
     def _can_halve(self, size: int) -> bool:
         return size % 2 == 0 and size // 2 >= self.min_compact_batch
 
+    def _halves(self, size: int, active: int, levels_left: int) -> bool:
+        """Does a working set of ``size`` with ``active`` running lanes
+        halve (again)?"""
+        return (levels_left > 0 and self._can_halve(size)
+                and active <= size // 2)
+
     def _compact_sizes(self, B: int) -> list:
         """Working widths a batch of ``B`` can shrink through, largest first
         (JAX: ``_compact_sizes``; :meth:`__call__` halves by the same
@@ -1194,10 +1229,32 @@ class StepwiseSolver:
         new_idx = order[:new_size]
         return full, tree_map(lambda a: a[new_idx], full), new_idx
 
+    def _span(self, name: str):
+        """A host span of this call (``launches.span``)."""
+        return launches.span(name, self._calls)
+
     def _read(self, t: Tensor):
         """One host read of a device value by the loop (counted)."""
         self._reads += 1
-        return t.item()
+        with self._span("ddp.stepwise.read_wait"):
+            return t.item()
+
+    def _clear_counts(self) -> None:
+        """Drop the pending counts (``_LaggedCounts.clear``)."""
+        if self._counts.pending():
+            with self._span("ddp.stepwise.read_wait"):
+                self._counts.clear()
+
+    def _enter(self, size: int, N: int, small: _Carry, p):
+        """The static width ``size`` with the working set ``small`` (and
+        per-lane params ``p``) copied into its static carry (and params):
+        ``(width, its carry, its params)``."""
+        w = self._width(size, N, small, p)
+        if small is not w.carry:
+            _copy_into(w.carry, small)
+        if p is not w.params:  # per-lane params of a new width
+            _params_map(lambda d, v: d.copy_(v), w.params, p)
+        return w, w.carry, w.params
 
     def _static_chunk(self, w: _WidthBody, n: int):
         """Up to ``n`` body calls of a static width, queueing the active
@@ -1207,30 +1264,44 @@ class StepwiseSolver:
         calls, active = 0, None
         while calls < n:
             k = min(self.chunk, n - calls)
-            for _ in range(k):
-                w.run()
+            with self._span("ddp.stepwise.enqueue"):
+                for _ in range(k):
+                    w.run()
+                self._counts.push(w.active)
             calls += k
-            self._counts.push(w.active)
-            late = self._counts.pop()
-            if late is not None:
+            if self._counts.pending() >= self._counts.depth:
+                with self._span("ddp.stepwise.read_wait"):
+                    active = self._counts.pop()
                 self._reads += 1
-                active = late
                 if active == 0:
                     break
         return calls, active
 
     def __call__(self, x0s, u0s, params) -> Solution:
+        """Solve a batch.  On the host, the call is the span
+        ``ddp.stepwise.call`` and its steps its children
+        (``launches.span``, while a profiler records): ``init`` (params,
+        ``init_fn``), ``enqueue`` (a chunk's body calls and its count),
+        ``read_wait`` (a count's host read), ``compact`` (the new working
+        set, copied into its width's static carry) and ``finalize``."""
+        self._calls += 1
+        with self._span("ddp.stepwise.call"):
+            return self._solve(x0s, u0s, params)
+
+    def _solve(self, x0s, u0s, params) -> Solution:
         t_start = time.time()
         o = self.options
-        x0s, u0s, params = self._local(x0s, u0s, params)
-        p_full = p = self._cast_params(params, len(u0s))
-        full = self._init(x0s, u0s, p)
-        B, N = int(full.cost.shape[0]), int(full.us.shape[1])
-        if self._static_ok:
-            p = self._static_params(p)
-        small, idx, size = full, None, B
+        with self._span("ddp.stepwise.init"):
+            x0s, u0s, params = self._local(x0s, u0s, params)
+            p_full = p = self._cast_params(params, len(u0s))
+            full = self._init(x0s, u0s, p)
+            B, N = int(full.cost.shape[0]), int(full.us.shape[1])
+            small, idx, size = full, None, B
+            if self._static_ok:
+                p = self._static_params(p)
+                w, small, p = self._enter(size, N, small, p)
         levels_left = self.compact_levels
-        self._reads, calls_total, replays = 0, 0, 0
+        self._reads, calls_total, replays, lane_steps = 0, 0, 0, 0
         graphed, eager, global_counts = [], [], []
         meshed = self.mesh is not None
         if meshed:
@@ -1250,25 +1321,20 @@ class StepwiseSolver:
                 # all-reduce below
                 calls, active = 0, 0
             elif self._on_static(size):
-                w = self._width(size, N, small, p)
-                if small is not w.carry:
-                    _copy_into(w.carry, small)
-                    small = w.carry
-                if p is not w.params:  # per-lane params of a new width
-                    _params_map(lambda d, v: d.copy_(v), w.params, p)
-                    p = w.params
                 calls, active = self._static_chunk(w, n)
                 if w.graph is not None:
                     replays += calls
                 (graphed if w.graph is not None else eager).append(size)
             else:
                 # the eager route's body calls read the host anyway
-                small, calls = _masked_steps(self._body_at(size), small, p,
-                                             o.max_iter, n, self._read)
+                with self._span("ddp.stepwise.enqueue"):
+                    small, calls = _masked_steps(self._body_at(size), small,
+                                                 p, o.max_iter, n, self._read)
                 active = self._read(_running(small, o.max_iter).sum())
-                self._counts.clear()  # older than this exact count
+                self._clear_counts()  # older than this exact count
                 eager.append(size)
             calls_total += calls
+            lane_steps += size * calls
             if meshed:
                 if active is not None:
                     last_local, idle = active, active == 0
@@ -1286,35 +1352,44 @@ class StepwiseSolver:
             if active == 0:
                 exhausted = False
                 break
-            while (levels_left > 0 and self._can_halve(size)
-                   and active <= size // 2):
-                size //= 2
-                levels_left -= 1
-                if idx is None:
-                    # first compaction: the working set IS the full carry
-                    full, small, idx = self._compact(small, None, None, size)
-                else:
-                    full, small, idx = self._compact(full, small, idx, size)
-                if self.batch_params:
-                    p = p_full.take(idx)
-        self._counts.clear()
+            if not self._halves(size, active, levels_left):
+                continue
+            with self._span("ddp.stepwise.compact"):
+                while self._halves(size, active, levels_left):
+                    size //= 2
+                    levels_left -= 1
+                    if idx is None:
+                        # first compaction: the working set IS the full carry
+                        full, small, idx = self._compact(small, None, None,
+                                                         size)
+                    else:
+                        full, small, idx = self._compact(full, small, idx,
+                                                         size)
+                    if self.batch_params:
+                        p = p_full.take(idx)
+                if self._on_static(size):
+                    w, small, p = self._enter(size, N, small, p)
+        self._clear_counts()
         if exhausted and self._read(_running(small, o.max_iter).any()):
             raise RuntimeError(
                 f"StepwiseSolver: lanes still active after {n_calls} chunk "
                 "calls; this indicates a masking bug")
-        if idx is not None:
-            full = _scatter(full, idx, small)  # a new carry
-        else:
-            # the result must not alias a static carry: the next call
-            # would overwrite the caller's Solution
-            full = tree_map(torch.clone, small)
-        self.last_stats = LoopStats(
-            body_calls=calls_total, replays=replays, host_reads=self._reads,
-            graphed=tuple(dict.fromkeys(graphed)),
-            eager=tuple(dict.fromkeys(eager)), chunks=chunk_i + 1,
-            allreduces=len(global_counts),
-            global_counts=tuple(global_counts))
-        return self._finalize(full)
+        launches.add_lane_steps(lane_steps)
+        with self._span("ddp.stepwise.finalize"):
+            if idx is not None:
+                full = _scatter(full, idx, small)  # a new carry
+            else:
+                # the result must not alias a static carry: the next call
+                # would overwrite the caller's Solution
+                full = tree_map(torch.clone, small)
+            self.last_stats = LoopStats(
+                body_calls=calls_total, replays=replays,
+                host_reads=self._reads,
+                graphed=tuple(dict.fromkeys(graphed)),
+                eager=tuple(dict.fromkeys(eager)), chunks=chunk_i + 1,
+                allreduces=len(global_counts),
+                global_counts=tuple(global_counts), lane_steps=lane_steps)
+            return self._finalize(full)
 
     def _print_status(self, chunk_i, c: _Carry, active, size, t_start):
         act = _running(c, self.options.max_iter)
