@@ -23,7 +23,8 @@ on stdout; everything else goes to stderr.  Imports no JAX.
 ``bench.py``'s levers, each on the port's own:
 
 * ``--shared-derivs``: ``SolverOptions(derivs_emitter="shared")``, the
-  single-primal emitter (kernel path only);
+  single-primal torch emitter (kernel path only; a card with shared params
+  takes the emission kernel whatever the emitter);
 * ``--pipeline-depth N``: ``StepwiseSolver(pipeline_depth=N)``, the
   active count read ``N - 1`` chunks late;
 * ``--mesh N``: N ranks (``torch.multiprocessing``, one process each)
@@ -95,8 +96,9 @@ def parse_args(argv=None):
     ap.add_argument("--no-staged-ls", action="store_true",
                     help="kernel line search without the alpha[0] fast path")
     ap.add_argument("--shared-derivs", action="store_true",
-                    help="single-primal derivative emitter "
-                    "(derivs_emitter='shared'; the kernel path only)")
+                    help="single-primal torch derivative emitter "
+                    "(derivs_emitter='shared'; the kernel path's torch "
+                    "emission only: the CPU)")
     ap.add_argument("--pipeline-depth", type=int, default=1,
                     help="StepwiseSolver pipeline_depth: the active count "
                     "is read this many chunks minus one late")

@@ -16,7 +16,8 @@ full width:
   route (``make_batched_solver`` under ``eager_loops()``, every loop on
   the host): every Solution field bit for bit, the
   same launches, precompile seconds, peak memory, replays and host reads;
-  and derivative emission with each ``derivs_emitter``; then the same
+  and derivative emission by the emission kernel and with each
+  ``derivs_emitter``; then the same
   comparison for the routes graphed beside them (phase 6d): the serial
   path on that CarParking solve in float64 (max_iter 3), per-lane params
   on the kernel path (max_iter 10) and the parallel backward pass on the
@@ -68,7 +69,8 @@ full width:
 * the auxiliary API on the card (phase 14: ``backpass_trace``, the
   inspector, a carry checkpointed and resumed) and the main path's
   CarParking solve in float64 on the kernel and fused paths (phase 15);
-* emission history (phase 0, first): each emitter's bundle of the
+* emission history (phase 0, first): the emission kernel's and each
+  torch emitter's bundle of the
   Brachistochrone and of CarParking (B=2048, T/n=500, float32 and
   float64) emitted, then the other problem's, then again, bit for bit,
   with its device kernels and ms before and after;
@@ -97,9 +99,13 @@ full width:
   card, the car's controls inside their boxes and the Brachistochrone's
   gaps to the cycloid within 10x the JAX script's on the CPU.
 
-The Cartpole instantiations of B1 (4, 1), B2 and B3 are held against their
-plain versions like CarParking's, and small float64 solves of the serial
-path, of the inline lambda retries and of per-lane params (CarParking and
+The emission kernel (``ops/cuda_emit.py``) is held against the torch
+emitter (``cm_emit``) on CarParking's initial rollout at B=2048 in float32
+and float64 (phase 3b), and its two thread mappings against each other and
+timed at B = 1, 128 and 2048 (3c).  The Cartpole instantiations of B1
+(4, 1), B2 and B3 are held against their plain versions like
+CarParking's, and small float64 solves of the serial path, of the inline
+lambda retries and of per-lane params (CarParking and
 brachistochrone_hli, kernel and fused path) are checked lane by lane.
 
 Beside the checks it times B1, B2 and B3 at the widths the solver's
@@ -154,6 +160,11 @@ TOL_B3 = {"car_parking float32": 1e-1, "car_parking float64": 5e-12,
           "brachistochrone_hli float64": 3e-13,
           "double_integrator float64": 1e-14, "point_mass3 float64": 7e-11,
           "cartpole float32": 3e-1, "cartpole float64": 2e-10}
+# The emission kernel against the torch emitter: B3's CarParking limits,
+# for the same reason (forward-mode rounding against autograd's); the first
+# sound runs on an H100 gave 9.6e-8 in float32.
+TOL_EMIT = {"float32": TOL_B3["car_parking float32"],
+            "float64": TOL_B3["car_parking float64"]}
 SOLVED_MIN = 0.90
 N_BRACHI = 500
 # The parallel solves are held to the kernel path's cost on every lane
@@ -308,6 +319,48 @@ def time_ms(fn, reps: int, warm: bool = True) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device ms of one ``fn()``: a CUDA graph of ``reps`` calls replayed 3
+    times (CUDA events around a replay, the least of the 3), so the gaps
+    between replayed nodes count and the host's eager overhead does not."""
+    import torch
+
+    from ddp_generator_tpu_torch import launches
+
+    launches.before_capture(torch.device("cuda"))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    best = float("inf")
+    for _ in range(3):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        g.replay()
+        e1.record()
+        e1.synchronize()
+        best = min(best, e0.elapsed_time(e1) / reps)
+    del g
+    return best
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit, NaN where NaN."""
+    import torch
+
+    if torch.equal(a, b):
+        return True
+    return (a.is_floating_point() and a.shape == b.shape
+            and bool(((a == b) | (a.isnan() & b.isnan())).all()))
+
+
 def bench_inputs(B: int, T: int, np_dtype, seed: int = 0):
     """bench.py's inputs (bench.py:185-191)."""
     from ddp_generator_tpu_torch.models import car_parking
@@ -422,14 +475,12 @@ def user_problems():
     }
 
 
-def nominal_bundle(problem, B, T, dtype, device, inputs=bench_inputs):
-    """The port's emission (cm_emit) on the initial rollout of ``inputs``
-    (bench's by default): the bundle the backward pass sees on its first
-    body call."""
+def nominal_rollout(problem, B, T, dtype, device, inputs=bench_inputs):
+    """The initial rollout of ``inputs`` (bench's by default) on
+    ``device``: ``(params, rollout, multipliers, w_pen)``."""
     import torch
 
     import ddp_generator_tpu_torch as ddp
-    from ddp_generator_tpu_torch.ops.cm_derivs import cm_emit
     from ddp_generator_tpu_torch.ops.forward import forward_pass
 
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
@@ -441,9 +492,136 @@ def nominal_bundle(problem, B, T, dtype, device, inputs=bench_inputs):
     w = torch.ones(B, dtype=dtype, device=device)
     r = forward_pass(problem, x0, None, u0, None, None, 0.0, p, m.mu_le,
                      m.mu_li, m.mu_fe, m.mu_fi, w, w)
-    sd, fcx, fcxx, us_cm, ok = cm_emit(problem, r.xs, r.us, m.mu_le, m.mu_li,
-                                       m.mu_fe, m.mu_fi, w, w, p, True)
+    return p, r, m, w
+
+
+def emit_args(problem, p, r, m, w):
+    """The operands of ``cm_emit`` and ``cuda_emit.emit`` on a nominal
+    rollout, FULL_DDP."""
+    return (problem, r.xs, r.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, w, w,
+            p, True)
+
+
+def nominal_bundle(problem, B, T, dtype, device, inputs=bench_inputs):
+    """The port's torch emission (cm_emit) on the initial rollout of
+    ``inputs``: the bundle the backward pass sees on its first body call
+    (the emission kernel's is held against it in phase 3b)."""
+    from ddp_generator_tpu_torch.ops.cm_derivs import cm_emit
+
+    p, r, m, w = nominal_rollout(problem, B, T, dtype, device, inputs)
+    sd, fcx, fcxx, us_cm, ok = cm_emit(*emit_args(problem, p, r, m, w))
     return p, r, m, w, sd, fcx, fcxx, us_cm, ok
+
+
+def emit_outputs(out) -> dict:
+    """An emission's outputs by name: every bundle key, ``final_cx``,
+    ``final_cxx``, ``us_cm`` and ``ok``."""
+    sd, fcx, fcxx, us_cm, ok = out
+    return dict(sd, final_cx=fcx, final_cxx=fcxx, us_cm=us_cm, ok=ok)
+
+
+def emit_gap(what, out, ref, tol) -> tuple[float, float]:
+    """Fail unless ``ok`` is equal and every other output of ``out`` lies
+    within ``tol`` of ``ref``'s, relative to its largest finite value, with
+    the same infinities; returns the largest (absolute, relative) gap."""
+    import torch
+
+    a, b = emit_outputs(out), emit_outputs(ref)
+    if not torch.equal(a["ok"], b["ok"]):
+        fail(f"{what}: ok differs in {int((a['ok'] != b['ok']).sum())} "
+             "lanes")
+    worst_abs, worst_rel = 0.0, 0.0
+    for key, r in b.items():
+        if key == "ok":
+            continue
+        if a[key].shape != r.shape or a[key].dtype != r.dtype:
+            fail(f"{what}: {key} is {tuple(a[key].shape)} {a[key].dtype}, "
+                 f"want {tuple(r.shape)} {r.dtype}")
+        if not (torch.equal(a[key].isposinf(), r.isposinf())
+                and torch.equal(a[key].isneginf(), r.isneginf())):
+            fail(f"{what}: {key} has other infinities")
+        e_abs, e_rel = max_rel_err(a[key], r)
+        if not e_rel <= tol:
+            fail(f"{what}: {key} differs, rel err {e_rel:.3g} > {tol}")
+        worst_abs, worst_rel = max(worst_abs, e_abs), max(worst_rel, e_rel)
+    return worst_abs, worst_rel
+
+
+def check_emit(problem, B, T, dtype, tol, reps):
+    """Phase 3b: the emission kernel (``ops/cuda_emit.py``) against the
+    torch emitter (``cm_emit``, its plain version) on the initial rollout
+    of phase 3: every key of the bundle, ``final_cx``/``final_cxx``,
+    ``us_cm`` and ``ok``; the kernel's ms (CUDA events, eager) beside the
+    torch emitter's and its bound."""
+    import torch
+
+    from ddp_generator_tpu_torch.ops import cuda_emit as ce
+    from ddp_generator_tpu_torch.ops.cm_derivs import cm_emit
+
+    key = str(dtype).replace("torch.", "")
+    p, r, m, w = nominal_rollout(problem, B, T, dtype, torch.device("cuda"))
+    args = emit_args(problem, p, r, m, w)
+    ref = cm_emit(*args)
+    out = ce.emit(*args)
+    torch.cuda.synchronize()
+    worst_abs, worst_rel = emit_gap(f"emit {key}", out, ref, tol)
+    ms = time_ms(lambda: ce.emit(*args), reps)
+    plain_ms = time_ms(lambda: cm_emit(*args), 1)
+    model = problem.cuda_model.name
+    # B3's operations less B1's: B3 computes these terms, then runs B1's
+    # Riccati step on them
+    n_ops = ((ops(model, "fused_per_step") - ops(model, "backpass_per_step"))
+             * T * B + (ops(model, "fused_per_lane")
+                        - ops(model, "backpass_per_lane")) * B)
+    bound_ms, bound_by = bound(nbytes(args[1:], out), n_ops, dtype)
+    info = ce.kernel_info(model, True, dtype)
+    return dict(B=B, N=T, dtype=key, max_abs_err=worst_abs,
+                max_rel_err=worst_rel, tol=tol, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                derivs_ok=int(out[4].sum()),
+                per=ce.items_per_thread(T, B, info["items"]),
+                registers=info["steps_registers"],
+                local_bytes=info["steps_local"], **info)
+
+
+def emit_mappings(problem, reps) -> dict:
+    """Phase 3c: the emission kernel's two thread mappings -- one work item
+    a thread (``per`` 1) and all of a point's on one thread (``per`` the
+    items of a point) -- at B = 1, 128 and 2048 (CarParking, N=500,
+    float32, FULL_DDP): the two bit for bit, each within ``TOL_EMIT`` of
+    the torch emitter; each timed by ``graph_ms`` over ``reps`` calls
+    (the torch emitter over one), beside the wrapper's own choice and
+    the bytes bound."""
+    import torch
+
+    from ddp_generator_tpu_torch.ops import cuda_emit as ce
+    from ddp_generator_tpu_torch.ops.cm_derivs import cm_emit
+
+    items = ce.items_per_point(problem.n_x, problem.n_u, True)
+    out = {}
+    for B in (1, 128, B_MAIN):
+        p, r, m, w = nominal_rollout(problem, B, T_MAIN, torch.float32,
+                                     torch.device("cuda"))
+        args = emit_args(problem, p, r, m, w)
+        ref = cm_emit(*args)
+        got = {per: ce.emit(*args, per=per) for per in (1, items)}
+        d = dict(B=B, N=T_MAIN, items=items,
+                 auto_per=ce.items_per_thread(T_MAIN, B, items))
+        for per, o in got.items():
+            d[f"per{per}_rel_err"] = emit_gap(
+                f"emit B={B} per={per}", o, ref, TOL_EMIT["float32"])[1]
+        one, whole = (emit_outputs(o) for o in got.values())
+        differ = [k for k in one if not same_bits(one[k], whole[k])]
+        if differ:
+            fail(f"emit B={B}: the two mappings differ in {differ}")
+        d["plain_ms"] = graph_ms(lambda: cm_emit(*args), 1)
+        for per in (1, items):
+            d[f"per{per}_ms"] = graph_ms(lambda: ce.emit(*args, per=per),
+                                         reps)
+        d["bound_ms"] = bound(nbytes(args[1:], got[items]), 0,
+                              torch.float32)[0]
+        out[B] = d
+    return out
 
 
 def check_backpass(problem, B, T, dtype, tol, reps, rng, device="cuda",
@@ -836,10 +1014,10 @@ def batch_params_path(problem):
     solve (B=2048, T=500, float32, StepwiseSolver with chunk 10,
     compact_levels 4, min_compact_batch 128), cut to max_iter 40, with
     ``limW`` per lane from +-0.2 to +-0.5, ``backpass_method="kernel"`` and
-    ``linesearch_method="kernel"``: emission + B1, and the serial line
-    search, as per-lane params take it, every body call a graph replay
-    (each width captured at first use).  Every lane keeps its own box
-    limits; B1 runs, B2 does not."""
+    ``linesearch_method="kernel"``: the torch emitter + B1, and the serial
+    line search, as per-lane params take it, every body call a graph
+    replay (each width captured at first use).  Every lane keeps its own
+    box limits; B1 runs, B2 and the emission kernel do not."""
     import ddp_generator_tpu_torch as ddp
 
     p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float32)
@@ -855,7 +1033,7 @@ def batch_params_path(problem):
     loop = check_graphed("batch_params_path", solver)
     if launches["backpass"] <= 0:
         fail("batch_params_path: kernel backpass was never launched")
-    for name in ("fused", "rollout_multi", "rollout_selected"):
+    for name in ("fused", "emit", "rollout_multi", "rollout_selected"):
         if launches[name] != 0:
             fail(f"batch_params_path: kernel {name} was launched "
                  f"{launches[name]} times; per-lane params bypass it")
@@ -951,15 +1129,19 @@ def main_path(problem, backpass="kernel", dtype="float32", depth=1):
     precompile_s = solver.precompile(x0s, u0s, p)
     s, wall, launches = timed_solve(solver, x0s, u0s, p)
     loop = check_graphed(what, solver)
-    used = ("backpass" if backpass == "kernel" else "fused",
-            "rollout_multi", "rollout_selected")
+    used = (("backpass", "emit") if backpass == "kernel" else ("fused",)
+            ) + ("rollout_multi", "rollout_selected")
     for name in used:
         if launches[name] <= 0:
             fail(f"{what}: kernel {name} was never launched")
-    unused = "fused" if backpass == "kernel" else "backpass"
-    if launches[unused] != 0:
-        fail(f"{what}: kernel {unused} was launched {launches[unused]} "
-             "times; this path must not run it")
+    unused = ("fused",) if backpass == "kernel" else ("backpass", "emit")
+    for name in unused:
+        if launches[name] != 0:
+            fail(f"{what}: kernel {name} was launched {launches[name]} "
+                 "times; this path must not run it")
+    if backpass == "kernel" and launches["emit"] != launches["backpass"]:
+        fail(f"{what}: {launches['emit']} emission launches for "
+             f"{launches['backpass']} of B1; each body call emits once")
     if s.xs.shape != (B_MAIN, T_MAIN + 1, 4) or s.us.shape != (
             B_MAIN, T_MAIN, 2):
         fail(f"{what}: shapes {s.xs.shape} {s.us.shape}")
@@ -1282,41 +1464,39 @@ def device_loops_phase(problem, refs) -> dict:
 
 def emitter_launches(problem):
     """Phase 6c: derivative emission at the main path's first body call
-    (B=2048, T=500, float32) with each ``derivs_emitter``: device kernels
-    and their device ms per emission (``torch.profiler``), its wall (host
-    clock between two synchronizes, after a warm-up call), and the largest
-    gap between the two bundles relative to each component's largest
-    value."""
+    (B=2048, T=500, float32) by the emission kernel and by each
+    ``derivs_emitter`` of the torch emitter: device kernels and their
+    device ms per emission (``torch.profiler``), its wall (host clock
+    between two synchronizes, after a warm-up call), and the largest gap
+    of the kernel's and the shared emitter's bundle to the per-family
+    one's, relative to each component's largest value."""
     import torch
 
+    from ddp_generator_tpu_torch.ops import cuda_emit as ce
     from ddp_generator_tpu_torch.ops.cm_derivs import cm_emit
 
-    p, r, m, w = nominal_bundle(problem, B_MAIN, T_MAIN, torch.float32,
-                                "cuda")[:4]
+    p, r, m, w = nominal_rollout(problem, B_MAIN, T_MAIN, torch.float32,
+                                 torch.device("cuda"))
+    args = emit_args(problem, p, r, m, w)
+    emitters = {"per_family": lambda: cm_emit(*args, False),
+                "shared": lambda: cm_emit(*args, True),
+                "kernel": lambda: ce.emit(*args)}
     out, bundles = {}, {}
-    for shared in (False, True):
-
-        def emit():
-            return cm_emit(problem, r.xs, r.us, m.mu_le, m.mu_li, m.mu_fe,
-                           m.mu_fi, w, w, p, True, shared)
-
+    for name, emit in emitters.items():
         emit()
         torch.cuda.synchronize()
         t0 = time.time()
-        bundles[shared] = emit()
+        bundles[name] = emit()
         torch.cuda.synchronize()
         wall = time.time() - t0
         _, events, device_ms = profiled(emit)
-        name = "shared" if shared else "per_family"
         out[f"{name}_device_events"] = events
         out[f"{name}_device_ms"] = device_ms
         out[f"{name}_ms"] = 1e3 * wall
-    worst = 0.0
-    for key, a in bundles[True][0].items():
-        b = bundles[False][0][key]
-        if a.numel():
-            worst = max(worst, max_rel_err(a, b)[1])
-    out["max_rel_gap"] = worst
+    for name in ("shared", "kernel"):
+        out[f"{name}_max_rel_gap"] = emit_gap(
+            f"emitters {name}", bundles[name], bundles["per_family"],
+            TOL_EMIT["float32"])[1]
     return out
 
 
@@ -1706,8 +1886,8 @@ def user_solves(name):
                                  linesearch_method="kernel", **kw)
         solver = ddp.StepwiseSolver(problem, opts, device="cuda")
         s, wall, launches = timed_solve(solver, x0s, u0s, p)
-        used = ("backpass" if backpass == "kernel" else "fused",
-                "rollout_multi", "rollout_selected")
+        used = (("backpass", "emit") if backpass == "kernel"
+                else ("fused",)) + ("rollout_multi", "rollout_selected")
         for k, n in launches.items():
             if (n > 0) != (k in used):
                 fail(f"{what}: kernel {k} was launched {n} times")
@@ -1732,38 +1912,36 @@ def user_solves(name):
 
 
 def history_emitter(name: str, dtype):
-    """``emit(shared)``: the bundle (every component, the final-stage
+    """``emit(how)``: the bundle (every component, the final-stage
     derivatives and ``ok``) of the initial rollout of CarParking (bench's
     inputs, B=2048, T=500) or of the Brachistochrone (``testBrachi.m``,
-    ``brachi_plain_inputs(2048, 500, 11)``), FULL_DDP, on the card."""
+    ``brachi_plain_inputs(2048, 500, 11)``), FULL_DDP, on the card, by the
+    emission kernel (``how="kernel"``) or by the torch emitter
+    (``"per_family"``, ``"shared"``)."""
     import torch
 
-    import ddp_generator_tpu_torch as ddp
     from ddp_generator_tpu_torch.models import brachistochrone, car_parking
+    from ddp_generator_tpu_torch.ops import cuda_emit as ce
     from ddp_generator_tpu_torch.ops.cm_derivs import cm_emit
-    from ddp_generator_tpu_torch.ops.forward import forward_pass
 
-    np_dtype = np.float32 if dtype == torch.float32 else np.float64
     if name == "brachistochrone":
         problem = brachistochrone.brachistochrone()
-        p_np, x0s, u0s = brachi_plain_inputs(B_MAIN, N_BRACHI, 11)
-    else:
-        problem = car_parking.car_parking()
-        p_np, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np_dtype)
-    p = ddp.params_from_jax({k: np.asarray(v, np_dtype)
-                             for k, v in p_np.items()}, dtype, "cuda")
-    B, T = u0s.shape[0], u0s.shape[1]
-    x0 = torch.as_tensor(x0s.astype(np_dtype), device="cuda")
-    u0 = torch.as_tensor(u0s.astype(np_dtype), device="cuda")
-    m = ddp.init_multipliers(problem, B, T, dtype, "cuda")
-    w = torch.ones(B, dtype=dtype, device="cuda")
-    r = forward_pass(problem, x0, None, u0, None, None, 0.0, p, m.mu_le,
-                     m.mu_li, m.mu_fe, m.mu_fi, w, w)
 
-    def emit(shared: bool) -> dict:
-        sd, fcx, fcxx, _, ok = cm_emit(problem, r.xs, r.us, m.mu_le,
-                                       m.mu_li, m.mu_fe, m.mu_fi, w, w, p,
-                                       True, shared)
+        def inputs(B, T, np_dtype):
+            p_np, x0s, u0s = brachi_plain_inputs(B, T, 11)
+            return ({k: np.asarray(v, np_dtype) for k, v in p_np.items()},
+                    x0s.astype(np_dtype), u0s.astype(np_dtype))
+        T = N_BRACHI
+    else:
+        problem, inputs, T = car_parking.car_parking(), bench_inputs, T_MAIN
+    args = emit_args(problem, *nominal_rollout(
+        problem, B_MAIN, T, dtype, torch.device("cuda"), inputs))
+
+    def emit(how: str) -> dict:
+        if how == "kernel":
+            sd, fcx, fcxx, _, ok = ce.emit(*args)
+        else:
+            sd, fcx, fcxx, _, ok = cm_emit(*args, how == "shared")
         return dict(sd, final_cx=fcx, final_cxx=fcxx, ok=ok)
     return emit
 
@@ -1785,9 +1963,10 @@ def profiled(fn):
 def emission_history(strict: bool = True) -> dict:
     """Phase 0: emission must not depend on what the process did before.
     For each dtype, each problem's bundle is emitted, then the other
-    problem's, then the first again, with each ``derivs_emitter``; every
-    component of the two emissions must be equal bit for bit.  Also the
-    device kernels and ms of the first and the repeated emission.
+    problem's, then the first again, by the emission kernel and with each
+    ``derivs_emitter`` of the torch emitter; every component of the two
+    emissions must be equal bit for bit.  Also the device kernels and ms
+    of the first and the repeated emission.
     ``strict=False`` reports a difference instead of failing (to show
     the fault on an older tree)."""
     import torch
@@ -1799,12 +1978,10 @@ def emission_history(strict: bool = True) -> dict:
                     for n in ("brachistochrone", "car_parking")}
         for target, other in (("brachistochrone", "car_parking"),
                               ("car_parking", "brachistochrone")):
-            for shared in (False, True):
-                name = "shared" if shared else "per_family"
-                first, ev0, ms0 = profiled(
-                    lambda: emitters[target](shared))
-                emitters[other](shared)
-                again, ev1, ms1 = profiled(lambda: emitters[target](shared))
+            for name in ("kernel", "per_family", "shared"):
+                first, ev0, ms0 = profiled(lambda: emitters[target](name))
+                emitters[other](name)
+                again, ev1, ms1 = profiled(lambda: emitters[target](name))
                 differ = [k for k, v in first.items()
                           if not torch.equal(v, again[k])]
                 if differ and strict:
@@ -2906,6 +3083,15 @@ def main() -> int:
     bp64, (p64, r64, m64, w64, out64, lam64, _) = check_backpass(
         problem, 256, T_MAIN, torch.float64, TOL_B1["float64"], 5, rng)
     line("backpass_f64", **bp64)
+    # 3b. the emission kernel against the torch emitter on the same
+    # rollout; 3c. its two thread mappings at three widths
+    em32 = check_emit(problem, B_MAIN, T_MAIN, torch.float32,
+                      TOL_EMIT["float32"], 20)
+    line("emit_f32", **em32)
+    line("emit_f64", **check_emit(problem, B_MAIN, T_MAIN, torch.float64,
+                                  TOL_EMIT["float64"], 5))
+    for B, d in emit_mappings(problem, 20).items():
+        line("emit_mappings", **d)
 
     # 4. B2 against its plain version
     ro32, b2_args = check_rollout(problem, alphas, p32, r32, m32, w32, out32,
@@ -3169,6 +3355,11 @@ def main() -> int:
 
     kernels = [entry("backpass", "backpass.cu", "pallas_backpass.py:682",
                      launches["backpass"], bp32)]
+    # no Pallas kernel emits the bundle: the JAX package's emission is
+    # plain XLA, the row's plain version the port's torch emitter
+    kernels.append(dict(entry("emit", "emit.cu", "cm_derivs.py:65",
+                              launches["emit"], em32),
+                        plain="ddp_generator_tpu_torch/ops/cm_derivs.py"))
     for mode in ("multi", "selected"):
         kernels.append(entry(f"rollout_{mode}", "rollout.cu",
                              "pallas_rollout.py:424",

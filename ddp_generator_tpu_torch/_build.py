@@ -9,9 +9,10 @@ library.  A file lock keeps concurrent first uses from racing.  Nothing
 builds on import, and the CPU paths never build.
 
 Two more kinds of library are built the same way, each on first use:
-kernels B2 and B3 on a model generated from a problem's torch functions
-(:func:`build_model`, ``csrc/generated/{rollout,fused}.cu`` with the
-model's header, keyed also on the header), and kernel B1 at an
+kernels B2 and B3 and the emission kernel on a model generated from a
+problem's torch functions (:func:`build_model`,
+``csrc/generated/{rollout,fused,emit}.cu`` with the model's header, keyed
+also on the header), and kernel B1 at an
 ``(n_x, n_u)`` the main library does not instantiate
 (:func:`build_backpass_shape`).  A failed build raises
 :class:`KernelCompileError`; no route falls back to a plain version.
@@ -147,15 +148,15 @@ def _keyed(prefix: str, text: str) -> str:
 
 
 def build_model(model) -> Path:
-    """Compile kernels B2 and B3 on a generated model
-    (:class:`..codegen.GeneratedModel`): ``generated/rollout.cu`` and
-    ``generated/fused.cu`` with its header as ``model.cuh``, keyed on the
-    sources, the flags and the header."""
+    """Compile kernels B2 and B3 and the emission kernel on a generated
+    model (:class:`..codegen.GeneratedModel`): ``generated/rollout.cu``,
+    ``generated/fused.cu`` and ``generated/emit.cu`` with its header as
+    ``model.cuh``, keyed on the sources, the flags and the header."""
     key = _keyed(model.name, model.header)
     inc = ["-I", str(CSRC), "-I", str(BUILD_ROOT / key),
            f"-DDDP_MODEL={model.struct}"]
     units = [(CSRC / "generated" / f"{k}.cu", inc)
-             for k in ("rollout", "fused")]
+             for k in ("rollout", "fused", "emit")]
     return _compile(key, units, {"model.cuh": model.header})
 
 
@@ -199,7 +200,7 @@ def load_library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def load_model_library(model) -> ctypes.CDLL:
-    """Build (if needed) and load the B2/B3 library of a generated model
+    """Build (if needed) and load the kernel library of a generated model
     (once per model: the wrappers ask on every launch)."""
     return _load(lambda: build_model(model))
 
@@ -222,6 +223,8 @@ def open_library(path: Path) -> ctypes.CDLL:
             ("ddp_backpass_info", [i, i, i, i, i, ip]),
             ("ddp_fused", [i, name, i, i, i, i, pp, p]),
             ("ddp_fused_info", [i, name, i, i, ip]),
+            ("ddp_emit", [i, name, i, i, i, i, pp, p]),
+            ("ddp_emit_info", [i, name, i, ip]),
             ("ddp_rollout", [i, name, i, i, i, i, i, i, pp, p]),
             ("ddp_rollout_info", [i, name, i, i, ip]),
             ("ddp_loop_versions", [ip]),

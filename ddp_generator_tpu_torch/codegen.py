@@ -620,8 +620,8 @@ class GeneratedModel:
         return torch.cat(parts).contiguous()
 
     def library(self):
-        """The kernel library of B2 and B3 on this model, built at first
-        use (``_build.build_model``) and loaded."""
+        """The kernel library of B2, B3 and emission on this model, built
+        at first use (``_build.build_model``) and loaded."""
         from . import _build
 
         return _build.load_model_library(self)
@@ -933,8 +933,8 @@ def by_name(name: str) -> Optional[GeneratedModel]:
 
 
 def kernel_model(problem: Problem, params: Any, hand_written: tuple):
-    """The CUDA model kernels B2 and B3 run for ``problem`` and the
-    library that holds them: its hand-written model (one of
+    """The CUDA model kernels B2, B3 and emission run for ``problem`` and
+    the library that holds them: its hand-written model (one of
     ``hand_written``, in the main library), or, when it names none, the
     model generated from its functions (built at first use)."""
     from . import _build

@@ -176,8 +176,9 @@ __host__ __device__ __forceinline__ bool step_derivs(
 
 // ---- step_derivs cut into the work items of B3's producers ----
 //
-// Each writes its own terms of step k into a slot column q (staged.cuh:
-// Terms order; term j at q[j * ts]) and returns whether those it checks
+// Each writes its own terms of step k into a column q (staged.cuh: Terms
+// order; term j at q[j * ts]: a slot's column in B3, the packed bundle's
+// in the emission kernel, emit.cuh) and returns whether those it checks
 // are finite.  Same arithmetic as step_derivs, with the direction pair
 // (a, b) or direction a a runtime value: the seeds are exactly 0 or 1
 // either way, so every value is bit for bit step_derivs'.  Where
@@ -187,10 +188,10 @@ __host__ __device__ __forceinline__ bool step_derivs(
 // Pair a <= b of the D = NX+NU directions: d2/da db of the augmented L
 // (cxx, cxu or cuu), d/da on the diagonal (cx or cu); with FULL, the same
 // of every output of f (f**, and fx or fu on the diagonal).
-template <class M, bool FULL, typename T, typename P>
+template <class M, bool FULL, typename T, typename P, typename I>
 __host__ __device__ __forceinline__ bool pair_item(
     const T* x, const T* u, const P* p, int k, const T* mu_le,
-    const T* mu_li, T wpl, int a, int b, T* q, int ts) {
+    const T* mu_li, T wpl, int a, int b, T* q, I ts) {
   constexpr int NX = M::NX, NU = M::NU;
   using K = Terms<NX, NU, FULL>;
   Dual2<T> xd[NX], ud[NU];
@@ -232,10 +233,10 @@ __host__ __device__ __forceinline__ bool pair_item(
 }
 
 // Without FULL: direction a of f on Dual, the column a of fx or fu.
-template <class M, bool FULL, typename T, typename P>
+template <class M, bool FULL, typename T, typename P, typename I>
 __host__ __device__ __forceinline__ bool dyn_item(const T* x, const T* u,
                                                   const P* p, int k, int a,
-                                                  T* q, int ts) {
+                                                  T* q, I ts) {
   constexpr int NX = M::NX, NU = M::NU;
   using K = Terms<NX, NU, FULL>;
   Dual<T> xd[NX], ud[NU], fn[NX];
@@ -256,10 +257,10 @@ __host__ __device__ __forceinline__ bool dyn_item(const T* x, const T* u,
 
 // The box limits of step k (not checked for finiteness, as in
 // step_derivs), and u itself.
-template <class M, bool FULL, typename T, typename P>
+template <class M, bool FULL, typename T, typename P, typename I>
 __host__ __device__ __forceinline__ void box_item(const T* x, const T* u,
                                                   const P* p, int k, T* q,
-                                                  int ts) {
+                                                  I ts) {
   constexpr int NX = M::NX, NU = M::NU;
   using K = Terms<NX, NU, FULL>;
   StepTerms<T, NX, NU> d;
@@ -277,6 +278,37 @@ __host__ __device__ __forceinline__ void box_item(const T* x, const T* u,
       q[(K::UP_HX + a * NX + c) * ts] = d.up_hx[a][c];
     }
   }
+}
+
+// Work items of one (step, lane): the D(D+1)/2 direction pairs, without
+// FULL the D directions of f, then the box limits.
+template <class M, bool FULL>
+__host__ __device__ constexpr int items_per_point() {
+  constexpr int D = M::NX + M::NU;
+  return D * (D + 1) / 2 + (FULL ? 0 : D) + 1;
+}
+
+// Work item `kind` of (step k, lane) at (x, u): pair tri(a, b, D) for kind
+// < D(D+1)/2, then (without FULL) direction kind - D(D+1)/2 of f, then the
+// box limits and u.  Returns whether the terms it checks are finite.
+template <class M, bool FULL, typename T, typename P, typename I>
+__host__ __device__ __forceinline__ bool point_item(
+    const T* x, const T* u, const P* p, int k, const T* mu_le,
+    const T* mu_li, T wpl, int kind, T* q, I ts) {
+  constexpr int D = M::NX + M::NU, NPAIR = D * (D + 1) / 2;
+  if (kind < NPAIR) {
+    int a = 0, r = kind;  // kind = tri(a, a + r, D)
+    while (r >= D - a) {
+      r -= D - a;
+      ++a;
+    }
+    return pair_item<M, FULL>(x, u, p, k, mu_le, mu_li, wpl, a, a + r, q,
+                              ts);
+  }
+  if (!FULL && kind < NPAIR + D)
+    return dyn_item<M, FULL>(x, u, p, k, kind - NPAIR, q, ts);
+  box_item<M, FULL>(x, u, p, k, q, ts);
+  return true;
 }
 
 // Fx and Fxx of the AL-augmented final cost at xf (k = N), hfe/hfi with

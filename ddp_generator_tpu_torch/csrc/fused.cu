@@ -5,27 +5,7 @@
 // a generated one, built at first use from generated/fused.cu (codegen.py,
 // _build.build_model).
 #include "fused_launch.cuh"
-#include "models/brachistochrone.cuh"
-#include "models/car_parking.cuh"
-#include "models/cartpole.cuh"
-
-namespace ddp {
-namespace {
-
-struct Models {
-  template <class G>
-  static int with(const char* model, G g) {
-    if (strcmp(model, "car_parking") == 0) return g(CarParking());
-    if (strcmp(model, "cartpole") == 0) return g(Cartpole());
-    if (strcmp(model, "brachistochrone") == 0) return g(Brachistochrone());
-    if (strcmp(model, "brachistochrone_hli") == 0)
-      return g(BrachistochroneHli());
-    return kBadVariant;
-  }
-};
-
-}  // namespace
-}  // namespace ddp
+#include "models/hand_written.cuh"
 
 // ---- C interface ----
 //

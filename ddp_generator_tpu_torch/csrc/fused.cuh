@@ -114,14 +114,6 @@ __host__ __device__ __forceinline__ void fused_lane(const FusedArgs<T>& A,
   });
 }
 
-// Work items of one (step, lane): the D(D+1)/2 direction pairs, without
-// FULL the D directions of f, then the box limits.
-template <class M, bool FULL>
-__host__ __device__ constexpr int items_per_point() {
-  constexpr int D = M::NX + M::NU;
-  return D * (D + 1) / 2 + (FULL ? 0 : D) + 1;
-}
-
 // Tile (t0, lanes b0 ..) of B3's terms into a slot (staged.cuh: Terms
 // order, [term][step][lane]).  This caller runs items first, first +
 // stride, ... of the tile's items_per_point() x S x kLanes, ordered item
@@ -133,8 +125,7 @@ __host__ __device__ __forceinline__ void fused_fill(const FusedArgs<T>& A,
                                                     const T* p, int t0,
                                                     int b0, T* slot, int* ok,
                                                     int first, int stride) {
-  constexpr int NX = M::NX, NU = M::NU, D = NX + NU;
-  constexpr int NPAIR = D * (D + 1) / 2;
+  constexpr int NX = M::NX, NU = M::NU;
   // (step, lane) points of a tile, and the slot stride between terms
   constexpr int TS = S * kLanes;
   for (int i = first; i < items_per_point<M, FULL>() * TS; i += stride) {
@@ -143,22 +134,9 @@ __host__ __device__ __forceinline__ void fused_fill(const FusedArgs<T>& A,
     if (t < 0 || b >= A.B) continue;
     T x[NX], u[NU], mu_le[arr(M::NHLE)] = {}, mu_li[arr(M::NHLI)] = {};
     load_point<M>(A, t, b, x, u, mu_le, mu_li);
-    T* q = slot + s * kLanes + g;
-    bool item_ok = true;
-    if (kind < NPAIR) {
-      int a = 0, r = kind;  // kind = tri(a, bb, D)
-      while (r >= D - a) {
-        r -= D - a;
-        ++a;
-      }
-      item_ok = pair_item<M, FULL>(x, u, p, t, mu_le, mu_li, A.wpl[b], a,
-                                   a + r, q, TS);
-    } else if (!FULL && kind < NPAIR + D) {
-      item_ok = dyn_item<M, FULL>(x, u, p, t, kind - NPAIR, q, TS);
-    } else {
-      box_item<M, FULL>(x, u, p, t, q, TS);
-    }
-    if (!item_ok) ok[g] = 0;
+    if (!point_item<M, FULL>(x, u, p, t, mu_le, mu_li, A.wpl[b], kind,
+                             slot + s * kLanes + g, TS))
+      ok[g] = 0;
   }
 }
 

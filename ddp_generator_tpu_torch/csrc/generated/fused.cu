@@ -2,20 +2,7 @@
 // generated/rollout.cu into the model's library (_build.build_model).  The
 // entry points are fused.cu's, for that one model's name.
 #include "fused_launch.cuh"
-#include "model.cuh"
-
-namespace ddp {
-namespace {
-
-struct Models {
-  template <class G>
-  static int with(const char* model, G g) {
-    return strcmp(model, DDP_MODEL::NAME) == 0 ? g(DDP_MODEL()) : kBadVariant;
-  }
-};
-
-}  // namespace
-}  // namespace ddp
+#include "one_model.cuh"
 
 extern "C" int ddp_fused(int dtype, const char* model, int reg_type,
                          int full_ddp, int N, int B, void* const* ptrs,

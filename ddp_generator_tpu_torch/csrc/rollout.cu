@@ -4,28 +4,8 @@
 // at line 424).  A problem without a hand-written model gets a generated
 // one, built at first use from generated/rollout.cu (codegen.py,
 // _build.build_model).
-#include "models/brachistochrone.cuh"
-#include "models/car_parking.cuh"
-#include "models/cartpole.cuh"
+#include "models/hand_written.cuh"
 #include "rollout_launch.cuh"
-
-namespace ddp {
-namespace {
-
-struct Models {
-  template <class G>
-  static int with(const char* model, G g) {
-    if (strcmp(model, "car_parking") == 0) return g(CarParking());
-    if (strcmp(model, "cartpole") == 0) return g(Cartpole());
-    if (strcmp(model, "brachistochrone") == 0) return g(Brachistochrone());
-    if (strcmp(model, "brachistochrone_hli") == 0)
-      return g(BrachistochroneHli());
-    return kBadVariant;
-  }
-};
-
-}  // namespace
-}  // namespace ddp
 
 // ---- C interface ----
 //

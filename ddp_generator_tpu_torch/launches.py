@@ -3,8 +3,9 @@
 Each kernel wrapper adds one to its count where it launches its kernel on a
 CUDA device, and nowhere else (its plain version on the CPU counts
 nothing): ``cuda_backpass.back_pass_cm`` (B1),
-``cuda_fused.fused_derivs_back_pass`` (B3) and ``cuda_rollout.rollout_call``
-(B2, the sweep and the selected rollout apart).
+``cuda_fused.fused_derivs_back_pass`` (B3), ``cuda_rollout.rollout_call``
+(B2, the sweep and the selected rollout apart) and ``cuda_emit.emit`` (the
+kernel path's emission, its two launches counted as one).
 
 An eager launch with nothing to decide on the device counts on the host
 (the wrapper's ``launches`` attribute).  Two kinds count on the device, in
@@ -16,9 +17,10 @@ one ``int64`` tensor per device that :func:`on_device` adds to:
 * a launch behind a device predicate ``when`` (a 0-d or one-element
   tensor): it adds the predicate, so a launch that does no work counts
   nothing.  B2's stage flag is one (a stage the line search does not need
-  launches and exits at entry); the solver passes B1 and B3 "some lane of
-  this body call runs", so a graph replay after the working set's last
-  lane retired counts no launch, as the eager loop makes no body call then.
+  launches and exits at entry); the solver passes B1, B3 and the emission
+  "some lane of this body call runs", so a graph replay after the working
+  set's last lane retired counts no launch, as the eager loop makes no body
+  call then.
 
 So a solve counts the same launches whether its body calls were replayed or
 run eagerly.  :func:`read_launches` synchronizes to read the device counts.
@@ -45,7 +47,7 @@ import contextlib
 
 import torch
 
-KERNELS = ("backpass", "fused", "rollout_multi", "rollout_selected")
+KERNELS = ("backpass", "fused", "rollout_multi", "rollout_selected", "emit")
 _DEVICE: dict = {}  # torch.device -> int64 (len(KERNELS),) counts
 
 
@@ -195,10 +197,12 @@ def reset_launches() -> None:
     (the device counts and the rings' cursors in place: captured graphs
     hold their address)."""
     from .ops import cuda_backpass as _cb
+    from .ops import cuda_emit as _ce
     from .ops import cuda_fused as _cf
     from .ops import cuda_rollout as _cr
 
     _cb.back_pass_cm.launches = 0
+    _ce.emit.launches = 0
     _cf.fused_derivs_back_pass.launches = 0
     _cr.rollout_call.launches = {"multi": 0, "selected": 0}
     for t in _DEVICE.values():
@@ -209,17 +213,19 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    """``{"backpass", "fused", "rollout_multi", "rollout_selected"}``:
-    launches since the last :func:`reset_launches`, host and device counts
-    together."""
+    """``{"backpass", "fused", "rollout_multi", "rollout_selected",
+    "emit"}``: launches since the last :func:`reset_launches`, host and
+    device counts together."""
     from .ops import cuda_backpass as _cb
+    from .ops import cuda_emit as _ce
     from .ops import cuda_fused as _cf
     from .ops import cuda_rollout as _cr
 
     out = {"backpass": _cb.back_pass_cm.launches,
            "fused": _cf.fused_derivs_back_pass.launches,
            "rollout_multi": _cr.rollout_call.launches["multi"],
-           "rollout_selected": _cr.rollout_call.launches["selected"]}
+           "rollout_selected": _cr.rollout_call.launches["selected"],
+           "emit": _ce.emit.launches}
     for t in _DEVICE.values():
         for k, v in zip(KERNELS, t.tolist()):
             out[k] += v

@@ -84,7 +84,11 @@ class SolverOptions:
     # ops/backpass.py (boxQP ops/boxqp.py, MOD_CHOL ops/chol.py), on either
     # device.  "kernel": derivative emission, then the whole backward pass
     # as one hand-written CUDA kernel (B1, ops/cuda_backpass.py) on a CUDA
-    # device, its plain PyTorch version on the CPU.  "fused": derivatives
+    # device, its plain PyTorch version on the CPU.  On a CUDA device with
+    # shared params the emission is a CUDA kernel on the problem's CUDA
+    # model (ops/cuda_emit.py), hand-written or generated (codegen.py), so
+    # a problem the generator cannot write raises NotImplementedError
+    # there, as with "fused".  "fused": derivatives
     # and backward pass in one CUDA kernel (B3, ops/cuda_fused.py).
     # "parallel": the associative-scan backward pass of
     # ops/parallel_riccati.py on the step-major derivatives (unconstrained
@@ -101,6 +105,12 @@ class SolverOptions:
     # retries on the next body call.  "inline": the retries run inside the
     # body call, re-running only the backward pass (iLQG.c:261-284).
     lam_retry: str = "deferred"
+    # The torch emitter of the "kernel" path's bundle (ops/cm_derivs.py):
+    # "per-family" (one reverse pass per output) or "shared" (one trace of
+    # f and L).  It selects among the torch emitters only, so it acts on
+    # the CPU with shared params: on a CUDA device with shared params the
+    # bundle comes from the emission kernel (ops/cuda_emit.py), and per-lane
+    # params always take "per-family".
     derivs_emitter: str = "per-family"
     scan_unroll: int = 1
     use_mod_chol: bool = False

@@ -4,8 +4,9 @@ One body call is one masked outer iteration of every lane of the batch
 (``iLQG.c:239-361``): the derivatives and the backward pass -- with
 ``backpass_method="serial"`` the step-major bundle (``derivs.py``) and the
 reverse loop of ``ops/backpass.py``, with ``"kernel"`` derivative emission
-into the packed component-major bundle (``ops/cm_derivs.py``) then kernel
-B1, with ``"fused"`` kernel B3, which computes the derivatives inside the
+into the packed component-major bundle (on a card the emission kernel,
+``ops/cuda_emit.py``; on the CPU ``ops/cm_derivs.py``) then kernel B1,
+with ``"fused"`` kernel B3, which computes the derivatives inside the
 backward pass (``ops/cuda_fused.py``) -- the lambda retries
 (``lam_retry``), the gradient-tolerance exit, the line search (serial,
 ``ops/linesearch.py``, or kernel B2), then the accept/reject updates.
@@ -34,7 +35,8 @@ each leaf ``(B, *leaf_shape)``), cast once to lanes-last
 :class:`~.problem.LaneParams`.  As in the JAX package, the kernels that read
 one flat shared param vector are then bypassed: ``"fused"`` takes the serial
 derivatives and backward pass, the kernel line search the serial one;
-``"kernel"`` keeps emission + B1 (B1 reads no params).
+``"kernel"`` keeps B1 (it reads no params) after the torch emitter
+(``ops/cm_derivs.py``) in the emission kernel's place.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ from .convert import to_torch
 from .derivs import batched_calc_derivs
 from .ops.backpass import back_pass
 from .ops.boxqp import BoxQPHyper
-from .ops import cuda_backpass, cuda_fused, device_loop
+from .ops import cuda_backpass, cuda_emit, cuda_fused, device_loop
 from .ops.cm_derivs import cm_back_pass_from_bundle, cm_emit
 from .ops.cuda_fused import fused_derivs_back_pass
 from .ops.cuda_rollout import kernel_line_search, kernel_line_search_staged
@@ -283,10 +285,13 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
             bp, d_ok = bp_call(c.lam)
             return lambda lam: bp_call(lam)[0], bp, d_ok
         if backpass == "kernel":
-            # emission once; a retry re-runs B1 on the same bundle
-            sd_cm, fcx, fcxx, us_cm, d_ok = cm_emit(
-                problem, c.xs, c.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi,
-                w_pen_l_d, w_pen_f_d, params, o.full_ddp, shared)
+            # emission once (the emission kernel on a card unless params
+            # are per lane); a retry re-runs B1 on the same bundle
+            args = (problem, c.xs, c.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi,
+                    w_pen_l_d, w_pen_f_d, params, o.full_ddp, shared)
+            sd_cm, fcx, fcxx, us_cm, d_ok = (
+                cm_emit(*args) if batch_params
+                else cuda_emit.emit(*args, when=runs))
             launches.stamp("derivs", device)
 
             def bp_call(lam):
@@ -312,12 +317,14 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
         """Generate and build the kernels this solve launches on a CUDA
         device before any body call, so before any graph capture (an
         ``nvcc`` run cannot be captured): B1 at the problem's shape, and
-        B2/B3 on its CUDA model, hand-written or generated."""
+        B2, B3 and the emission kernel on its CUDA model, hand-written or
+        generated."""
         if device.type != "cuda":
             return
         if backpass == "kernel":
             cuda_backpass.library(problem.n_x, problem.n_u)
-        if backpass == "fused" or linesearch == "kernel":
+        if (backpass == "fused" or linesearch == "kernel"
+                or (backpass == "kernel" and not batch_params)):
             codegen.kernel_model(problem, params, cuda_fused.KERNEL_MODELS)
 
     def init_fn(x0s, u0s, params) -> _Carry:

@@ -129,7 +129,7 @@ def test_bench_torch_cli_cpu_toy(flags):
     # the wrappers count launches of their kernels only: none on the CPU
     assert rec["launches_per_solve"] == {
         "backpass": 0, "fused": 0, "rollout_multi": 0,
-        "rollout_selected": 0}
+        "rollout_selected": 0, "emit": 0}
     assert "warm-up solve" in out.stderr
     # precompile by default, as bench.py; on the CPU it captures nothing
     assert ("precompile: " in out.stderr) == (not flags)

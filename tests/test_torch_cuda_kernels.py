@@ -638,10 +638,12 @@ def test_old_cuda_raises(cuda, monkeypatch):
 
 def test_capture_error_raises(cuda):
     """A host read inside the body call makes the capture fail, and the
-    solver raises instead of running the body eagerly (the kernel path:
-    its emission calls the model's Python ``f``, the fused path's body
-    does not)."""
+    solver raises instead of running the body eagerly (the kernel
+    backward pass with the serial line search, whose rollouts call the
+    model's Python ``f``; with the emission kernel and B2 the body calls
+    none, and neither does the fused path's)."""
     problem, opts, x0s, u0s, p = _graph_case("kernel", B=16, T=20)
+    opts = dataclasses.replace(opts, linesearch_method="serial")
     f = problem.f
 
     def f_reads_host(x, u, p_, k):
