@@ -204,7 +204,9 @@ UPRIGHT_MIN = 0.805 - 0.05
 # Cartpole's, CarParking's generated model's and the two user problems'
 # (B1 at their shapes (2, 1) and (6, 3)), and B2's on the parallel path's
 # two models (the Brachistochrone's hand-written one and the point mass
-# without its input boxes), counted by scripts/count_ops.py
+# without its input boxes), and brachistochrone_hli's B3 and B1 without
+# FULL_DDP (``_gn``) and B2 with and without the cost, counted by
+# scripts/count_ops.py
 # on the kernels' own headers (tests/test_torch_count_ops.py holds these to
 # that count; the Riccati step's clamp search depends on the data, so a
 # model's count moves with its random operands).
@@ -230,6 +232,12 @@ OPS = {"backpass_per_step": 1470, "backpass_per_lane": 1,
        "point_mass3_fused_per_lane": 2374,
        "point_mass3_rollout_per_step": 108,
        "brachistochrone_rollout_per_step": 20,
+       "brachistochrone_hli_fused_gn_per_step": 511,
+       "brachistochrone_hli_fused_gn_per_lane": 33,
+       "brachistochrone_hli_backpass_gn_per_step": 96,
+       "brachistochrone_hli_backpass_gn_per_lane": 1,
+       "brachistochrone_hli_rollout_per_step": 30,
+       "brachistochrone_hli_rollout_nocost_per_step": 6,
        "point_mass3_free_rollout_per_step": 84}
 # NVIDIA H100 SXM data sheet: HBM3 rate and the float32/float64 rates
 # outside the tensor cores, all at the full 700 W power limit.

@@ -4,8 +4,9 @@
 //
 // One state y (height, negative), one input dy (slope over a horizontal
 // step dx); the running cost is the closed-form travel time of a segment
-// (optDefBrachi.mac:10):
-//   L = 2*sqrt((1 + dy^2) / (2 g)) * (sqrt(-y - dx*dy) - sqrt(-y)) / (-dy).
+// (optDefBrachi.mac:10), its difference of square roots rationalized as in
+// models/brachistochrone.py (no cancellation where dy is small):
+//   L = 2*sqrt((1 + dy^2) / (2 g)) * dx / (sqrt(-y - dx*dy) + sqrt(-y)).
 // Every expression keeps the operation order of the torch functions, so the
 // two round alike.  States and inputs have type T (plain or a forward-mode
 // number of dual.cuh); parameters stay plain (P).
@@ -26,7 +27,7 @@ struct BrachiBase {
   template <typename T, typename P>
   __host__ __device__ static T segment_time(T y, T dy, P g, P dx) {
     const T s = sqrt((P(1) + dy * dy) / (P(2) * g));
-    return P(2) * s * (sqrt(-y - dx * dy) - sqrt(-y)) / (-dy);
+    return P(2) * s * dx / (sqrt(-y - dx * dy) + sqrt(-y));
   }
 
   template <typename T, typename P>

@@ -38,7 +38,11 @@ the counts' rules (made before any capture, emptied by
   :func:`read_stamps` reads them back in order;
 * lane-steps (:func:`add_lane_steps`): the working width summed over the
   body calls of every :class:`~.solver.StepwiseSolver` call, on the host
-  (each call's own in ``LoopStats.lane_steps``).
+  (each call's own in ``LoopStats.lane_steps``);
+* multiplier updates (:func:`count_al_updates`): the running lanes whose
+  AL multipliers a body call updated, summed on the device (one ``int64``
+  per device, an add of the lanes' count in the body call, a graph node
+  where captured); :func:`read_al_updates` reads them.
 """
 
 from __future__ import annotations
@@ -53,9 +57,10 @@ _DEVICE: dict = {}  # torch.device -> int64 (len(KERNELS),) counts
 
 #: the tags a stamp takes, by their index in the ring
 STAMP_TAGS = ("body", "derivs", "backpass", "linesearch", "body_end",
-              "solve", "loop", "loop_end", "solve_end")
+              "solve", "loop", "loop_end", "solve_end", "al")
 STAMP_CAPACITY = 1 << 20  # stamps a device's ring holds before it wraps
 _STAMPS: dict = {}  # torch.device -> int64 ring (see stamp_ring)
+_AL: dict = {}  # torch.device -> int64 (1,) multiplier updates, in lanes
 _HOST = {"lane_steps": 0}
 _NO_SPAN = contextlib.nullcontext()
 
@@ -103,11 +108,24 @@ def stamp_ring(device) -> torch.Tensor:
     return _made_before_capture(_STAMPS, device, _new_ring, "the stamp ring")
 
 
+def al_updates(device) -> torch.Tensor:
+    """The multiplier-update count of ``device``, int64 ``(1,)``, made at
+    first use (on a CUDA device outside a capture)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return _AL.setdefault(device, torch.zeros(1, dtype=torch.int64))
+    return _made_before_capture(
+        _AL, device, lambda d: torch.zeros(1, dtype=torch.int64, device=d),
+        "the multiplier-update count")
+
+
 def before_capture(device) -> None:
-    """Make the launch counts and the stamp ring of ``device``: a graph
-    captured afterwards adds to them on every replay."""
+    """Make the launch counts, the stamp ring and the multiplier-update
+    count of ``device``: a graph captured afterwards adds to them on every
+    replay."""
     device_counts(device)
     stamp_ring(device)
+    al_updates(device)
 
 
 def span(name: str, solve_id: int):
@@ -180,6 +198,18 @@ def read_lane_steps() -> int:
     return _HOST["lane_steps"]
 
 
+def count_al_updates(updated: torch.Tensor) -> None:
+    """Add the lanes set in ``updated`` (bool, one per lane: the lanes
+    whose multipliers a body call updated) to their device's count."""
+    al_updates(updated.device).add_(updated.sum())
+
+
+def read_al_updates() -> int:
+    """Multiplier updates, in lanes, counted on every device since the
+    last :func:`reset_launches` (a read of each device's count)."""
+    return sum(int(t.sum()) for t in _AL.values())
+
+
 def on_device(kernel: str, device, when=None) -> bool:
     """Count one launch of ``kernel`` on the device if it must be (inside a
     capture, or behind the predicate ``when``); False for an eager
@@ -209,6 +239,8 @@ def reset_launches() -> None:
         t.zero_()
     for ring in _STAMPS.values():
         ring[:1].zero_()
+    for t in _AL.values():
+        t.zero_()
     _HOST["lane_steps"] = 0
 
 

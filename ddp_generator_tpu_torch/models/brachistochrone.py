@@ -3,11 +3,19 @@
 Re-derivation of ``examples/Brachistochrone/optDefBrachi.mac`` and
 ``optDefBrachi_hli.mac``: one state ``y`` (height, negative), one input
 ``dy`` (slope over a horizontal step ``dx``); the running cost is the
-travel time of the segment, in closed form (``optDefBrachi.mac:10``):
+travel time of the segment, the reference's symbolic integral
+``int_0^dx sqrt((1+dy^2)/(2g(-y - dy*s))) ds`` (``optDefBrachi.mac:10``) in
+closed form:
 
     L = sqrt((1+dy^2)/(2g)) * 2*(sqrt(-y - dx*dy) - sqrt(-y)) / (-dy)
+      = sqrt((1+dy^2)/(2g)) * 2*dx / (sqrt(-y - dx*dy) + sqrt(-y)),
 
-valid under the reference's assumptions ``y < 0``, ``dy < 0``, ``dx > 0``.
+valid where ``y < 0`` and ``y + dx*dy < 0``.  The port evaluates the
+second form, the same function: the first subtracts two nearly equal
+square roots where the slope is small (the cycloid's flat bottom, where
+the horizon ends), which cost its derivatives up to 1.5% (``cxu``), enough
+for kernel B3 and autograd to part at an ill-conditioned step; the second
+keeps them within a few ulps and is finite at ``dy = 0``.
 
 * :func:`brachistochrone`: terminal equality ``hfe = y - yf``
   (``optDefBrachi.mac:13``).
@@ -40,9 +48,10 @@ CUDA_MODEL_HLI = CudaModel(name="brachistochrone_hli",
 
 
 def _segment_time(y, dy, g, dx):
-    # Closed form of the reference's symbolic integral (optDefBrachi.mac:10).
+    # Closed form of the reference's symbolic integral (optDefBrachi.mac:10)
+    # with its difference of square roots rationalized (see the docstring).
     s = torch.sqrt((1.0 + dy * dy) / (2.0 * g))
-    return 2.0 * s * (torch.sqrt(-y - dx * dy) - torch.sqrt(-y)) / (-dy)
+    return 2.0 * s * dx / (torch.sqrt(-y - dx * dy) + torch.sqrt(-y))
 
 
 def f(x, u, p, k):

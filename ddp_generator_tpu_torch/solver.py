@@ -495,6 +495,9 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
                 problem, xs, us, params, mult.mu_le, mult.mu_li, mult.mu_fe,
                 mult.mu_fi, w_pen_l, w_pen_f)
             cost = where(recost, new_cost_eval, cost)
+            launches.count_al_updates(do_mult_update
+                                      & _running(c, o.max_iter))
+            launches.stamp("al", device)
 
         lammax_exit = rejected & (lam > o.lambdaMax)
         status = where(lammax_exit, sol.STATUS_EXIT_LAMBDA_MAX, status)

@@ -26,10 +26,12 @@ CarParking's from its torch functions and the two user problems of
 Prints one JSON object: operations per step, per lane and, for B2, per
 step of one trajectory, CarParking's under plain names and the others'
 with a prefix (``cartpole_``, ``gen_car_parking_``,
-``double_integrator_``, ``point_mass3_``), and B2's alone on the two
+``double_integrator_``, ``point_mass3_``), B2's alone on the two
 models of the parallel path (``brachistochrone_``: the hand-written model
 of ``brachistochrone()``, ``point_mass3_free_``: the point mass without
-its input boxes).
+its input boxes), and ``brachistochrone_hli``'s as its benchmark cell runs
+it: B3 and B1 without FULL_DDP (``_gn_``), B2 with and without the cost
+(``_rollout_nocost_``; its ``[k]``-indexed ``ymin`` from -1 to -5).
 ``tests/test_torch_count_ops.py`` holds the constants of ``chip_smoke.py``
 to this count.
 """
@@ -117,21 +119,47 @@ template <> struct Case<Brachistochrone> {
       9.81, -4.0, 0.012566370614359173};
   static constexpr double x[1] = {-1.0};
 };
+template <> struct Case<BrachistochroneHli> {
+  static constexpr double params[BrachistochroneHli::NP] = {
+      9.81, 0.012566370614359173};
+  static constexpr double x[1] = {-2.0};
+};
 @CASES@
 
-// B3 on one lane over N steps: operations.
+// Entries of a model's [k]-indexed parameter tail over N steps, after its
+// NP fixed ones: only the moving floor's ymin has one, N + 1 entries.
+template <class M> struct Tail {
+  static int size(int) { return 0; }
+};
+template <> struct Tail<BrachistochroneHli> {
+  static int size(int N) { return N + 1; }
+};
+
+// A model's flat parameters over N steps: Case<M>::params, then the tail
+// (ymin from -1 to -5, as testBrachi_hli.m's).
 template <class M>
+static std::vector<Op> flat_params(int N) {
+  std::vector<Op> p(M::NP + Tail<M>::size(N));
+  for (int i = 0; i < M::NP; ++i) p[i] = Case<M>::params[i];
+  for (int k = 0; k < Tail<M>::size(N); ++k)
+    p[M::NP + k] = -1.0 - 4.0 * k / N;
+  return p;
+}
+
+// B3 on one lane over N steps (regType 1, FULL_DDP or not): operations.
+template <class M, bool FULL = true>
 static long fused_ops(int N) {
   constexpr int NX = M::NX, NU = M::NU;
   Op x[N * NX], u[N * NU], xf[NX], one(1.0), lam(1e-3), l[N * NU],
-      L[N * NU * NX], dV[2], g[1], p[M::NP];
+      L[N * NU * NX], dV[2], g[1];
   bool failed[1], dok[1];
   for (int k = 0; k < N; ++k) {
     for (int a = 0; a < NX; ++a) x[k * NX + a] = Case<M>::x[a] + 0.3 * rnd();
     for (int a = 0; a < NU; ++a) u[k * NU + a] = 0.3 * rnd();
   }
   for (int a = 0; a < NX; ++a) xf[a] = x[a];
-  for (int i = 0; i < M::NP; ++i) p[i] = Case<M>::params[i];
+  std::vector<Op> pv = flat_params<M>(N);
+  const Op* p = pv.data();
   // AL multipliers of every family the model has (ones)
   std::vector<Op> mu_le(N * arr(M::NHLE), one), mu_li(N * arr(M::NHLI), one),
       mu_fe(arr(M::NHFE), one), mu_fi(arr(M::NHFI), one);
@@ -139,12 +167,12 @@ static long fused_ops(int N) {
                   mu_fe.data(), mu_fi.data(), p, l, L, dV, g, failed, dok,
                   N, 1};
   g_ops = 0;
-  fused_lane<M, Op, 1, true>(A, p, 0);
+  fused_lane<M, Op, 1, FULL>(A, p, 0);
   return g_ops;
 }
 
-// B1 on one lane over N steps: operations.
-template <int NX, int NU>
+// B1 on one lane over N steps (regType 1, FULL_DDP or not): operations.
+template <int NX, int NU, bool FULL = true>
 static long backpass_ops(int N) {
   constexpr int TX = NX * (NX + 1) / 2, TU = NU * (NU + 1) / 2;
   const int n[16] = {NX * NX, NX * NU, NX, NU, TX, TU, NX * NU, NX * TX,
@@ -177,19 +205,21 @@ static long backpass_ops(int N) {
                      buf[12], buf[13], buf[14], buf[15], us, &lam, fcx, fcxx,
                      l, L, dV, g, failed, N, 1};
   g_ops = 0;
-  backpass_lane<Op, NX, NU, 1, true>(A, 0);
+  backpass_lane<Op, NX, NU, 1, FULL>(A, 0);
   return g_ops;
 }
 
 // One step of one rollout (rollout.cu: rollout_lane): the model calls
-// counted, the gains and the cost sum by their formula.
+// counted, the gains and the cost sum by their formula; without the cost
+// (the selected rollout that keeps no cost), no running cost and no sum.
 template <class M>
-static long rollout_step_ops() {
+static long rollout_step_ops(bool with_cost = true) {
   constexpr int NX = M::NX, NU = M::NU;
-  Op x[NX], u[NU], p[M::NP], xn[NX];
+  Op x[NX], u[NU], xn[NX];
   for (int a = 0; a < NX; ++a) x[a] = Case<M>::x[a];
   for (int a = 0; a < NU; ++a) u[a] = 0.1 - 0.3 * a;
-  for (int i = 0; i < M::NP; ++i) p[i] = Case<M>::params[i];
+  std::vector<Op> pv = flat_params<M>(1);
+  const Op* p = pv.data();
   g_ops = 0;
   for (int i = 0; i < M::NH; ++i) {
     const Op s = static_cast<Op>(M::box_sign(i));
@@ -197,10 +227,12 @@ static long rollout_step_ops() {
     (void)lim;
   }
   const Op mu[4] = {1.0, 1.0, 1.0, 1.0};
-  const Op c = aug_L<M>(x, u, p, 0, mu, mu, Op(1.0));
+  if (with_cost) {
+    const Op c = aug_L<M>(x, u, p, 0, mu, mu, Op(1.0));
+    (void)c;
+  }
   M::f(x, u, p, 0, xn);
-  (void)c;
-  return g_ops + NX + NU * (2 * NX + 1) + 1;
+  return g_ops + NX + NU * (2 * NX + 1) + (with_cost ? 1 : 0);
 }
 
 // The counts of one model, as JSON members named with `prefix`.
@@ -219,6 +251,23 @@ static void print_counts(const char* prefix, const char* sep) {
       rollout_step_ops<M>(), sep);
 }
 
+// B3 and B1 without FULL_DDP and B2 with and without the cost, for a
+// model whose path is the fused one (the benchmark's frozen counts).
+template <class M>
+static void print_fused_gn(const char* prefix, const char* sep) {
+  const int N = 40;
+  const long b3_1 = fused_ops<M, false>(N), b3_2 = fused_ops<M, false>(2 * N);
+  const long b1_1 = backpass_ops<M::NX, M::NU, false>(N),
+             b1_2 = backpass_ops<M::NX, M::NU, false>(2 * N);
+  std::printf(
+      "\"%sfused_gn_per_step\": %ld, \"%sfused_gn_per_lane\": %ld, "
+      "\"%sbackpass_gn_per_step\": %ld, \"%sbackpass_gn_per_lane\": %ld, "
+      "\"%srollout_per_step\": %ld, \"%srollout_nocost_per_step\": %ld%s",
+      prefix, (b3_2 - b3_1) / N, prefix, b3_1 - (b3_2 - b3_1), prefix,
+      (b1_2 - b1_1) / N, prefix, b1_1 - (b1_2 - b1_1), prefix,
+      rollout_step_ops<M>(), prefix, rollout_step_ops<M>(false), sep);
+}
+
 // B2's count alone, for a model that only the parallel path's line search
 // runs on.
 template <class M>
@@ -232,6 +281,7 @@ int main() {
   print_counts<CarParking>("", ", ");
   print_counts<Cartpole>("cartpole_", ", ");
   print_rollout<Brachistochrone>("brachistochrone_", ", ");
+  print_fused_gn<BrachistochroneHli>("brachistochrone_hli_", ", ");
 @PRINTS@
   return 0;
 }

@@ -710,3 +710,28 @@ def test_emission_independent_of_history(cuda, target, shared, dtype):
     again = emit(shared)
     for key, v in first.items():
         assert torch.equal(v, again[key]), key
+
+
+@pytest.mark.parametrize("seed", [3600000023, 3600000025])
+def test_saved_brachi_lanes_solve_on_the_fused_path(cuda, seed):
+    """The two saved brachistochrone_hli lanes that B3 once ended in
+    status 5 (``tests/test_torch_dual_host.py``) end through ``solve`` and
+    ``StepwiseSolver`` on the fused path as the plain version's CPU solve
+    does: a success exit at its cost."""
+    from test_torch_dual_host import SAVED_J, SAVED_LANES
+
+    u0 = np.load(SAVED_LANES)[f"u0_{seed}"]
+    p, x0, _ = brachistochrone.default_setup_hli(500)
+    problem = brachistochrone.brachistochrone_hli()
+    opts = ddp.SolverOptions(max_iter=200, w_pen_init_l=40.0,
+                             w_pen_init_f=1e-5, w_pen_max_f=1.0,
+                             w_pen_fact2=1.0, full_ddp=False,
+                             dtype="float64", backpass_method="fused",
+                             linesearch_method="kernel")
+    sol = ddp.solve(problem, x0, u0, p, opts, device=cuda)
+    step = ddp.StepwiseSolver(problem, opts, device=cuda)(
+        x0[None], u0[None], p)
+    for status, cost in ((sol.status, sol.cost), (step.status[0],
+                                                   step.cost[0])):
+        assert int(status) in (1, 2)
+        assert abs(float(cost) - SAVED_J[seed]) < 1e-9

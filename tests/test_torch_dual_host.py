@@ -15,7 +15,11 @@ called through ``ctypes``:
   ``Vx``, the final ``Fx``/``Fxx`` and the box limits with ``hx``) against
   ``ops/cm_derivs.py`` to 1e-12;
 * whole lanes of B3 against ``fused_derivs_back_pass_plain`` (emission and
-  B1's plain version) to 1e-10 of the largest value.
+  B1's plain version) to 1e-10 of the largest value;
+* two saved ``brachistochrone_hli`` lanes solved on the CPU with the host
+  build in the solver's place (for this model it equals the card's kernel
+  bit for bit): every call held to the plain version, and the solve to the
+  one the plain version makes.
 
 This is tier-1 coverage of B3's arithmetic without a card.  Skips when no
 C++ compiler is found.
@@ -24,6 +28,7 @@ C++ compiler is found.
 import ctypes
 import shutil
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,6 +36,7 @@ import torch
 
 import ddp_generator_tpu_torch as td
 from ddp_generator_tpu_torch import _build
+from ddp_generator_tpu_torch import solver as tsolver
 from ddp_generator_tpu_torch.models import brachistochrone as tbr
 from ddp_generator_tpu_torch.models import car_parking as tcar
 from ddp_generator_tpu_torch.models import cartpole as tcp
@@ -38,6 +44,7 @@ from ddp_generator_tpu_torch.ops.cm_derivs import (
     final_derivative_components,
     step_derivative_components,
 )
+from ddp_generator_tpu_torch.ops.cuda_backpass import result_from_cm
 from ddp_generator_tpu_torch.ops.cuda_fused import fused_derivs_back_pass_plain
 
 SHIM = r"""
@@ -598,3 +605,74 @@ def test_staged_backpass_equals_backpass_lane(lib, n_x, n_u, reg, full):
     failed = ref[4][0]
     assert failed[3] and not failed.all()
     assert np.isnan(ref[2][:, 5]).any()
+
+
+# Two lanes of the benchmark's brachistochrone_hli draw (N=500, float64,
+# u0 = -U(0.5, 1.5) from a CUDA generator: seed 3600000023, batch 1, lane
+# 15,819 and seed 3600000025, batch 5, lane 4,567 of pools of 6 x 16,384)
+# that B3 ended in status 5 while the segment time was evaluated as a
+# difference of square roots: where the slope is small its derivatives
+# lost up to 1.5% (cxu) to cancellation, B3 and the plain version lost
+# different digits, and at an ill-conditioned step the two solves parted;
+# B3's went on to blow its AL weights up.  Both now end as the plain
+# version's solve does, at these costs.
+SAVED_LANES = Path(__file__).parent / "data" / "brachistochrone_hli_c1_lanes.npz"
+SAVED_J = {3600000023: 1.4259918491500592, 3600000025: 1.425991863674701}
+
+
+def _host_fused(lib, problem, xs, us, mu_le, mu_li, mu_fe, mu_fi, w_pen_l,
+                w_pen_f, lam, params, reg_type, full_ddp, when=None):
+    """``fused_derivs_back_pass`` on the host build (batch-major tensors
+    in, as the wrapper's)."""
+    B, Np1, n_x = xs.shape
+    N = Np1 - 1
+    cm = lambda a: np.ascontiguousarray(a.permute(1, 2, 0).numpy())
+    row = lambda a: np.ascontiguousarray(a.T.numpy())
+    ins = [cm(xs[:, :N]), cm(us), cm(mu_le), cm(mu_li), row(xs[:, N]),
+           row(w_pen_l[None]), row(w_pen_f[None]), row(lam[None]),
+           row(mu_fe), row(mu_fi),
+           problem.cuda_model.flat_params(params, torch.float64, "cpu",
+                                          N).numpy()]
+    n_u = us.shape[-1]
+    outs = [np.zeros((N, n_u, B)), np.zeros((N, n_u * n_x, B)),
+            np.zeros((2, B)), np.zeros((1, B)), np.zeros((1, B), bool),
+            np.zeros((1, B), bool)]
+    q = (ctypes.c_void_p * 17)(*[a.ctypes.data for a in ins + outs])
+    lib.host_lanes(MODELS[problem.cuda_model.name], 0, reg_type,
+                   int(full_ddp), N, B, q)
+    t = [torch.from_numpy(o) for o in outs]
+    return result_from_cm(*t[:5]), t[5][0]
+
+
+@pytest.mark.parametrize("seed", sorted(SAVED_J))
+def test_saved_brachi_lane_host_b3_follows_plain(lib, monkeypatch, seed):
+    u0 = np.load(SAVED_LANES)[f"u0_{seed}"][None]
+    p, x0, _ = tbr.default_setup_hli(500)
+    problem = tbr.brachistochrone_hli()
+    opts = td.SolverOptions(max_iter=200, w_pen_init_l=40.0,
+                            w_pen_init_f=1e-5, w_pen_max_f=1.0,
+                            w_pen_fact2=1.0, full_ddp=False,
+                            dtype="float64", backpass_method="fused",
+                            linesearch_method="kernel")
+    calls = []
+
+    def host(*args, when=None):
+        out = _host_fused(lib, *args)
+        calls.append((out, fused_derivs_back_pass_plain(*args)))
+        return out
+
+    monkeypatch.setattr(tsolver, "fused_derivs_back_pass", host)
+    sol = td.StepwiseSolver(problem, opts, device="cpu")(x0[None], u0, p)
+    assert calls
+    for (bp, ok), (pb, pok) in calls:
+        np.testing.assert_array_equal(ok.numpy(), pok.numpy())
+        np.testing.assert_array_equal(bp.failed.numpy(), pb.failed.numpy())
+        for out, want in ((bp.l, pb.l), (bp.L, pb.L), (bp.dV, pb.dV),
+                          (bp.g_norm, pb.g_norm)):
+            scale = max(1.0, float(want.abs().max()))
+            np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=0,
+                                       atol=1e-10 * scale)
+    # the plain version's solve ends at SAVED_J too, in 14 iterations
+    assert int(sol.status[0]) in (1, 2)
+    assert int(sol.iterations[0]) == 14
+    np.testing.assert_allclose(float(sol.cost[0]), SAVED_J[seed], rtol=1e-12)

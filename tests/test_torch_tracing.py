@@ -25,6 +25,7 @@ from torch.profiler import ExecutionTraceObserver, ProfilerActivity, profile
 
 import ddp_generator_tpu_torch as td
 from ddp_generator_tpu_torch import launches
+from ddp_generator_tpu_torch.models import brachistochrone as tbr
 from ddp_generator_tpu_torch.models import car_parking as tcar
 
 B, T = 8, 10
@@ -124,6 +125,7 @@ def test_body_call_stamps_in_order(monkeypatch, entry, backpass):
                         lambda tag, device: tags.append(tag))
     p, x0s, u0s = _inputs()
     body = [t for t in BODY if backpass == "kernel" or t != "derivs"]
+    launches.reset_launches()
     if entry == "stepwise":
         s = _solver(backpass)
         s(x0s, u0s, p)
@@ -136,6 +138,7 @@ def test_body_call_stamps_in_order(monkeypatch, entry, backpass):
         trips = int(sol.body_calls.max())
         assert trips > 0
         assert tags == ["loop"] + body * trips + ["loop_end"]
+    assert launches.read_al_updates() == 0  # CarParking has no AL family
 
 
 def _ring(cap, tags_ns, cursor):
@@ -214,3 +217,43 @@ def test_solve_graph_stamps_and_spans_on_the_card(card):
                           "ddp.solve_graph.read_wait"}
     assert spans["ddp.solve_graph.read_wait"].cpu_parent.name == \
         "ddp.solve_graph.call"
+
+
+def _brachi_hli(entry):
+    """A small brachistochrone_hli solve on the fused path (its AL families:
+    the moving floor and the terminal equality), stepwise or whole."""
+    p, x0, _ = tbr.default_setup_hli(T)
+    u0s = -(0.5 + np.random.default_rng(4).random((4, T, 1)))
+    opts = td.SolverOptions(max_iter=20, w_pen_init_l=40.0,
+                            w_pen_init_f=1e-5, w_pen_max_f=1.0,
+                            w_pen_fact2=1.0, full_ddp=False,
+                            backpass_method="fused",
+                            linesearch_method="kernel")
+    x0s = np.tile(x0, (4, 1))
+    if entry == "stepwise":
+        s = td.StepwiseSolver(tbr.brachistochrone_hli(), opts,
+                              min_compact_batch=2, device="cpu")
+        return s(x0s, u0s, p), s.last_stats.body_calls
+    sol = td.make_batched_solver(tbr.brachistochrone_hli(), opts,
+                                 device="cpu")(x0s, u0s, p)
+    return sol, int(sol.body_calls.max())
+
+
+@pytest.mark.parametrize("entry", ["stepwise", "batched"])
+def test_al_stamp_and_update_count(monkeypatch, entry):
+    """A body call of a problem with AL families stamps ``al`` after its
+    multiplier update and re-cost, and counts the running lanes it
+    updated; CarParking's body calls do neither (test above)."""
+    tags = []
+    monkeypatch.setattr(launches, "stamp",
+                        lambda tag, device: tags.append(tag))
+    launches.reset_launches()
+    sol, calls = _brachi_hli(entry)
+    body = ["body", "backpass", "linesearch", "al", "body_end"]
+    want = body * calls
+    assert tags == (want if entry == "stepwise"
+                    else ["loop"] + want + ["loop_end"])
+    updates = launches.read_al_updates()
+    assert 0 < updates <= int(sol.body_calls.sum())
+    launches.reset_launches()
+    assert launches.read_al_updates() == 0
