@@ -1041,7 +1041,8 @@ def batch_params_path(problem):
     loop = check_graphed("batch_params_path", solver)
     if launches["backpass"] <= 0:
         fail("batch_params_path: kernel backpass was never launched")
-    for name in ("fused", "emit", "rollout_multi", "rollout_selected"):
+    for name in ("fused", "emit", "rollout_multi", "rollout_selected",
+                 "init_rollout"):
         if launches[name] != 0:
             fail(f"batch_params_path: kernel {name} was launched "
                  f"{launches[name]} times; per-lane params bypass it")
@@ -1689,7 +1690,7 @@ def cartpole_path(serial: bool, cpu_lanes=None):
     s, wall, launches = timed_solve(solver, x0s, u0s, p)
     loop = check_graphed(what, solver)
     want = set() if serial else {"fused", "rollout_multi",
-                                 "rollout_selected"}
+                                 "rollout_selected", "init_rollout"}
     for name, n in launches.items():
         if (n > 0) != (name in want):
             fail(f"{what}: kernel {name} was launched {n} times")
@@ -1895,7 +1896,8 @@ def user_solves(name):
         solver = ddp.StepwiseSolver(problem, opts, device="cuda")
         s, wall, launches = timed_solve(solver, x0s, u0s, p)
         used = (("backpass", "emit") if backpass == "kernel"
-                else ("fused",)) + ("rollout_multi", "rollout_selected")
+                else ("fused",)) + ("rollout_multi", "rollout_selected",
+                                    "init_rollout")
         for k, n in launches.items():
             if (n > 0) != (k in used):
                 fail(f"{what}: kernel {k} was launched {n} times")

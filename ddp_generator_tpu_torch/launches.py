@@ -6,6 +6,8 @@ nothing): ``cuda_backpass.back_pass_cm`` (B1),
 ``cuda_fused.fused_derivs_back_pass`` (B3), ``cuda_rollout.rollout_call``
 (B2, the sweep and the selected rollout apart) and ``cuda_emit.emit`` (the
 kernel path's emission, its two launches counted as one).
+``cuda_rollout.initial_rollout`` counts ``init_rollout``, the solver's
+initial rollout run as one of B2's selected rollouts (also counted there).
 
 An eager launch with nothing to decide on the device counts on the host
 (the wrapper's ``launches`` attribute).  Two kinds count on the device, in
@@ -51,13 +53,15 @@ import contextlib
 
 import torch
 
-KERNELS = ("backpass", "fused", "rollout_multi", "rollout_selected", "emit")
+KERNELS = ("backpass", "fused", "rollout_multi", "rollout_selected", "emit",
+           "init_rollout")
 _DEVICE: dict = {}  # torch.device -> int64 (len(KERNELS),) counts
 
 
 #: the tags a stamp takes, by their index in the ring
 STAMP_TAGS = ("body", "derivs", "backpass", "linesearch", "body_end",
-              "solve", "loop", "loop_end", "solve_end", "al")
+              "solve", "loop", "loop_end", "solve_end", "al", "init",
+              "init_end")
 STAMP_CAPACITY = 1 << 20  # stamps a device's ring holds before it wraps
 _STAMPS: dict = {}  # torch.device -> int64 ring (see stamp_ring)
 _AL: dict = {}  # torch.device -> int64 (1,) multiplier updates, in lanes
@@ -235,6 +239,7 @@ def reset_launches() -> None:
     _ce.emit.launches = 0
     _cf.fused_derivs_back_pass.launches = 0
     _cr.rollout_call.launches = {"multi": 0, "selected": 0}
+    _cr.initial_rollout.launches = 0
     for t in _DEVICE.values():
         t.zero_()
     for ring in _STAMPS.values():
@@ -246,8 +251,8 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     """``{"backpass", "fused", "rollout_multi", "rollout_selected",
-    "emit"}``: launches since the last :func:`reset_launches`, host and
-    device counts together."""
+    "emit", "init_rollout"}``: launches since the last
+    :func:`reset_launches`, host and device counts together."""
     from .ops import cuda_backpass as _cb
     from .ops import cuda_emit as _ce
     from .ops import cuda_fused as _cf
@@ -257,7 +262,8 @@ def read_launches() -> dict:
            "fused": _cf.fused_derivs_back_pass.launches,
            "rollout_multi": _cr.rollout_call.launches["multi"],
            "rollout_selected": _cr.rollout_call.launches["selected"],
-           "emit": _ce.emit.launches}
+           "emit": _ce.emit.launches,
+           "init_rollout": _cr.initial_rollout.launches}
     for t in _DEVICE.values():
         for k, v in zip(KERNELS, t.tolist()):
             out[k] += v

@@ -62,6 +62,7 @@ import torch
 from .. import _build, codegen, launches
 from ..al import _eq_penalty, _ineq_penalty
 from ..problem import Problem
+from .forward import Rollout
 from .linesearch import LineSearchResult, first_accept
 
 Tensor = torch.Tensor
@@ -355,6 +356,39 @@ class _LSCtx:
 def _traj_out(xs_cm, xf_cm, us_cm):
     xs_full = torch.cat([xs_cm, xf_cm[None]], 0)  # (N+1, n_x, B)
     return xs_full.permute(2, 0, 1), us_cm.permute(2, 0, 1)
+
+
+def initial_rollout(problem, x0, u0, params, mult, w_pen_l,
+                    w_pen_f) -> Rollout:
+    """The solver's initial open-loop rollout (``iLQG_mex.c:113-116``) as
+    one selected rollout with cost at alpha 0: :func:`.forward.forward_pass`
+    at alpha 0, in one launch of kernel B2 on a CUDA device (its plain
+    version on the CPU, where the result is ``forward_pass``'s bit for
+    bit).  ``x0 (B, n_x)``, ``u0 (B, N, n_u)``, ``mult`` the
+    :class:`~..al.Multipliers`, ``w_pen_* (B,)``.  At alpha 0 the kernel
+    reads ``x_nom``, ``l`` and ``L`` but uses none of them: they are views
+    of one zero buffer.  Counted as ``init_rollout`` (:mod:`..launches`)
+    beside the launch's own ``rollout_selected``."""
+    B, N, n_u = u0.shape
+    n_x = x0.shape[1]
+    dev = u0.device
+    zero = torch.zeros(N * n_u * n_x * B, dtype=u0.dtype, device=dev)
+    L_cm = zero.view(N, n_u * n_x, B)
+    xnom_cm = zero[:N * n_x * B].view(N, n_x, B)
+    l_cm = zero[:N * n_u * B].view(N, n_u, B)
+    xs_cm, xf_cm, us_cm, cost, ok = rollout_call(
+        problem, (0.0,), xnom_cm, _to_cm(u0), l_cm, L_cm,
+        _to_cm(mult.mu_le), _to_cm(mult.mu_li), x0.T.contiguous(),
+        w_pen_l[None, :].contiguous(), w_pen_f[None, :].contiguous(),
+        mult.mu_fe.T.contiguous(), mult.mu_fi.T.contiguous(),
+        zero[:B].view(1, B), params, multi=False, want_cost=True)
+    if dev.type == "cuda" and not launches.on_device("init_rollout", dev):
+        initial_rollout.launches += 1
+    xs, us = _traj_out(xs_cm, xf_cm, us_cm)
+    return Rollout(xs=xs, us=us, cost=cost[0], ok=ok[0])
+
+
+initial_rollout.launches = 0
 
 
 def _flag(pred: Tensor) -> Tensor:

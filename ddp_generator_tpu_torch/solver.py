@@ -60,7 +60,11 @@ from .ops.boxqp import BoxQPHyper
 from .ops import cuda_backpass, cuda_emit, cuda_fused, device_loop
 from .ops.cm_derivs import cm_back_pass_from_bundle, cm_emit
 from .ops.cuda_fused import fused_derivs_back_pass
-from .ops.cuda_rollout import kernel_line_search, kernel_line_search_staged
+from .ops.cuda_rollout import (
+    initial_rollout,
+    kernel_line_search,
+    kernel_line_search_staged,
+)
 from .ops.forward import cost_only, forward_pass
 from .ops.linesearch import line_search
 from .ops.parallel_riccati import parallel_back_pass
@@ -140,6 +144,23 @@ def _graphable(problem: Problem, o: SolverOptions) -> bool:
     (:func:`.ops.device_loop.while_loop`).  Only ``debug_level >= 3``
     reads the host: it prints every iteration from there."""
     return o.debug_level < 3
+
+
+def _line_search_of(o: SolverOptions, batch_params: bool) -> str:
+    """The line search a solve runs: kernel B2 reads one flat shared param
+    vector, so per-lane params take the serial one
+    (jax:solver.py:458-462)."""
+    return "serial" if batch_params else o.linesearch_method
+
+
+def _init_on_b2(device, o: SolverOptions, batch_params: bool) -> bool:
+    """Does ``init_fn`` roll the initial trajectory on kernel B2
+    (:func:`.ops.cuda_rollout.initial_rollout`)?  Where B2 rolls the line
+    search: a CUDA device, the kernel line search and shared params, so
+    that a solve builds every trajectory it holds with one piece of code.
+    Elsewhere :func:`.ops.forward.forward_pass`."""
+    return (torch.device(device).type == "cuda"
+            and _line_search_of(o, batch_params) == "kernel")
 
 
 def _boxqp_hyper(o: SolverOptions) -> BoxQPHyper:
@@ -254,7 +275,8 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
     # serial methods there (jax:solver.py:366-371, :458-462)
     backpass = ("serial" if batch_params and o.backpass_method == "fused"
                 else o.backpass_method)
-    linesearch = "serial" if batch_params else o.linesearch_method
+    linesearch = _line_search_of(o, batch_params)
+    init_on_b2 = _init_on_b2(device, o, batch_params)
     # the serial and fused paths compute their derivatives themselves, and
     # per-lane params emit per family (JAX: the batch-major fallback)
     shared = o.derivs_emitter == "shared" and not batch_params
@@ -330,17 +352,23 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
     def init_fn(x0s, u0s, params) -> _Carry:
         _check_device(x0s, device, "x0s")
         _check_device(u0s, device, "u0s")
+        launches.stamp("init", device)
         prepare_kernels(params)
         x0 = torch.as_tensor(x0s, device=device).to(dtype)
         u0 = torch.as_tensor(u0s, device=device).to(dtype)
         B, N = u0.shape[0], u0.shape[1]
         mult0 = init_multipliers(problem, B, N, dtype, device)
         w_pen_l0, w_pen_f0 = full(B, o.w_pen_init_l), full(B, o.w_pen_init_f)
-        # Initial open-loop rollout (iLQG_mex.c:113-116): alpha=0, u = u0.
-        r0 = forward_pass(
-            problem, x0, None, u0, None, None, 0.0, params,
-            mult0.mu_le, mult0.mu_li, mult0.mu_fe, mult0.mu_fi,
-            w_pen_l0, w_pen_f0)
+        # Initial open-loop rollout (iLQG_mex.c:113-116): alpha=0, u = u0;
+        # one launch of B2 where B2 rolls the line search
+        if init_on_b2:
+            r0 = initial_rollout(problem, x0, u0, params, mult0, w_pen_l0,
+                                 w_pen_f0)
+        else:
+            r0 = forward_pass(
+                problem, x0, None, u0, None, None, 0.0, params,
+                mult0.mu_le, mult0.mu_li, mult0.mu_fe, mult0.mu_fi,
+                w_pen_l0, w_pen_f0)
         mu0 = update_multipliers(
             problem, r0.xs, r0.us, params, mult0, w_pen_l0, w_pen_f0,
             o.w_pen_max_l, o.w_pen_max_f, o.w_pen_fact1, o.tolConstraint,
@@ -349,7 +377,7 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
         xs0 = r0.xs.clone()
         xs0[:, 0] = x0  # x0 even when the rollout NaN'd out mid-way
         zeros = full(B, 0.0)
-        return _Carry(
+        c = _Carry(
             xs=xs0, us=r0.us, cost=r0.cost, mult=mu0.multipliers,
             lam=full(B, o.lambdaInit), dlam=full(B, o.dlambdaInit),
             w_pen_l=w_pen_l0, w_pen_f=w_pen_f0,
@@ -367,6 +395,8 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
             bp_retry_calls=full(B, 0, i32),
             was_bp_retry=full(B, False, torch.bool),
         )
+        launches.stamp("init_end", device)
+        return c
 
     def set_log(log, it, alive, value):
         new = log.clone()

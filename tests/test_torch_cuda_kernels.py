@@ -23,7 +23,10 @@ raises.  Device loops (``ops/device_loop.py``): the whole
 ``eager_loops()`` solve bit for bit on the kernel, fused, serial/Newton
 and inline routes (B=64, ragged lanes), ``StepwiseSolver`` graphs the
 inline and Newton routes, a WHILE nested two deep equals its host loop,
-and a CUDA older than 12.4 raises.  Needs
+and a CUDA older than 12.4 raises.  The initial rollout on B2:
+``init_fn``'s carry equals the carry through ``forward_pass`` within B2's
+limits (both benchmark configurations, B=1 and 2,048), and a whole-solve
+graph counts one ``init_rollout`` a replay.  Needs
 a CUDA device and ``nvcc``;
 skips elsewhere.  The file imports no JAX, so on a machine without it run
 it past ``tests/conftest.py``::
@@ -735,3 +738,109 @@ def test_saved_brachi_lanes_solve_on_the_fused_path(cuda, seed):
                                                    step.cost[0])):
         assert int(status) in (1, 2)
         assert abs(float(cost) - SAVED_J[seed]) < 1e-9
+
+
+def _init_case(model, B):
+    """The benchmark's two configurations at ``B`` lanes: CarParking on the
+    kernel path in float32 (T=500, ``u0 = 0.1 N(0, 1)``, two lanes whose
+    start turns the rollout non-finite where ``B > 2``), brachistochrone_hli on the fused
+    path in float64 (N=500, ``u0 = -U(0.5, 1.5)``)."""
+    rng = np.random.default_rng(19)
+    if model == "car_parking":
+        p, x0, _ = car_parking.default_setup(T=500)
+        x0s = np.tile(x0, (B, 1)) + 0.05 * rng.standard_normal((B, 4))
+        if B > 2:
+            x0s[B // 2:B // 2 + 2, 3] = 300.0  # |h v sin w| > d: NaN
+        u0s = 0.1 * rng.standard_normal((B, 500, 2))
+        opts = ddp.SolverOptions(max_iter=200, dtype="float32", tolFun=1e-5,
+                                 debug_level=0, backpass_method="kernel",
+                                 linesearch_method="kernel")
+        return car_parking.car_parking(), opts, x0s, u0s, p
+    p, x0, _ = brachistochrone.default_setup_hli(500)
+    u0s = -rng.uniform(0.5, 1.5, (B, 500, 1))
+    opts = ddp.SolverOptions(max_iter=200, w_pen_init_l=40.0,
+                             w_pen_init_f=1e-5, w_pen_max_f=1.0,
+                             w_pen_fact2=1.0, full_ddp=False,
+                             dtype="float64", backpass_method="fused",
+                             linesearch_method="kernel")
+    return (brachistochrone.brachistochrone_hli(), opts, np.tile(x0, (B, 1)),
+            u0s, p)
+
+
+# B2 against its plain version (PERF.md's kernel table)
+B2_LIMIT = {torch.float32: 1e-6, torch.float64: 1e-14}
+
+
+@pytest.mark.parametrize("B", [1, 2048])
+@pytest.mark.parametrize("model", ["car_parking", "brachistochrone_hli"])
+def test_init_fn_on_b2_equals_forward_pass(cuda, monkeypatch, model, B):
+    """``init_fn`` on the card rolls the first trajectory as one launch of
+    B2 (counted ``init_rollout`` and ``rollout_selected``); its carry
+    equals the carry through ``forward_pass`` within B2's limits against
+    its plain version, ``status`` (so each lane's ``STATUS_INIT_FAILED``)
+    exactly."""
+    from ddp_generator_tpu_torch import launches
+    from ddp_generator_tpu_torch import solver as slv
+
+    problem, opts, x0s, u0s, p = _init_case(model, B)
+    dtype = torch.float32 if opts.dtype == "float32" else torch.float64
+    x0 = torch.as_tensor(x0s, device=cuda)
+    u0 = torch.as_tensor(u0s, device=cuda)
+    carries = {}
+    for on_b2 in (True, False):
+        monkeypatch.setattr(slv, "_init_on_b2",
+                            lambda *a, _v=on_b2: _v)
+        init, _, _, cast = slv._make_parts(problem, opts, cuda)
+        pc = cast(p, B)
+        init(x0, u0, pc)  # builds the kernels
+        launches.reset_launches()
+        carries[on_b2] = init(x0, u0, pc)
+        counts = launches.read_launches()
+        assert counts["init_rollout"] == int(on_b2)
+        assert counts["rollout_selected"] == int(on_b2)
+    out, ref = carries[True], carries[False]
+    assert torch.equal(out.status, ref.status)
+    assert torch.equal(out.done, ref.done)
+    if model == "car_parking" and B > 2:
+        assert int((out.status == ddp.STATUS_INIT_FAILED).sum()) == 2
+    for name in ("xs", "us", "cost"):
+        a, b = getattr(out, name), getattr(ref, name)
+        assert a.dtype == dtype
+        _close(a, b, B2_LIMIT[dtype], name)
+    for a, b in zip(out.mult, ref.mult):
+        if b.numel():  # CarParking has no AL family
+            _close(a, b, B2_LIMIT[dtype], "mult")
+
+
+@pytest.mark.parametrize("model", ["car_parking", "brachistochrone_hli"])
+def test_captured_solve_rolls_its_first_trajectory_on_b2(cuda, monkeypatch,
+                                                         model):
+    """A whole-solve graph replays one ``init_rollout`` a solve, as does
+    ``StepwiseSolver``'s eager init; the Solution is the one of the
+    ``forward_pass`` route: the same status, the cost within 1e-4
+    (float32) or 1e-9 (float64) of it."""
+    from ddp_generator_tpu_torch import launches
+    from ddp_generator_tpu_torch import solver as slv
+
+    problem, opts, x0s, u0s, p = _init_case(model, 1)
+    solve = ddp.make_batched_solver(problem, opts, device=cuda)
+    sol = solve(x0s, u0s, p)  # captures
+    launches.reset_launches()
+    for _ in range(2):
+        sol = solve(x0s, u0s, p)
+    assert solve.last_stats.graphed and not solve.last_stats.captured
+    assert launches.read_launches()["init_rollout"] == 2
+    step = ddp.StepwiseSolver(problem, opts, device=cuda)
+    launches.reset_launches()
+    step(x0s, u0s, p)
+    assert launches.read_launches()["init_rollout"] == 1
+    monkeypatch.setattr(slv, "_init_on_b2", lambda *a: False)
+    ref_solve = slv._BatchedSolver(problem, opts, False, cuda)
+    launches.reset_launches()
+    ref = ref_solve(x0s, u0s, p)
+    assert launches.read_launches()["init_rollout"] == 0
+    assert torch.equal(sol.status, ref.status)
+    assert int(sol.status[0]) in (1, 2)
+    tol = 1e-4 if opts.dtype == "float32" else 1e-9
+    assert abs(float(sol.cost[0]) - float(ref.cost[0])) <= tol * max(
+        1.0, abs(float(ref.cost[0])))

@@ -30,6 +30,7 @@ from ddp_generator_tpu_torch.models import car_parking as tcar
 
 B, T = 8, 10
 BODY = ["body", "derivs", "backpass", "linesearch", "body_end"]
+INIT = ["init", "init_end"]  # init_fn's entry and its carry built
 
 
 def _inputs():
@@ -129,7 +130,7 @@ def test_body_call_stamps_in_order(monkeypatch, entry, backpass):
     if entry == "stepwise":
         s = _solver(backpass)
         s(x0s, u0s, p)
-        assert tags == body * s.last_stats.body_calls
+        assert tags == INIT + body * s.last_stats.body_calls
     else:
         opts = td.SolverOptions(max_iter=6, backpass_method=backpass,
                                 linesearch_method="kernel")
@@ -137,7 +138,7 @@ def test_body_call_stamps_in_order(monkeypatch, entry, backpass):
                                      device="cpu")(x0s, u0s, p)
         trips = int(sol.body_calls.max())
         assert trips > 0
-        assert tags == ["loop"] + body * trips + ["loop_end"]
+        assert tags == INIT + ["loop"] + body * trips + ["loop_end"]
     assert launches.read_al_updates() == 0  # CarParking has no AL family
 
 
@@ -180,8 +181,8 @@ def card():
 
 @pytest.mark.cuda
 def test_solve_graph_stamps_and_spans_on_the_card(card):
-    """testCar's solve at one lane: 5 stamps a trip and the 4 of the
-    solve, in time order, ``solve`` to ``solve_end`` within 2% of the
+    """testCar's solve at one lane: 5 stamps a trip and the 6 of the
+    solve (``init_fn``'s 2 among them), in time order, ``solve`` to ``solve_end`` within 2% of the
     replay's CUDA-event time; under the profiler the call's spans."""
     p, x0, _ = tcar.default_setup(T=500, seed=0)
     u0 = 0.1 * np.random.default_rng(5).standard_normal((1, 500, 2))
@@ -202,7 +203,8 @@ def test_solve_graph_stamps_and_spans_on_the_card(card):
     entries, lost = launches.read_stamps(card)
     trips = int(sol.body_calls[0])
     assert lost == 0
-    assert [t for t, _ in entries] == (["solve", "loop"] + BODY * trips
+    assert [t for t, _ in entries] == (["solve"] + INIT + ["loop"]
+                                       + BODY * trips
                                        + ["loop_end", "solve_end"])
     ns = [t for _, t in entries]
     assert all(a <= b for a, b in zip(ns, ns[1:]))
@@ -251,8 +253,8 @@ def test_al_stamp_and_update_count(monkeypatch, entry):
     sol, calls = _brachi_hli(entry)
     body = ["body", "backpass", "linesearch", "al", "body_end"]
     want = body * calls
-    assert tags == (want if entry == "stepwise"
-                    else ["loop"] + want + ["loop_end"])
+    assert tags == INIT + (want if entry == "stepwise"
+                           else ["loop"] + want + ["loop_end"])
     updates = launches.read_al_updates()
     assert 0 < updates <= int(sol.body_calls.sum())
     launches.reset_launches()
