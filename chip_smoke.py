@@ -89,11 +89,6 @@ full width:
   ``eager_loops()``; the
   restored first solve split into program deserialization, first calls
   and the kernel library's load, and a second restored solve timed;
-* the bench entry (phase 18): ``bench_torch.py`` on the main path's cell
-  cut to max_iter 20 and one repeat, with no lever and with each of
-  ``bench.py``'s (``--pipeline-depth 4``, ``--shared-derivs``, ``--mesh 2``
-  as two ranks sharing the card, ``--artifact``): one JSON line each, the
-  counts of the runs that change no lane equal to the no-lever run's;
 * the example scripts (phase 19): ``scripts/try_car_torch.py`` (T=500,
   200 iterations) and ``scripts/try_brachi_torch.py`` (n=500) on the
   card, the car's controls inside their boxes and the Brachistochrone's
@@ -296,9 +291,8 @@ def model_name(problem, p) -> str:
     """The CUDA model the kernels run for ``problem``: its hand-written
     model, or the one generated from its functions."""
     from ddp_generator_tpu_torch import codegen
-    from ddp_generator_tpu_torch.ops.cuda_fused import KERNEL_MODELS
 
-    return codegen.kernel_model(problem, p, KERNEL_MODELS)[0].name
+    return codegen.kernel_model(problem, p)[0].name
 
 
 def bound(n_bytes: int, n_ops: int, dtype) -> tuple[float, str]:
@@ -2814,112 +2808,6 @@ def aot_phase(problem) -> dict:
     return out
 
 
-# Phase 18: bench_torch.py on the main path's cell cut to this depth
-BENCH_MAX_ITER, BENCH_REPEATS = 20, 1
-BENCH_TIMEOUT_S = 300
-# bench.py's keys (bench.py:290-307) and the port's own
-BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "solved_pct",
-              "exhausted_pct", "mean_iterations", "mean_body_calls",
-              "stale_pct", "device", "torch_cuda", "launches_per_solve"}
-BENCH_COUNTS = ("solved_pct", "exhausted_pct", "mean_iterations",
-                "mean_body_calls")
-STAGES = {
-    "export_s": r"artifact exported\+written \(([\d.]+)s\)",
-    "load_s": r"artifact loaded in ([\d.]+)s",
-    "first_solve_s": r"artifact first solve: ([\d.]+)s",
-    "deserialize_s": r"deserialize ([\d.]+)s",
-    "programs": r"\((\d+) programs",
-    "deserialize_max_s": r"the longest ([\d.]+)s",
-    "first_calls_s": r"first calls ([\d.]+)s",
-    "kernel_load_s": r"kernel build ([\d.]+)s",
-    "second_solve_s": r"restored solves after the first: \[([\d.]+)",
-}
-
-
-def bench_run(name: str, flags) -> tuple[dict, float, str]:
-    """``bench_torch.py`` at the main path's cell (its defaults), cut to
-    ``BENCH_MAX_ITER`` and ``BENCH_REPEATS``, with ``flags``: its record,
-    the process's seconds and its stderr; fails unless it exits 0 with one
-    JSON line holding every key of ``BENCH_KEYS``."""
-    root = Path(__file__).resolve().parent
-    cmd = [sys.executable, str(root / "bench_torch.py"), "--max-iter",
-           str(BENCH_MAX_ITER), "--repeats", str(BENCH_REPEATS), *flags]
-    t0 = time.time()
-    r = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
-                       timeout=BENCH_TIMEOUT_S)
-    wall = time.time() - t0
-    if r.returncode != 0:
-        fail(f"bench_entry {name}: exit {r.returncode}:\n{r.stderr[-3000:]}")
-    lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
-    if len(lines) != 1:
-        fail(f"bench_entry {name}: {len(lines)} lines on stdout, not one "
-             f"JSON line: {lines[:3]}")
-    rec = json.loads(lines[0])
-    if BENCH_KEYS - set(rec):
-        fail(f"bench_entry {name}: keys {sorted(BENCH_KEYS - set(rec))} "
-             "missing")
-    return rec, wall, r.stderr
-
-
-def bench_entry() -> dict:
-    """Phase 18: ``bench_torch.py``, the bench entry, as a subprocess on
-    the main path's cell (CarParking, B=2048, T=500, float32, full width,
-    precompiled), cut to ``--max-iter 20 --repeats 1``: with no lever, then
-    with each of ``bench.py``'s.  ``--pipeline-depth 4``, ``--mesh 2`` (two
-    ``gloo`` ranks sharing the card) and ``--artifact`` must repeat the
-    no-lever run's solved, exhausted, iteration and body-call counts
-    (depth 4 repeats depth 1 field by field, the mesh the single process,
-    the restored ``make_batched_solver`` the graphed solve);
-    ``--shared-derivs`` is reported, held only to its exit, its line and
-    its launches.  Every run launches B1 and B2 and never B3.  Returns
-    each run's numbers, the artifact run's set-up stages parsed from its
-    stderr."""
-    import re
-    import tempfile
-
-    torch_release()
-    out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, flags in (
-                ("none", ()), ("pipeline_depth_4", ("--pipeline-depth", "4")),
-                ("shared_derivs", ("--shared-derivs",)),
-                ("mesh_2", ("--mesh", "2")),
-                ("artifact", ("--artifact", f"{tmp}/car.ddpexe"))):
-            rec, wall, stderr = bench_run(name, flags)
-            la = rec["launches_per_solve"]
-            if (la["backpass"] <= 0 or la["fused"] or la["rollout_selected"]
-                    <= 0):
-                fail(f"bench_entry {name}: launches {la}: B1 and B2 must "
-                     "run, B3 not")
-            solves_per_s = rec.get("aggregate_solves_per_s", rec["value"])
-            d = dict(solves_per_s=rec["value"], solve_s=B_MAIN / solves_per_s,
-                     process_s=wall,
-                     **{k: rec[k] for k in BENCH_COUNTS + ("stale_pct",)},
-                     **{f"launches_{k}": v for k, v in la.items()})
-            if name == "mesh_2":
-                if (rec.get("n_ranks"), rec.get("n_chips")) != (2, 1):
-                    fail(f"bench_entry mesh_2: n_ranks {rec.get('n_ranks')}"
-                         f", n_chips {rec.get('n_chips')}, not 2 and 1")
-                d.update(n_ranks=2, n_chips=1,
-                         aggregate_solves_per_s=rec["aggregate_solves_per_s"])
-            if name == "artifact":
-                for key, pat in STAGES.items():
-                    m = re.search(pat, stderr)
-                    if not m:
-                        fail(f"bench_entry artifact: no {key} on stderr:\n"
-                             f"{stderr[-2000:]}")
-                    d[key] = float(m.group(1))
-            out[name] = d
-    base = out["none"]
-    for name in ("pipeline_depth_4", "mesh_2", "artifact"):
-        diff = {k: (out[name][k], base[k]) for k in BENCH_COUNTS
-                if out[name][k] != base[k]}
-        if diff:
-            fail(f"bench_entry {name}: counts differ from the no-lever "
-                 f"run's: {diff}")
-    return out
-
-
 def torch_release() -> None:
     """Give the cached blocks of this process's allocator back to the card
     before a phase whose subprocesses use it."""
@@ -3341,14 +3229,7 @@ def main() -> int:
          **fused_vs_kernel_f64(problem, f32_counts))
     seconds("aux_api_and_fused_vs_kernel")
 
-    # 18. the bench entry on the main path's cell, with each of bench.py's
-    # levers; 19. the example scripts on the card
-    for run, d in bench_entry().items():
-        line("bench_entry", run=run, B=B_MAIN, T=T_MAIN,
-             max_iter=BENCH_MAX_ITER,
-             depth_cut=f"max_iter {MAX_ITER_MAIN}->{BENCH_MAX_ITER}, "
-             f"repeats 3->{BENCH_REPEATS}", **d)
-    seconds("bench_entry")
+    # 19. the example scripts on the card
     for script, d in examples().items():
         line("examples", script=script, **d)
     seconds("examples")

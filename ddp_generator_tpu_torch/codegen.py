@@ -57,6 +57,11 @@ from .problem import Problem, ProblemValidationError
 Tensor = torch.Tensor
 aten = torch.ops.aten
 
+#: The hand-written CUDA models (``csrc/models/hand_written.cuh``), each
+#: instantiated in the main library's B2, B3 and emission kernels.
+KERNEL_MODELS = ("car_parking", "cartpole", "brachistochrone",
+                 "brachistochrone_hli")
+
 #: Families of scalar functions with their argument lists, in header order.
 _FAMILIES = (("h", True), ("hle", True), ("hli", True), ("hfe", False),
              ("hfi", False))
@@ -932,10 +937,10 @@ def by_name(name: str) -> Optional[GeneratedModel]:
     return _BY_NAME.get(name)
 
 
-def kernel_model(problem: Problem, params: Any, hand_written: tuple):
+def kernel_model(problem: Problem, params: Any):
     """The CUDA model kernels B2, B3 and emission run for ``problem`` and
     the library that holds them: its hand-written model (one of
-    ``hand_written``, in the main library), or, when it names none, the
+    :data:`KERNEL_MODELS`, in the main library), or, when it names none, the
     model generated from its functions (built at first use)."""
     from . import _build
 
@@ -946,10 +951,10 @@ def kernel_model(problem: Problem, params: Any, hand_written: tuple):
     if model is None:
         gm = model_for(problem, params)
         return gm, gm.library()
-    if model.name not in hand_written:
+    if model.name not in KERNEL_MODELS:
         raise NotImplementedError(
             f"problem {problem.name!r}: no CUDA model {model.name!r} among "
-            f"the hand-written ones {hand_written}; leave cuda_model unset "
+            f"the hand-written ones {KERNEL_MODELS}; leave cuda_model unset "
             "to generate one")
     return model, _build.load_library()
 

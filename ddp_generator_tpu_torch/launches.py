@@ -1,6 +1,6 @@
 """Launch counts of the hand-written kernels.
 
-Each kernel wrapper adds one to its count where it launches its kernel on a
+Each kernel wrapper calls :func:`count` where it launches its kernel on a
 CUDA device, and nowhere else (its plain version on the CPU counts
 nothing): ``cuda_backpass.back_pass_cm`` (B1),
 ``cuda_fused.fused_derivs_back_pass`` (B3), ``cuda_rollout.rollout_call``
@@ -8,10 +8,12 @@ nothing): ``cuda_backpass.back_pass_cm`` (B1),
 kernel path's emission, its two launches counted as one).
 ``cuda_rollout.initial_rollout`` counts ``init_rollout``, the solver's
 initial rollout run as one of B2's selected rollouts (also counted there).
+This module holds every count and imports no wrapper; :func:`read_launches`
+is the one reader.
 
-An eager launch with nothing to decide on the device counts on the host
-(the wrapper's ``launches`` attribute).  Two kinds count on the device, in
-one ``int64`` tensor per device that :func:`on_device` adds to:
+An eager launch with nothing to decide on the device counts on the host,
+in this module's dict.  Two kinds count on the device, in one ``int64``
+tensor per device:
 
 * a launch inside a CUDA graph capture: the capture records the add beside
   the kernel, so each replay counts the launch and the capture itself
@@ -56,6 +58,7 @@ import torch
 KERNELS = ("backpass", "fused", "rollout_multi", "rollout_selected", "emit",
            "init_rollout")
 _DEVICE: dict = {}  # torch.device -> int64 (len(KERNELS),) counts
+_ON_HOST = dict.fromkeys(KERNELS, 0)  # eager unconditional launches
 
 
 #: the tags a stamp takes, by their index in the ring
@@ -214,32 +217,24 @@ def read_al_updates() -> int:
     return sum(int(t.sum()) for t in _AL.values())
 
 
-def on_device(kernel: str, device, when=None) -> bool:
-    """Count one launch of ``kernel`` on the device if it must be (inside a
-    capture, or behind the predicate ``when``); False for an eager
-    unconditional launch, which the wrapper counts on the host."""
-    if when is None and not torch.cuda.is_current_stream_capturing():
-        return False
+def count(kernel: str, device, when=None) -> None:
+    """Count one launch of ``kernel`` (a name of :data:`KERNELS`) on
+    ``device``: on the device inside a capture, or behind the predicate
+    ``when`` (it adds ``when``); else on the host."""
+    if when is None and (torch.device(device).type != "cuda"
+                         or not torch.cuda.is_current_stream_capturing()):
+        _ON_HOST[kernel] += 1
+        return
     i = KERNELS.index(kernel)
     add = 1 if when is None else when.reshape(1).to(torch.int64)
     device_counts(device)[i:i + 1].add_(add)
-    return True
 
 
 def reset_launches() -> None:
     """Set every count to 0 and empty the stamp rings and the lane-steps
     (the device counts and the rings' cursors in place: captured graphs
     hold their address)."""
-    from .ops import cuda_backpass as _cb
-    from .ops import cuda_emit as _ce
-    from .ops import cuda_fused as _cf
-    from .ops import cuda_rollout as _cr
-
-    _cb.back_pass_cm.launches = 0
-    _ce.emit.launches = 0
-    _cf.fused_derivs_back_pass.launches = 0
-    _cr.rollout_call.launches = {"multi": 0, "selected": 0}
-    _cr.initial_rollout.launches = 0
+    _ON_HOST.update(dict.fromkeys(KERNELS, 0))
     for t in _DEVICE.values():
         t.zero_()
     for ring in _STAMPS.values():
@@ -253,17 +248,7 @@ def read_launches() -> dict:
     """``{"backpass", "fused", "rollout_multi", "rollout_selected",
     "emit", "init_rollout"}``: launches since the last
     :func:`reset_launches`, host and device counts together."""
-    from .ops import cuda_backpass as _cb
-    from .ops import cuda_emit as _ce
-    from .ops import cuda_fused as _cf
-    from .ops import cuda_rollout as _cr
-
-    out = {"backpass": _cb.back_pass_cm.launches,
-           "fused": _cf.fused_derivs_back_pass.launches,
-           "rollout_multi": _cr.rollout_call.launches["multi"],
-           "rollout_selected": _cr.rollout_call.launches["selected"],
-           "emit": _ce.emit.launches,
-           "init_rollout": _cr.initial_rollout.launches}
+    out = dict(_ON_HOST)
     for t in _DEVICE.values():
         for k, v in zip(KERNELS, t.tolist()):
             out[k] += v

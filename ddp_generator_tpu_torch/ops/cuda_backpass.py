@@ -412,10 +412,10 @@ def back_pass_cm(sd_cm: dict, final_cx, final_cxx, us_cm, lam, n_x: int,
 
     CPU tensors run :func:`back_pass_cm_plain`; CUDA tensors launch kernel
     B1 (``csrc/backpass.cu``, or built for the shape at first use) and
-    count the launch (:mod:`..launches`: in
-    ``back_pass_cm.launches``, or on the device inside a capture or with
-    the predicate ``when``, which the solver sets to "some lane of this
-    body call runs"); anything else raises."""
+    count the launch (:func:`..launches.count`: on the host, or on the
+    device inside a capture or with the predicate ``when``, which the
+    solver sets to "some lane of this body call runs"); anything else
+    raises."""
     n_u, N, B = us_cm.shape
     dev = us_cm.device
     if dev.type == "cpu":
@@ -454,12 +454,8 @@ def back_pass_cm(sd_cm: dict, final_cx, final_cxx, us_cm, lam, n_x: int,
             0 if dtype == torch.float32 else 1, n_x, n_u, reg_type,
             int(full_ddp), N, B, ptrs, stream)
     _build.check(lib, rc, "backpass")
-    if not launches.on_device("backpass", dev, when):
-        back_pass_cm.launches += 1
+    launches.count("backpass", dev, when)
     return l_out, L_out, dV, g_norm, failed
-
-
-back_pass_cm.launches = 0
 
 
 def kernel_info(n_x: int, n_u: int, reg_type: int, full_ddp: bool,

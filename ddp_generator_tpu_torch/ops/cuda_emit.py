@@ -36,7 +36,6 @@ from .. import _build, codegen, launches
 from ..problem import LaneParams, Problem
 from .cm_derivs import cm_emit
 from .cuda_backpass import _BUNDLE_KEYS, _bundle_shapes
-from .cuda_fused import KERNEL_MODELS
 
 Tensor = torch.Tensor
 
@@ -69,9 +68,9 @@ def emit(problem: Problem, xs, us, mu_le, mu_li, mu_fe, mu_fi, w_pen_l,
     CPU tensors run :func:`.cm_derivs.cm_emit` (``shared`` picks its torch
     emitter there, and only there).  CUDA tensors launch the emission
     kernel on the problem's CUDA model and count it as B1's wrapper does
-    (``when`` the same predicate; host count ``emit.launches``); ``per``
-    overrides :func:`items_per_thread`.  Per-lane params, another device, a
-    dtype other than float32/64 or operands of the wrong shape raise."""
+    (``when`` the same predicate); ``per`` overrides
+    :func:`items_per_thread`.  Per-lane params, another device, a dtype
+    other than float32/64 or operands of the wrong shape raise."""
     dev = us.device
     if dev.type == "cpu":
         return cm_emit(problem, xs, us, mu_le, mu_li, mu_fe, mu_fi, w_pen_l,
@@ -103,7 +102,7 @@ def emit(problem: Problem, xs, us, mu_le, mu_li, mu_fe, mu_fi, w_pen_l,
     if not 1 <= per <= items:
         raise ValueError(f"emit: per={per} is not in 1..{items}")
 
-    model, lib = codegen.kernel_model(problem, params, KERNEL_MODELS)
+    model, lib = codegen.kernel_model(problem, params)
     shapes = _bundle_shapes(n_x, n_u, full_ddp)
     sizes = [shapes[k] for k in _BUNDLE_KEYS] + [n_u]  # Terms order, u
     bundle = torch.empty((sum(sizes), N, B), dtype=dtype, device=dev)
@@ -122,20 +121,16 @@ def emit(problem: Problem, xs, us, mu_le, mu_li, mu_fe, mu_fi, w_pen_l,
                           model.name.encode(), int(full_ddp), per, N, B,
                           ptrs, stream)
     _build.check(lib, rc, "emit")
-    if not launches.on_device("emit", dev, when):
-        emit.launches += 1
+    launches.count("emit", dev, when)
     *parts, us_cm = bundle.split(sizes)
     return dict(zip(_BUNDLE_KEYS, parts)), final_cx, final_cxx, us_cm, ok
-
-
-emit.launches = 0
 
 
 def kernel_info(model: str, full_ddp: bool, dtype: torch.dtype) -> dict:
     """Threads a block, work items a point, and the registers and local
     bytes a thread of the step kernel (``steps_*``) and of the final kernel
     (``final_*``) of one instantiation; ``model`` a name of
-    :data:`.cuda_fused.KERNEL_MODELS` or of a generated model.  Builds the
+    :data:`..codegen.KERNEL_MODELS` or of a generated model.  Builds the
     library; needs a CUDA device."""
     lib = codegen.library_of(model)
     out = (ctypes.c_int * 6)()

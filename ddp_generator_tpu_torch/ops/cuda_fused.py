@@ -59,11 +59,6 @@ from .cuda_backpass import (
 
 Tensor = torch.Tensor
 
-# CUDA models instantiated in csrc/fused.cu (each with regType 1/2, FULL_DDP
-# on/off, float32/float64).
-KERNEL_MODELS = ("car_parking", "cartpole", "brachistochrone",
-                 "brachistochrone_hli")
-
 
 def fused_derivs_back_pass_plain(problem: Problem, xs, us, mu_le, mu_li,
                                  mu_fe, mu_fi, w_pen_l, w_pen_f, lam,
@@ -94,11 +89,10 @@ def fused_derivs_back_pass(problem: Problem, xs, us, mu_le, mu_li, mu_fe,
 
     CPU tensors run :func:`fused_derivs_back_pass_plain`; CUDA tensors
     launch kernel B3 and count it as B1's wrapper does (``when`` the same
-    predicate; host count ``fused_derivs_back_pass.launches``) on the
-    problem's hand-written CUDA model of :data:`KERNEL_MODELS`, or on the
-    model generated from its functions when it names none
-    (:mod:`..codegen`); anything else raises, as do ``n_u > 3`` and a dtype
-    other than float32/64."""
+    predicate) on the problem's hand-written CUDA model of
+    :data:`..codegen.KERNEL_MODELS`, or on the model generated from its
+    functions when it names none (:mod:`..codegen`); anything else raises,
+    as do ``n_u > 3`` and a dtype other than float32/64."""
     B, Np1, n_x = xs.shape
     N, n_u = Np1 - 1, us.shape[-1]
     dev = us.device
@@ -134,7 +128,7 @@ def fused_derivs_back_pass(problem: Problem, xs, us, mu_le, mu_li, mu_fe,
             raise TypeError(f"{name}: {t.dtype} on {t.device}, want {dtype} "
                             f"on {dev}")
 
-    model, lib = codegen.kernel_model(problem, params, KERNEL_MODELS)
+    model, lib = codegen.kernel_model(problem, params)
 
     def cm(a, n):  # (B, N, n) -> (N, n, B), None for an empty family
         return a.permute(1, 2, 0).contiguous() if n else None
@@ -162,20 +156,16 @@ def fused_derivs_back_pass(problem: Problem, xs, us, mu_le, mu_li, mu_fe,
                            model.name.encode(), reg_type, int(full_ddp), N,
                            B, ptrs, stream)
     _build.check(lib, rc, "fused")
-    if not launches.on_device("fused", dev, when):
-        fused_derivs_back_pass.launches += 1
+    launches.count("fused", dev, when)
     return result_from_cm(l_out, L_out, dV, g_norm, failed), derivs_ok[0]
-
-
-fused_derivs_back_pass.launches = 0
 
 
 def kernel_info(model: str, reg_type: int, full_ddp: bool,
                 dtype: torch.dtype) -> dict:
     """Tile shape and resources of one instantiation of kernel B3, as
     :func:`.cuda_backpass.kernel_info`; ``model`` a name of
-    :data:`KERNEL_MODELS` or of a generated model.  Builds the library;
-    needs a CUDA device."""
+    :data:`..codegen.KERNEL_MODELS` or of a generated model.  Builds the
+    library; needs a CUDA device."""
     lib = codegen.library_of(model)
     out = (ctypes.c_int * 6)()
     rc = lib.ddp_fused_info(0 if dtype == torch.float32 else 1,

@@ -67,11 +67,6 @@ from .linesearch import LineSearchResult, first_accept
 
 Tensor = torch.Tensor
 
-# CUDA models instantiated in csrc/rollout.cu (each in both modes,
-# float32/float64).
-KERNEL_MODELS = ("car_parking", "cartpole", "brachistochrone",
-                 "brachistochrone_hli")
-
 # ``ddp_rollout``'s block-size argument: checked, otherwise unused (the
 # block's shape follows from the tile constants in ``csrc/rollout.cuh``).
 BLOCK = 64
@@ -195,8 +190,7 @@ def rollout_call(problem: Problem, alphas, xnom_cm, unom_cm, l_cm, L_cm,
     ``(cost (1, B), ok (1, B) bool)`` when ``want_cost``.
 
     CPU tensors run :func:`rollout_plain`; CUDA tensors launch kernel B2 and
-    count it (:mod:`..launches`: on the host in
-    ``rollout_call.launches["multi" | "selected"]``, or on the device, the
+    count it (:func:`..launches.count`: on the host, or on the device, the
     flag's value, with ``run`` or inside a capture)."""
     dev = xnom_cm.device
     if dev.type == "cpu":
@@ -243,7 +237,7 @@ def rollout_call(problem: Problem, alphas, xnom_cm, unom_cm, l_cm, L_cm,
                             or run.device != dev):
         raise TypeError(f"run: {run.numel()} {run.dtype} on {run.device}, "
                         f"want one int32 on {dev}")
-    model, lib = codegen.kernel_model(problem, params, KERNEL_MODELS)
+    model, lib = codegen.kernel_model(problem, params)
     p_flat = model.flat_params(params, dtype, dev, N)
 
     def opt_t(t, n):
@@ -272,17 +266,13 @@ def rollout_call(problem: Problem, alphas, xnom_cm, unom_cm, l_cm, L_cm,
             0 if dtype == torch.float32 else 1, model.name.encode(),
             int(multi), int(want_cost), N, B, A, BLOCK, ptrs, stream)
     _build.check(lib, rc, "rollout")
-    key = "multi" if multi else "selected"
-    if not launches.on_device(f"rollout_{key}", dev, run):
-        rollout_call.launches[key] += 1
+    launches.count("rollout_multi" if multi else "rollout_selected", dev,
+                   run)
     if multi:
         return cost, ok
     if want_cost:
         return xs, xf, us, cost, ok
     return xs, xf, us
-
-
-rollout_call.launches = {"multi": 0, "selected": 0}
 
 
 def kernel_info(model: str, dtype: torch.dtype, multi: bool,
@@ -382,13 +372,10 @@ def initial_rollout(problem, x0, u0, params, mult, w_pen_l,
         w_pen_l[None, :].contiguous(), w_pen_f[None, :].contiguous(),
         mult.mu_fe.T.contiguous(), mult.mu_fi.T.contiguous(),
         zero[:B].view(1, B), params, multi=False, want_cost=True)
-    if dev.type == "cuda" and not launches.on_device("init_rollout", dev):
-        initial_rollout.launches += 1
+    if dev.type == "cuda":
+        launches.count("init_rollout", dev)
     xs, us = _traj_out(xs_cm, xf_cm, us_cm)
     return Rollout(xs=xs, us=us, cost=cost[0], ok=ok[0])
-
-
-initial_rollout.launches = 0
 
 
 def _flag(pred: Tensor) -> Tensor:

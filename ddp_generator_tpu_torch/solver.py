@@ -57,7 +57,7 @@ from .convert import to_torch
 from .derivs import batched_calc_derivs
 from .ops.backpass import back_pass
 from .ops.boxqp import BoxQPHyper
-from .ops import cuda_backpass, cuda_emit, cuda_fused, device_loop
+from .ops import cuda_backpass, cuda_emit, device_loop
 from .ops.cm_derivs import cm_back_pass_from_bundle, cm_emit
 from .ops.cuda_fused import fused_derivs_back_pass
 from .ops.cuda_rollout import (
@@ -347,7 +347,7 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
             cuda_backpass.library(problem.n_x, problem.n_u)
         if (backpass == "fused" or linesearch == "kernel"
                 or (backpass == "kernel" and not batch_params)):
-            codegen.kernel_model(problem, params, cuda_fused.KERNEL_MODELS)
+            codegen.kernel_model(problem, params)
 
     def init_fn(x0s, u0s, params) -> _Carry:
         _check_device(x0s, device, "x0s")

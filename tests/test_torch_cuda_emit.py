@@ -4,10 +4,10 @@ on a CUDA card.
 * Against the torch emitter (``cm_derivs.cm_emit``) on the card: every key
   of the packed bundle, ``us_cm``, ``final_cx``/``final_cxx`` and ``ok``, at
   B=2048, N=500 on CarParking and at a ragged small shape on every CUDA model
-  of ``KERNEL_MODELS`` and a generated one, FULL_DDP on and off, to B3's
-  tolerances (relative to the largest value of each output: float32 1e-1,
-  float64 5e-12).  One work item a thread and all of a point's items on one
-  thread give the same bits.
+  of ``codegen.KERNEL_MODELS`` and a generated one, FULL_DDP on and off, to
+  B3's tolerances (relative to the largest value of each output: float32
+  1e-1, float64 5e-12).  One work item a thread and all of a point's items
+  on one thread give the same bits.
 * A CarParking ``StepwiseSolver`` solve through the kernel against the same
   solve through the torch emitter: the solved share within 1 point, the
   median iterations within 5%.
@@ -32,12 +32,11 @@ import torch
 
 import ddp_generator_tpu_torch as ddp
 import test_torch_dual_host as dh
-from ddp_generator_tpu_torch import launches
+from ddp_generator_tpu_torch import codegen, launches
 from ddp_generator_tpu_torch.models import car_parking
 from ddp_generator_tpu_torch.ops import cuda_emit as ce
 from ddp_generator_tpu_torch.ops.cm_derivs import cm_emit
 from ddp_generator_tpu_torch.ops.cuda_backpass import _BUNDLE_KEYS
-from ddp_generator_tpu_torch.ops.cuda_fused import KERNEL_MODELS
 from ddp_generator_tpu_torch.problem import LaneParams
 
 pytestmark = pytest.mark.cuda
@@ -122,7 +121,8 @@ def test_emit_kernel_matches_cm_emit_full_width(cuda, full_ddp, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
 @pytest.mark.parametrize("full_ddp", [True, False], ids=["full", "gn"])
-@pytest.mark.parametrize("model", KERNEL_MODELS + ("generated",))
+@pytest.mark.parametrize("model",
+                         codegen.KERNEL_MODELS + ("generated",))
 def test_emit_kernel_matches_cm_emit(cuda, model, full_ddp, dtype):
     """Every hand-written model and CarParking's generated one, N and B
     ragged; a lane whose f goes NaN at a step clears only its own ok."""

@@ -4,13 +4,12 @@ Covers every instantiation the solve at full width does not reach: B1 at
 each (n_x, n_u) pair of ``KERNEL_SHAPES`` with regType 1/2 and FULL_DDP
 on/off in float32 and float64, B2 in both modes with alpha 0 lanes and a
 lane whose rollout turns NaN (CarParking and Cartpole), and B3 for every
-CUDA model of ``KERNEL_MODELS`` with regType 1/2 and FULL_DDP on/off in
-both dtypes, with
-a lane that fails and a lane whose derivatives are not finite.  A problem
-without a CUDA model runs its generated one (bit for bit the hand-written
-model's outputs on CarParking), B1 at a shape outside ``KERNEL_SHAPES`` is
-built, and what cannot be built raises.  ``B`` is
-not a multiple of the lanes per block, so the ragged last block is
+CUDA model of ``codegen.KERNEL_MODELS`` with regType 1/2 and FULL_DDP on/off
+in both dtypes, with a lane that fails and a lane whose derivatives are not
+finite.  A problem without a CUDA model runs its generated one (bit for bit
+the hand-written model's outputs on CarParking), B1 at a shape outside
+``KERNEL_SHAPES`` is built, and what cannot be built raises.  ``B`` is not
+a multiple of the lanes per block, so the ragged last block is
 exercised; the ``*_ragged`` cases of B1, B2 and B3 also take ``B = G+3``,
 ``N = 2S+1`` (a last time tile of one step) and ``B = 128``, the smallest
 compaction width, with ``G`` and ``S`` read from the built kernel.  B2's
@@ -43,6 +42,8 @@ import pytest
 import torch
 
 import ddp_generator_tpu_torch as ddp
+from ddp_generator_tpu_torch import codegen
+from ddp_generator_tpu_torch.launches import read_launches
 from ddp_generator_tpu_torch.models import (
     brachistochrone,
     car_parking,
@@ -131,10 +132,10 @@ def test_backpass_kernel_matches_plain(cuda, n_x, n_u, reg_type, full_ddp,
     rng = np.random.default_rng(100 * n_x + 10 * n_u + reg_type)
     sd, fcx, fcxx, us, lam = _bundle(rng, n_x, n_u, full_ddp, dtype, cuda)
     args = (sd, fcx, fcxx, us, lam, n_x, reg_type, full_ddp)
-    before = cb.back_pass_cm.launches
+    before = read_launches()
     out = cb.back_pass_cm(*args)
     torch.cuda.synchronize()
-    assert cb.back_pass_cm.launches == before + 1
+    assert read_launches() == {**before, "backpass": before["backpass"] + 1}
     ref = cb.back_pass_cm_plain(*args)
     assert bool(ref[4][0, 3]) and not bool(ref[4].all())
     for name, o, r in zip(("l", "L", "dV", "g_norm", "failed"), out, ref):
@@ -224,11 +225,11 @@ def _check_rollout(cuda, mode, dtype, model):
     ops, alpha_vec, p = _rollout_operands(dtype, cuda, model=model)
     kw = dict(multi=mode == "multi", want_cost=mode == "selected_cost")
     av = None if mode == "multi" else alpha_vec
-    before = dict(cr.rollout_call.launches)
+    before = read_launches()
     out = cr.rollout_call(*ops, av, p, **kw)
     torch.cuda.synchronize()
-    key = "multi" if mode == "multi" else "selected"
-    assert cr.rollout_call.launches[key] == before[key] + 1
+    key = "rollout_multi" if mode == "multi" else "rollout_selected"
+    assert read_launches() == {**before, key: before[key] + 1}
     ref = cr.rollout_plain(*ops, av, p, **kw)
     assert len(out) == len(ref)
     for i, (o, r) in enumerate(zip(out, ref)):
@@ -350,13 +351,13 @@ def _fused_operands(model, dtype, dev, N=N, B=B):
                          ids=["f32", "f64"])
 @pytest.mark.parametrize("full_ddp", [True, False], ids=["full", "gn"])
 @pytest.mark.parametrize("reg_type", [1, 2])
-@pytest.mark.parametrize("model", cf.KERNEL_MODELS)
+@pytest.mark.parametrize("model", codegen.KERNEL_MODELS)
 def test_fused_kernel_matches_plain(cuda, model, reg_type, full_ddp, dtype):
     args = _fused_operands(model, dtype, cuda) + (reg_type, full_ddp)
-    before = cf.fused_derivs_back_pass.launches
+    before = read_launches()
     bp, ok = cf.fused_derivs_back_pass(*args)
     torch.cuda.synchronize()
-    assert cf.fused_derivs_back_pass.launches == before + 1
+    assert read_launches() == {**before, "fused": before["fused"] + 1}
     ref, ref_ok = cf.fused_derivs_back_pass_plain(*args)
     assert torch.equal(ok, ref_ok)
     assert not bool(ok[5]) and int(ok.sum()) == B - 1

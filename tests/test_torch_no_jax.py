@@ -1,6 +1,6 @@
-"""The PyTorch port (the package, ``chip_smoke.py``, ``bench_torch.py`` and
-the example scripts ``scripts/*_torch.py``) imports no JAX, and
-``chip_smoke.py`` refuses to run without a GPU."""
+"""The PyTorch port (the package, ``chip_smoke.py`` and the example scripts
+``scripts/*_torch.py``) imports no JAX, and ``chip_smoke.py`` refuses to
+run without a GPU."""
 
 import ast
 import os
@@ -25,7 +25,7 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "bench_torch.py"] + [
+    ROOT / "chip_smoke.py"] + [
     ROOT / "scripts" / f"{name}_torch.py"
     for name in ("try_car", "try_brachi", "plot_car", "plot_brachi")],
     ids=lambda p: str(p.relative_to(ROOT)))

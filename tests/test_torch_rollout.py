@@ -21,6 +21,7 @@ from ddp_generator_tpu.ops import forward as jfwd
 from ddp_generator_tpu.ops.linesearch import line_search
 from ddp_generator_tpu.ops.pallas_rollout import rollout_call as j_rollout
 import ddp_generator_tpu_torch as td
+from ddp_generator_tpu_torch.launches import read_launches
 from ddp_generator_tpu_torch.models import car_parking as tcar
 from ddp_generator_tpu_torch.ops import cuda_rollout as cr
 from ddp_generator_tpu_torch.ops import forward as tfwd
@@ -83,11 +84,11 @@ def test_rollout_plain_matches_pallas_interpret(case, multi):
     ref = j_rollout(case["jp"], ALPHAS, *j_ops,
                     None if multi else jnp.asarray(alpha_vec), case["p"],
                     multi=multi, interpret=True, want_cost=not multi)
-    before = dict(cr.rollout_call.launches)
+    before = read_launches()
     out = cr.rollout_call(case["tp"], ALPHAS, *map(_t, ops),
                           None if multi else _t(alpha_vec), case["p_t"],
                           multi=multi, want_cost=not multi)
-    assert cr.rollout_call.launches == before  # plain path: no launch
+    assert read_launches() == before  # plain path: no launch
     ref = [np.asarray(a) for a in ref]
     out = [a.numpy() for a in out]
     ok_ref, ok_out = ref[-1] > 0.5, out[-1]

@@ -1,12 +1,14 @@
-"""Tracing a solve (``launches.py``): host spans, device stamps and
-lane-steps.
+"""Tracing a solve (``launches.py``): launch counts, host spans, device
+stamps and lane-steps.
 
 On the CPU: ``StepwiseSolver``'s spans under ``torch.profiler`` (their
 nesting, their count and their shared call id, which an execution trace
 keeps), no ``record_function`` without a profiler, ``LoopStats.lane_steps``
 on the static and the eager route, the order of a body call's stamps (with
 ``launches.stamp`` recording tags: the CPU has no stamp kernel), and the
-decoding of a stamp ring.  On a card (``cuda`` marker): a whole-solve
+decoding of a stamp ring; an eager launch counted by ``launches.count`` and
+read back by ``read_launches`` alone, with ``launches.py`` loaded on its own
+(it imports no kernel wrapper).  On a card (``cuda`` marker): a whole-solve
 graph's stamps and spans.  The file imports no JAX; run its card test past
 ``tests/conftest.py``::
 
@@ -16,7 +18,10 @@ graph's stamps and spans.  The file imports no JAX; run its card test past
 """
 
 import json
+import subprocess
+import sys
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -170,6 +175,38 @@ def test_reset_empties_the_rings_in_place(monkeypatch):
     assert int(ring[0]) == 0 and int(ring[1]) == 4
     assert launches.decode_stamps(ring) == ([], 0)
     assert launches.read_lane_steps() == 0
+
+
+@pytest.mark.parametrize("kernel", launches.KERNELS)
+def test_an_eager_count_adds_one_to_its_kernel_alone(kernel):
+    launches.reset_launches()
+    before = launches.read_launches()
+    launches.count(kernel, "cpu")
+    assert launches.read_launches() == {**before, kernel: before[kernel] + 1}
+    launches.reset_launches()
+    assert launches.read_launches()[kernel] == 0
+
+
+def test_launches_counts_without_the_kernel_wrappers():
+    """``launches.py`` loaded alone, outside its package, counts, reads and
+    resets: it imports no module of the port."""
+    path = Path(launches.__file__)
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('l', {str(path)!r})\n"
+        "l = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(l)\n"
+        "l.reset_launches()\n"
+        "l.count('backpass', 'cpu')\n"
+        "assert l.read_launches()['backpass'] == 1, l.read_launches()\n"
+        "l.reset_launches()\n"
+        "assert not any(l.read_launches().values())\n"
+        "print([m for m in sys.modules if m.startswith("
+        "'ddp_generator_tpu_torch')])\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
 
 
 @pytest.fixture
