@@ -238,7 +238,7 @@ OPS = {"backpass_per_step": 1470, "backpass_per_lane": 1,
 # outside the tensor cores, all at the full 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
-WIDTHS = (2048, 1024, 512, 256, 128)
+WIDTHS = (2048, 1024, 512, 256, 128, 1)
 # The user problems of phase 12 (user_problems(), made in main()).
 USER_PROBLEMS: dict = {}
 
@@ -737,8 +737,8 @@ def check_fused_model(problem, p, r, m, w, lam, reps):
 
 def widths_phase(b1_args, b3_args, b2_args, reps):
     """Phase 4d: B1, B3 and B2 (the sweep; the selected rollout with cost)
-    at each compaction width (the first w lanes of phases 3, 4b and 4's
-    operands), CUDA events.  Per-lane work is a dependent chain over N, so
+    at each compaction width and at one lane, the ``single`` cells' width
+    (the first w lanes of phases 3, 4b and 4's operands), CUDA events.  Per-lane work is a dependent chain over N, so
     below ~132 SMs' worth of blocks the time should stay flat: the chain's
     latency is the floor."""
     from ddp_generator_tpu_torch.ops import cuda_backpass as cb

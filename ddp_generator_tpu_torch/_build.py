@@ -248,10 +248,10 @@ def pointer_array(tensors) -> "ctypes.Array":
 
 
 def info_dict(out) -> dict:
-    """The six ints of ``ddp_backpass_info``, ``ddp_fused_info`` and
-    ``ddp_rollout_info``."""
+    """The ints of ``ddp_backpass_info`` (seven: threads per lane ``P``
+    last), ``ddp_fused_info`` and ``ddp_rollout_info`` (six)."""
     return dict(zip(("G", "S", "W", "smem_bytes", "registers",
-                     "local_bytes"), list(out)))
+                     "local_bytes", "P"), list(out)))
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

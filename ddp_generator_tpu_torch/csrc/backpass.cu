@@ -36,10 +36,10 @@ extern "C" int ddp_backpass(int dtype, int n_x, int n_u, int reg_type,
                                          N, B, ptrs, stream);
 }
 
-// The tile shape and resources of one instantiation: out[0..5] = lanes per
+// The tile shape and resources of one instantiation: out[0..6] = lanes per
 // block, steps per tile, producer warps, dynamic shared memory per block
 // (bytes), registers per thread, local memory per thread (bytes; stack
-// frame and spill).
+// frame and spill), threads per lane.
 extern "C" int ddp_backpass_info(int dtype, int n_x, int n_u, int reg_type,
                                  int full_ddp, int* out) {
   return ddp::backpass_info_entry<ddp::Shapes>(dtype, n_x, n_u, reg_type,

@@ -21,6 +21,10 @@
 // second-order derivative is formed -- so a step never holds the
 // n_x-times-larger tensors.  Every other sum runs in the index order of the
 // plain PyTorch version (ops/cuda_backpass.py: riccati_step_plain).
+// riccati_step is riccati_q, riccati_gains, riccati_value and riccati_g in
+// turn; B3 runs it on one thread a lane, B1's consumer (backpass_coop.cuh)
+// runs the Q build and the value update's rows on four threads a lane and
+// the rest on the first, with the same operations.
 #pragma once
 
 #include "common.cuh"
@@ -75,15 +79,26 @@ struct PatternTable {
   }
 };
 
+// The quotients of the boxQP and of g: IEEE division (`div` of
+// riccati_gains and riccati_g; kernel B1 passes its own,
+// backpass_coop.cuh: FastDiv).
+struct PlainDiv {
+  template <typename T>
+  __host__ __device__ __forceinline__ T operator()(T n, T d) const {
+    return n / d;
+  }
+};
+
 // Closed-form solve on the free block of H (upper triangle read), with the
 // PD gates of pallas_backpass.py:_sym_solve_small.  inv receives the
 // free-block inverse at global indices and zero elsewhere.
-template <typename T, int NU>
+template <typename T, int NU, class Div = PlainDiv>
 __host__ __device__ __forceinline__ void sym_solve(const T (&H)[NU][NU],
                                                    const T (&rhs)[NU],
                                                    const bool (&free_)[NU],
                                                    T (&x)[NU], bool& ok,
-                                                   T (&inv)[NU][NU]) {
+                                                   T (&inv)[NU][NU],
+                                                   Div div = Div()) {
   int idx[3] = {0, 0, 0};
   int m = 0;
 #pragma unroll
@@ -99,15 +114,15 @@ __host__ __device__ __forceinline__ void sym_solve(const T (&H)[NU][NU],
   } else if (m == 1) {
     const T a = h(0, 0);
     ok = a > T(0);
-    s[0][0] = T(1) / (ok ? a : T(1));
+    s[0][0] = div(T(1), ok ? a : T(1));
   } else if (m == 2) {
     const T a = h(0, 0), b = h(0, 1), d = h(1, 1);
     const T det = a * d - b * b;
     ok = (a > T(0)) && (det > T(0));
     const T sdet = ok ? det : T(1);
-    s[0][0] = d / sdet;
-    s[0][1] = -b / sdet;
-    s[1][1] = a / sdet;
+    s[0][0] = div(d, sdet);
+    s[0][1] = div(-b, sdet);
+    s[1][1] = div(a, sdet);
   } else {
     const T a = h(0, 0), b = h(0, 1), c = h(0, 2);
     const T d = h(1, 1), e = h(1, 2), f = h(2, 2);
@@ -116,12 +131,12 @@ __host__ __device__ __forceinline__ void sym_solve(const T (&H)[NU][NU],
         a * (d * f - e * e) - b * (b * f - c * e) + c * (b * e - c * d);
     ok = (a > T(0)) && (m2 > T(0)) && (det > T(0));
     const T sdet = ok ? det : T(1);
-    s[0][0] = (d * f - e * e) / sdet;
-    s[0][1] = (c * e - b * f) / sdet;
-    s[0][2] = (b * e - c * d) / sdet;
-    s[1][1] = (a * f - c * c) / sdet;
-    s[1][2] = (b * c - a * e) / sdet;
-    s[2][2] = (a * d - b * b) / sdet;
+    s[0][0] = div(d * f - e * e, sdet);
+    s[0][1] = div(c * e - b * f, sdet);
+    s[0][2] = div(b * e - c * d, sdet);
+    s[1][1] = div(a * f - c * c, sdet);
+    s[1][2] = div(b * c - a * e, sdet);
+    s[2][2] = div(a * d - b * b, sdet);
   }
 #pragma unroll
   for (int a = 0; a < NU; ++a)
@@ -159,12 +174,25 @@ struct StepOut {
   T l[NU], L[NU][NX], dv0, dv1, Vx[NX], Vxx[NX][NX], g, failed;
 };
 
+// The step's Q terms: Qu, Qx, Quu, Qxu, Qxx, and QuuF, Qxu_reg regularized.
+template <typename T, int NX, int NU>
+struct QTerms {
+  T Qu[NU], Qx[NX], Quu[NU][NU], Qxu[NX][NU], Qxx[NX][NX], QuuF[NU][NU],
+      Qxu_reg[NX][NU];
+};
+
+// The first half of riccati_step: Q and its regularization.
 template <typename T, int NX, int NU, int REG, bool FULL>
-__host__ __device__ __forceinline__ void riccati_step(
-    const StepTerms<T, NX, NU>& d, const T (&u)[NU], T lam,
-    const T (&Vx)[NX], const T (&Vxx)[NX][NX], StepOut<T, NX, NU>& o) {
-  constexpr int NP = pow3(NU);
-  constexpr PatternTable<NU> patterns;
+__host__ __device__ __forceinline__ void riccati_q(
+    const StepTerms<T, NX, NU>& d, T lam, const T (&Vx)[NX],
+    const T (&Vxx)[NX][NX], QTerms<T, NX, NU>& q) {
+  T (&Qu)[NU] = q.Qu;
+  T (&Qx)[NX] = q.Qx;
+  T (&Quu)[NU][NU] = q.Quu;
+  T (&Qxu)[NX][NU] = q.Qxu;
+  T (&Qxx)[NX][NX] = q.Qxx;
+  T (&QuuF)[NU][NU] = q.QuuF;
+  T (&Qxu_reg)[NX][NU] = q.Qxu_reg;
 
   // ---- Q build (back_pass.c:80-131) ----
   T vfx[NX][NX], vfu[NX][NU];
@@ -185,7 +213,6 @@ __host__ __device__ __forceinline__ void riccati_step(
       vfu[a][c] = s;
     }
   }
-  T Qu[NU], Qx[NX], Qxu[NX][NU], Quu[NU][NU], Qxx[NX][NX];
 #pragma unroll
   for (int a = 0; a < NU; ++a) {
     T s = d.fu[0][a] * Vx[0];
@@ -237,7 +264,6 @@ __host__ __device__ __forceinline__ void riccati_step(
   }
 
   // ---- regularization (back_pass.c:133-159) ----
-  T QuuF[NU][NU], Qxu_reg[NX][NU];
 #pragma unroll
   for (int a = 0; a < NU; ++a)
 #pragma unroll
@@ -264,6 +290,20 @@ __host__ __device__ __forceinline__ void riccati_step(
         Qxu_reg[a][c] = Qxu[a][c];
       }
     }
+}
+
+// The second half, to the gains: boxQP, gains and dV from the Q terms and
+// the box limits of `d` (lower, upper, lo_hx, up_hx, lo_s, up_s).
+template <typename T, int NX, int NU, class Box, class Div = PlainDiv>
+__host__ __device__ __forceinline__ void riccati_gains(
+    const QTerms<T, NX, NU>& q, const Box& d, StepOut<T, NX, NU>& o,
+    Div div = Div()) {
+  constexpr int NP = pow3(NU);
+  constexpr PatternTable<NU> patterns;
+  const T (&Qu)[NU] = q.Qu;
+  const T (&Quu)[NU][NU] = q.Quu;
+  const T (&QuuF)[NU][NU] = q.QuuF;
+  const T (&Qxu_reg)[NX][NU] = q.Qxu_reg;
   auto H = [&](int a, int c) -> T {
     return a <= c ? QuuF[a][c] : QuuF[c][a];
   };
@@ -277,7 +317,7 @@ __host__ __device__ __forceinline__ void riccati_step(
     neg_qu[a] = -Qu[a];
     all_free[a] = true;
   }
-  sym_solve<T, NU>(QuuF, neg_qu, all_free, x_free, pd_full, inv_full);
+  sym_solve<T, NU>(QuuF, neg_qu, all_free, x_free, pd_full, inv_full, div);
 
   T best_valid = T(0), best_x[NU], best_cl_lo[NU], best_cl_up[NU],
     best_inv[NU][NU];
@@ -340,7 +380,7 @@ __host__ __device__ __forceinline__ void riccati_step(
           rhs[a] = T(0);
         }
       }
-      sym_solve<T, NU>(QuuF, rhs, fr, xf, pd_ok, inv);
+      sym_solve<T, NU>(QuuF, rhs, fr, xf, pd_ok, inv, div);
     }
     T xp[NU];
 #pragma unroll
@@ -417,8 +457,19 @@ __host__ __device__ __forceinline__ void riccati_step(
     }
   o.dv0 = dv0;
   o.dv1 = T(0.5) * dv1s;
+}
 
-  // ---- value update with the UNregularized Quu/Qxu (back_pass.c:217-241)
+// The value update with the UNregularized Quu/Qxu (back_pass.c:217-241),
+// Vxx symmetrized, from the Q terms and the gains o.l, o.L.
+template <typename T, int NX, int NU>
+__host__ __device__ __forceinline__ void riccati_value(
+    const QTerms<T, NX, NU>& q, StepOut<T, NX, NU>& o) {
+  const T (&Qu)[NU] = q.Qu;
+  const T (&Qx)[NX] = q.Qx;
+  const T (&Quu)[NU][NU] = q.Quu;
+  const T (&Qxu)[NX][NU] = q.Qxu;
+  const T (&Qxx)[NX][NX] = q.Qxx;
+  const T (&best_x)[NU] = o.l;
   T Quu_l[NU], LQuu[NX][NU], Vxx_new[NX][NX];
 #pragma unroll
   for (int a = 0; a < NU; ++a) {
@@ -464,13 +515,36 @@ __host__ __device__ __forceinline__ void riccati_step(
 #pragma unroll
     for (int c = 0; c < NX; ++c)
       o.Vxx[a][c] = T(0.5) * (Vxx_new[a][c] + Vxx_new[c][a]);
+}
 
-  // ---- g_norm contribution: max_a |l_a| / (|u_a| + 1) ----
-  T g_k = fabs(best_x[0]) / (fabs(u[0]) + T(1));
+// The g_norm contribution: max_a |l_a| / (|u_a| + 1).
+template <typename T, int NX, int NU, class Div = PlainDiv>
+__host__ __device__ __forceinline__ void riccati_g(const T (&u)[NU],
+                                                   StepOut<T, NX, NU>& o,
+                                                   Div div = Div()) {
+  T g_k = div(fabs(o.l[0]), fabs(u[0]) + T(1));
 #pragma unroll
   for (int a = 1; a < NU; ++a)
-    g_k = nan_max(g_k, fabs(best_x[a]) / (fabs(u[a]) + T(1)));
+    g_k = nan_max(g_k, div(fabs(o.l[a]), fabs(u[a]) + T(1)));
   o.g = g_k;
+}
+
+template <typename T, int NX, int NU, class Box>
+__host__ __device__ __forceinline__ void riccati_solve(
+    const QTerms<T, NX, NU>& q, const Box& d, const T (&u)[NU],
+    StepOut<T, NX, NU>& o) {
+  riccati_gains<T, NX, NU>(q, d, o);
+  riccati_value<T, NX, NU>(q, o);
+  riccati_g<T, NX, NU>(u, o);
+}
+
+template <typename T, int NX, int NU, int REG, bool FULL>
+__host__ __device__ __forceinline__ void riccati_step(
+    const StepTerms<T, NX, NU>& d, const T (&u)[NU], T lam,
+    const T (&Vx)[NX], const T (&Vxx)[NX][NX], StepOut<T, NX, NU>& o) {
+  QTerms<T, NX, NU> q;
+  riccati_q<T, NX, NU, REG, FULL>(d, lam, Vx, Vxx, q);
+  riccati_solve<T, NX, NU>(q, d, u, o);
 }
 
 // The recursion's per-lane carry.

@@ -1,29 +1,32 @@
 // The producer/consumer pipeline shared by kernels B1 (backpass.cu) and B3
 // (fused.cu).
 //
-// A block owns kLanes batch lanes.  Its warp 0 is the consumer: thread
-// g < kLanes walks lane g over t = N-1 .. 0, carrying Vx/Vxx, dV, g and the
-// failure flag in registers, and runs riccati.cuh's step on operands it
-// reads from shared memory.  The other warps are producers: they fill a
-// ring of kSlots slots, each holding one time tile (S steps x kLanes lanes)
-// of every operand the consumer reads for a (t, lane) -- the derivative
-// terms in the packed bundle's component order, then u (Terms below).  B1's
-// producer copies the tile from the bundle with cp.async; B3's producers
-// compute it (derivs.cuh, one direction pair or box-limit evaluation per
-// work item).  A slot is laid out [term][step][lane], lanes fastest, so the
-// consumer's reads of one term are free of bank conflicts.
+// A block owns kLanes batch lanes.  Its warp 0 is the consumer, which
+// walks t = N-1 .. 0 and runs riccati.cuh's step on operands it reads from
+// shared memory: in B3 thread g < kLanes walks lane g, carrying Vx/Vxx,
+// dV, g and the failure flag in registers (consume_tile below); in B1 the
+// warp's 32 threads are kLanes groups of four, one a lane, that share each
+// step (backpass_coop.cuh).  The other warps are producers: they fill a
+// ring of kSlots slots, each holding one time tile (S steps x kLanes
+// lanes) of every operand the consumer reads for a (t, lane) -- the
+// derivative terms in the packed bundle's component order, then u (Terms
+// below).  B1's producer copies the tile from the bundle with cp.async;
+// B3's producers compute it (derivs.cuh, one direction pair or box-limit
+// evaluation per work item).  A slot is laid out [term][step][lane], lanes
+// fastest, so the consumer's reads of one term are free of bank conflicts.
 //
 // Why: with one thread per lane, a lane's whole work -- B3's derivative
 // evaluations, B1's loads -- ran as one dependent chain on one warp per
 // SM.  The TPU kernels took their parallelism from 128-lane vectors over
 // each step; here the work of a step that does not depend on the carry
-// runs on other warps, ahead of the one chain that does.  What is left is
-// the consumer's Riccati step (~2 us on an H100) times N: B1's time at
-// every width, B3's at small widths (PERF.md).  The consumer's arithmetic is
-// the one-thread kernels' (fused.cuh:fused_lane, backpass.cuh:
-// backpass_lane), term for term and in the same summation order, so the
-// outputs are bit for bit theirs; tests/test_torch_dual_host.py holds the
-// composition against those lanes on the host.
+// runs on other warps, ahead of the one chain that does.  What is left in
+// B3 is the consumer's Riccati step (~2,600 cycles on an H100) times N: B3's
+// time at small widths (PERF.md).  B3's consumer runs the one-thread
+// kernel's arithmetic (fused.cuh:fused_lane), term for term and in the same
+// summation order, so its outputs are bit for bit that kernel's; B1's
+// cooperative consumer holds to backpass.cuh:backpass_lane the same way.
+// tests/test_torch_dual_host.py holds both compositions against those
+// lanes on the host.
 //
 // Synchronisation: named barriers, two per slot.  Producers wait on slot
 // r's "empty" barrier before refilling it and arrive on its "full"

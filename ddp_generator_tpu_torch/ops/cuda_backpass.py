@@ -14,15 +14,17 @@ Once a step fails the lane's outputs are zero and its carry, dV and g
 freeze (``back_pass.c:38-257``).
 
 On the card (H100): a block owns ``kLanes`` lanes (``csrc/staged.cuh``).
-Its consumer warp walks ``t = N-1 .. 0``, one thread per lane, with
-``Vx``/``Vxx`` and the accumulators in registers -- the loop replaces the
-TPU's sequential grid, which carried them in VMEM scratch -- and reads each
-step's operands from shared memory, where a producer warp has copied the
-time tile with ``cp.async`` (each bundle value read once, coalesced) while
-the consumer ran the tile before.  Each step's ~2k flops depend on the
-previous step's value function, so the kernel is bound by that chain's
-latency times N, not by the ~0.2 ms its bytes take.  The tile shape is
-fixed in the source; :func:`kernel_info` reports it.
+Its consumer warp walks ``t = N-1 .. 0``, four threads a lane
+(``csrc/backpass_coop.cuh``) -- the loop replaces the TPU's sequential
+grid, which carried ``Vx``/``Vxx`` in VMEM scratch -- and reads each step's
+operands from shared memory, where a producer warp has copied the time tile
+with ``cp.async`` (each bundle value read once, coalesced) while the
+consumers ran the tile before.  A lane's four threads form the rows of Q's
+dot products and of the value update; the first runs the boxQP and the
+gains.  Each step depends on the previous step's value function, so the
+kernel is bound by a step's latency times N, not by the ~0.2 ms its bytes
+take.  The tile shape is fixed in the source; :func:`kernel_info` reports
+it.
 
 Layouts as in JAX: inputs component-outer ``(C, N, B)`` (``cxx``, ``cuu``
 and the last two axes of ``fxx``/``fuu`` packed upper triangles), outputs
@@ -461,11 +463,12 @@ def back_pass_cm(sd_cm: dict, final_cx, final_cxx, us_cm, lam, n_x: int,
 def kernel_info(n_x: int, n_u: int, reg_type: int, full_ddp: bool,
                 dtype: torch.dtype) -> dict:
     """Tile shape and resources of one instantiation of kernel B1: lanes
-    per block ``G``, steps per tile ``S``, producer warps ``W``, dynamic
-    shared memory per block, registers and local memory (stack frame and
-    spill) per thread.  Builds the library; needs a CUDA device."""
+    per block ``G``, steps per tile ``S``, producer warps ``W`` (a launch
+    narrower than a block takes one more), dynamic shared memory per block,
+    registers and local memory (stack frame and spill) per thread, threads
+    per lane ``P``.  Builds the library; needs a CUDA device."""
     lib = library(n_x, n_u)
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 7)()
     rc = lib.ddp_backpass_info(0 if dtype == torch.float32 else 1, n_x, n_u,
                                reg_type, int(full_ddp), out)
     _build.check(lib, rc, "backpass info")

@@ -86,7 +86,8 @@ def _close(out, ref, tol, name):
 
 def _bundle(rng, n_x, n_u, full_ddp, dtype, dev, N=N, B=B):
     """A random packed CM bundle ``{field: (C, N, B)}``; lane 3 has a
-    strongly indefinite cuu at step 2, so its pass fails there."""
+    strongly indefinite cuu at step 2, so its pass fails there, and input
+    0 of lane 1 has no bounds (where the width holds those lanes)."""
     def r(c, scale=1.0):
         return scale * rng.standard_normal((c, N, B))
 
@@ -100,7 +101,8 @@ def _bundle(rng, n_x, n_u, full_ddp, dtype, dev, N=N, B=B):
         fx[i * n_x + i] += 1.0
     lower = r(n_u, 0.5) - 1.0
     upper = lower + 0.3 + np.abs(r(n_u))
-    lower[0, :, 1], upper[0, :, 1] = -np.inf, np.inf
+    if B > 1:
+        lower[0, :, 1], upper[0, :, 1] = -np.inf, np.inf
     tx, tu = cb.tri_size(n_x), cb.tri_size(n_u)
     sd = dict(
         fx=fx, fu=r(n_x * n_u, 0.4), cx=r(n_x), cu=r(n_u),
@@ -111,7 +113,7 @@ def _bundle(rng, n_x, n_u, full_ddp, dtype, dev, N=N, B=B):
         lower=lower, upper=upper, lower_hx=r(n_u * n_x, 0.3),
         upper_hx=r(n_u * n_x, 0.3), lower_sign=-np.ones((n_u, N, B)),
         upper_sign=np.ones((n_u, N, B)))
-    for i in range(n_u):
+    for i in range(n_u if B > 3 else 0):
         sd["cuu"][cb.tri_index(i, i, n_u), 2, 3] = -1e4
     a = rng.standard_normal((B, n_x, n_x))
     fcxx = (np.einsum("bij,bkj->bik", a, a) + 3 * np.eye(n_x)).reshape(B, -1).T
@@ -126,7 +128,7 @@ def _bundle(rng, n_x, n_u, full_ddp, dtype, dev, N=N, B=B):
                          ids=["f32", "f64"])
 @pytest.mark.parametrize("full_ddp", [True, False], ids=["full", "gn"])
 @pytest.mark.parametrize("reg_type", [1, 2])
-@pytest.mark.parametrize("n_x,n_u", cb.KERNEL_SHAPES)
+@pytest.mark.parametrize("n_x,n_u", cb.KERNEL_SHAPES + ((6, 3),))
 def test_backpass_kernel_matches_plain(cuda, n_x, n_u, reg_type, full_ddp,
                                        dtype):
     rng = np.random.default_rng(100 * n_x + 10 * n_u + reg_type)
@@ -143,16 +145,18 @@ def test_backpass_kernel_matches_plain(cuda, n_x, n_u, reg_type, full_ddp,
 
 
 # Ragged edges of the staged kernels (csrc/staged.cuh): the last block
-# holds 3 lanes, the last time tile one step, or the width is the smallest
-# the compaction reaches.
-EDGES = ("lanes_G+3", "steps_2S+1", "width_128")
+# holds 3 lanes, the last time tile one step, the width is the smallest
+# the compaction reaches, or one problem or two (one block, its other
+# lanes idle).
+EDGES = ("lanes_G+3", "steps_2S+1", "width_128", "width_1", "width_2")
 
 
 def _edge_shape(edge, info):
     """(B, N) of an edge case for a kernel of tile shape ``info``."""
     return {"lanes_G+3": (info["G"] + 3, N),
             "steps_2S+1": (B, 2 * info["S"] + 1),
-            "width_128": (128, N)}[edge]
+            "width_128": (128, N), "width_1": (1, N),
+            "width_2": (2, N)}[edge]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
@@ -167,9 +171,24 @@ def test_backpass_kernel_ragged(cuda, edge, dtype):
     out = cb.back_pass_cm(*args)
     torch.cuda.synchronize()
     ref = cb.back_pass_cm_plain(*args)
-    assert bool(ref[4][0, 3]) and not bool(ref[4].all())
+    assert Bv < 4 or (bool(ref[4][0, 3]) and not bool(ref[4].all()))
     for name, o, r in zip(("l", "L", "dV", "g_norm", "failed"), out, ref):
         _close(o, r, TOL[dtype], name)
+
+
+@pytest.mark.parametrize("n_x,n_u,P", [(4, 2, 4), (4, 1, 4), (1, 1, 4),
+                                       (6, 3, 4)])
+def test_backpass_kernel_info_reports_group_size(cuda, n_x, n_u, P):
+    """Threads per lane: the consumer warp's 32 over its 8 lanes.  Local
+    memory: at the built-in shapes no more than the stack frame of the
+    division slow path's call (64 B; ptxas reports no spill), and at (6, 3)
+    no more than the 1,016 B that one thread a lane took."""
+    for dtype in (torch.float32, torch.float64):
+        for reg_type, full_ddp in ((1, True), (2, False)):
+            info = cb.kernel_info(n_x, n_u, reg_type, full_ddp, dtype)
+            assert info["P"] == P and info["G"] == 8, info
+            limit = 64 if (n_x, n_u) in cb.KERNEL_SHAPES else 1016
+            assert info["local_bytes"] <= limit, info
 
 
 def _rollout_operands(dtype, dev, N=N, B=B, model="car_parking"):
@@ -179,13 +198,15 @@ def _rollout_operands(dtype, dev, N=N, B=B, model="car_parking"):
         p_np, x0, _ = car_parking.default_setup(T=N, seed=0)
         x0s = np.tile(x0, (B, 1)) + 0.05 * rng.standard_normal((B, 4))
         u0s = 0.1 * rng.standard_normal((B, N, 2))
-        x0s[5, 3], u0s[5, :, 0] = 1e4, 0.3  # lane 5: the rollout turns NaN
+        if B > 5:  # lane 5: the rollout turns NaN
+            x0s[5, 3], u0s[5, :, 0] = 1e4, 0.3
     else:
         problem = cartpole.cartpole()
         p_np, x0, _ = cartpole.default_setup(T=N, seed=0)
         x0s = np.tile(x0, (B, 1)) + 0.05 * rng.standard_normal((B, 4))
         u0s = 10.0 * rng.standard_normal((B, N, 1))  # some past +-15
-        x0s[5, 1] = np.inf  # lane 5: sin(inf), the rollout turns NaN
+        if B > 5:
+            x0s[5, 1] = np.inf  # lane 5: sin(inf), the rollout turns NaN
     n_u = problem.n_u
     p = ddp.params_from_jax(p_np, dtype, dev)
     t = lambda v: torch.as_tensor(v, dtype=dtype, device=dev)
@@ -260,7 +281,7 @@ def test_rollout_kernel_ragged(cuda, edge, mode, dtype):
     assert len(out) == len(ref)
     for i, (o, r) in enumerate(zip(out, ref)):
         _close(o, r, TOL[dtype], f"{edge} {mode} output {i}")
-    if mode != "selected":
+    if mode != "selected" and Bv > 5:
         ok = out[-1]
         assert not bool(ok[:, 5].any()) and bool(ok[:, :5].all())
 
@@ -309,7 +330,7 @@ def test_wrappers_raise_where_no_kernel_exists(cuda):
 def _fused_operands(model, dtype, dev, N=N, B=B):
     """A nominal rollout of B lanes over N steps with random AL inputs.
     Lane 3 fails (lambda far below zero makes Quu indefinite); lane 5's
-    derivatives are not finite."""
+    derivatives are not finite (where the width holds those lanes)."""
     rng = np.random.default_rng(21)
     t = lambda v: torch.as_tensor(v, dtype=dtype, device=dev)
     if model == "car_parking":
@@ -318,13 +339,15 @@ def _fused_operands(model, dtype, dev, N=N, B=B):
         x0s = np.tile(x0, (B, 1)) + 0.05 * rng.standard_normal((B, 4))
         x0s[:, 3] += rng.uniform(0.5, 2.0, B)
         u0s = 0.3 * rng.standard_normal((B, N, 2))
-        x0s[5, 3], u0s[5, :, 0] = 1e4, 0.3  # NaN rollout
+        if B > 5:
+            x0s[5, 3], u0s[5, :, 0] = 1e4, 0.3  # NaN rollout
     elif model == "cartpole":
         problem = cartpole.cartpole()
         p_np, x0, _ = cartpole.default_setup(T=N, seed=0)
         x0s = np.tile(x0, (B, 1)) + 0.3 * rng.standard_normal((B, 4))
         u0s = 10.0 * rng.standard_normal((B, N, 1))  # some past +-15
-        x0s[5, 1] = np.inf  # sin(inf): NaN rollout
+        if B > 5:
+            x0s[5, 1] = np.inf  # sin(inf): NaN rollout
     else:
         problem = getattr(brachistochrone, model)()
         setup = (brachistochrone.default_setup if model == "brachistochrone"
@@ -332,7 +355,8 @@ def _fused_operands(model, dtype, dev, N=N, B=B):
         p_np, x0, _ = setup(N)
         x0s = np.tile(x0, (B, 1)) - rng.uniform(0.0, 0.5, (B, 1))
         u0s = -np.abs(rng.uniform(0.5, 1.5, (B, N, 1)))
-        x0s[5, 0] = 0.5  # y > 0: sqrt(-y) is NaN in L
+        if B > 5:
+            x0s[5, 0] = 0.5  # y > 0: sqrt(-y) is NaN in L
     p = ddp.params_from_jax(p_np, dtype, dev)
     m = ddp.init_multipliers(problem, B, N, dtype, dev)
     w = torch.ones(B, dtype=dtype, device=dev)
@@ -340,7 +364,8 @@ def _fused_operands(model, dtype, dev, N=N, B=B):
                        m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, w, w)
     mu = lambda *s: t(rng.uniform(0.2, 2.0, s))
     lam = np.abs(rng.standard_normal(B)) * 0.1
-    lam[3] = -1e3
+    if B > 3:
+        lam[3] = -1e3
     return (problem, nom.xs, nom.us, mu(B, N, problem.n_hle),
             mu(B, N, problem.n_hli), t(rng.standard_normal((B, problem.n_hfe))),
             mu(B, problem.n_hfi), t(rng.uniform(1.0, 40.0, B)),
@@ -396,8 +421,9 @@ def test_fused_kernel_ragged(cuda, edge, dtype):
     bp, ok = cf.fused_derivs_back_pass(*args)
     torch.cuda.synchronize()
     ref, ref_ok = cf.fused_derivs_back_pass_plain(*args)
-    assert torch.equal(ok, ref_ok) and int(ok.sum()) == Bv - 1
-    assert torch.equal(bp.failed, ref.failed) and bool(ref.failed[3])
+    assert torch.equal(ok, ref_ok) and int(ok.sum()) == Bv - (Bv > 5)
+    assert torch.equal(bp.failed, ref.failed)
+    assert Bv < 4 or bool(ref.failed[3])
     for name in ("l", "L", "dV", "g_norm"):
         _close(getattr(bp, name)[ok], getattr(ref, name)[ok], TOL[dtype],
                name)

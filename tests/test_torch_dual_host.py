@@ -53,6 +53,7 @@ SHIM = r"""
 #include <vector>
 
 #include "backpass.cuh"
+#include "backpass_coop.cuh"
 #include "fused.cuh"
 #include "models/brachistochrone.cuh"
 #include "models/car_parking.cuh"
@@ -160,68 +161,113 @@ void lanes_staged(int reg, int full, const FusedArgs<double>& a) {
   else staged_fused<M, 2, false>(a);
 }
 
-// Kernel B1's schedule run serially, the producer's copies a plain loop.
+// A lane's group of P threads run one rank after another, in ascending or
+// descending order: what one rank writes in a phase no other may read in
+// it, so both orders give the card's results.
+template <int P>
+struct SerialGroup {
+  bool down;
+  template <class F>
+  void each(F f) const {
+    for (int i = 0; i < P; ++i) f(down ? P - 1 - i : i);
+  }
+  template <class L>
+  struct Own {
+    L v[P];
+    L& operator[](int r) { return v[r]; }
+  };
+};
+
+// Kernel B1's schedule run serially, the producer's copies a plain loop:
+// per block of kLanes lanes, per time tile, the tile into a slot first
+// filled with NaN, then each lane's group of threads on it.
 template <int NX, int NU, int REG, bool FULL>
-void staged_backpass(const BackpassArgs<double>& A) {
-  constexpr int S = tile_steps<double, Terms<NX, NU, FULL>::NT>();
-  std::vector<double> slot(Terms<NX, NU, FULL>::NT * S * kLanes);
+void coop_backpass(const BackpassArgs<double>& A, bool down) {
+  constexpr int S = coop_tile_steps<double, NX, NU, FULL>();
+  constexpr int SLOT = Terms<NX, NU, FULL>::NT * S * kLanes;
+  constexpr int SC = CoopLayout<NX, NU>::SIZE;
+  using Grp = SerialGroup<kLaneThreads>;
+  const Grp grp{down};
+  std::vector<typename Grp::template Own<Carry<double, NX>>> carry(kLanes);
+  std::vector<double> sm(SLOT + kLanes * SC);
   auto copy = [](double* dst, const double* src, int n) {
     for (int e = 0; e < n; ++e) dst[e] = src[e];
   };
   for (int b0 = 0; b0 < A.B; b0 += kLanes) {
     const int n = std::min(kLanes, A.B - b0);
-    Carry<double, NX> c[kLanes];
-    for (int g = 0; g < n; ++g) backpass_start(A, b0 + g, c[g]);
+    std::fill(sm.begin(), sm.end(), NAN);
+    for (int g = 0; g < n; ++g)
+      coop_start<double, NX, NU>(grp, carry[g], sm.data() + SLOT + g * SC,
+                                 A.final_cx, A.final_cxx, b0 + g, A.B, true);
     for (int j = 0; j < num_tiles(A.N, S); ++j) {
       const int t0 = tile_t0(A.N, S, j);
-      std::fill(slot.begin(), slot.end(), NAN);
-      bundle_fill<double, NX, NU, FULL, S>(A, t0, b0, slot.data(), 0, 1,
-                                           copy);
+      std::fill(sm.begin(), sm.begin() + SLOT, NAN);
+      bundle_fill<double, NX, NU, FULL, S>(A, t0, b0, sm.data(), 0, 1, copy);
       for (int g = 0; g < n; ++g)
-        consume_tile<double, NX, NU, REG, FULL, S>(
-            slot.data(), t0, g, b0 + g, A.B, A.lam[b0 + g], c[g], A.l, A.L);
+        coop_tile<double, NX, NU, REG, FULL, S>(
+            grp, carry[g], sm.data(), 0, SLOT + g * SC, t0, g, b0 + g, A.B,
+            true, A.lam[b0 + g], A.l, A.L);
     }
     for (int g = 0; g < n; ++g)
-      finish_lane(c[g], A.N, A.B, b0 + g, A.dV, A.g_norm, A.failed);
+      coop_finish<double, NX>(grp, carry[g], A.N, A.B, b0 + g, true, A.dV,
+                              A.g_norm, A.failed);
   }
 }
 
+// mode 0: backpass_lane per lane; 1, 2: the cooperative schedule, ranks
+// ascending or descending.
 template <int NX, int NU, int REG, bool FULL>
-void backpass(int staged, const BackpassArgs<double>& a) {
-  if (staged) {
-    staged_backpass<NX, NU, REG, FULL>(a);
+void backpass(int mode, const BackpassArgs<double>& a) {
+  if (mode) {
+    coop_backpass<NX, NU, REG, FULL>(a, mode == 2);
   } else {
     for (int b = 0; b < a.B; ++b) backpass_lane<double, NX, NU, REG, FULL>(a, b);
   }
 }
 
 template <int NX, int NU>
-void backpass_shape(int staged, int reg, int full,
+void backpass_shape(int mode, int reg, int full,
                     const BackpassArgs<double>& a) {
-  if (reg == 1 && full) backpass<NX, NU, 1, true>(staged, a);
-  else if (reg == 1) backpass<NX, NU, 1, false>(staged, a);
-  else if (full) backpass<NX, NU, 2, true>(staged, a);
-  else backpass<NX, NU, 2, false>(staged, a);
+  if (reg == 1 && full) backpass<NX, NU, 1, true>(mode, a);
+  else if (reg == 1) backpass<NX, NU, 1, false>(mode, a);
+  else if (full) backpass<NX, NU, 2, true>(mode, a);
+  else backpass<NX, NU, 2, false>(mode, a);
+}
+
+// f(IntC<NX>(), IntC<NU>()) at the B1 shapes the tests take.
+template <class F>
+int b1_shape(int n_x, int n_u, F f) {
+  if (n_x == 4 && n_u == 2) return f(IntC<4>(), IntC<2>());
+  if (n_x == 4 && n_u == 1) return f(IntC<4>(), IntC<1>());
+  if (n_x == 2 && n_u == 1) return f(IntC<2>(), IntC<1>());
+  if (n_x == 6 && n_u == 3) return f(IntC<6>(), IntC<3>());
+  return f(IntC<1>(), IntC<1>());
 }
 
 extern "C" int host_tile_lanes() { return kLanes; }
 
 // Steps per tile of B3 (model >= 0) or of B1 (model < 0, shape n_x, n_u).
 extern "C" int host_tile_steps(int model, int n_x, int n_u, int full) {
-  auto steps = [&](auto nx, auto nu) {
+  if (model >= 0) {
+    auto steps = [&](auto nx, auto nu) {
+      constexpr int NX = decltype(nx)::value, NU = decltype(nu)::value;
+      return full ? tile_steps<double, Terms<NX, NU, true>::NT>()
+                  : tile_steps<double, Terms<NX, NU, false>::NT>();
+    };
+    DISPATCH(model, return steps(IntC<M::NX>(), IntC<M::NU>()))
+  }
+  return b1_shape(n_x, n_u, [&](auto nx, auto nu) {
     constexpr int NX = decltype(nx)::value, NU = decltype(nu)::value;
-    return full ? tile_steps<double, Terms<NX, NU, true>::NT>()
-                : tile_steps<double, Terms<NX, NU, false>::NT>();
-  };
-  if (model >= 0) DISPATCH(model, return steps(IntC<M::NX>(), IntC<M::NU>()))
-  if (n_x == 4 && n_u == 2) return steps(IntC<4>(), IntC<2>());
-  if (n_x == 4 && n_u == 1) return steps(IntC<4>(), IntC<1>());
-  return steps(IntC<1>(), IntC<1>());
+    return full ? coop_tile_steps<double, NX, NU, true>()
+                : coop_tile_steps<double, NX, NU, false>();
+  });
 }
 
-// ptrs as ddp_backpass's; staged 0 runs backpass_lane per lane, 1 the
-// staged schedule.
-extern "C" void host_backpass(int staged, int n_x, int n_u, int reg,
+// Threads per lane of B1.
+extern "C" int host_lane_threads() { return kLaneThreads; }
+
+// ptrs as ddp_backpass's; mode as backpass's.
+extern "C" void host_backpass(int mode, int n_x, int n_u, int reg,
                               int full, int N, int B, void* const* p) {
   BackpassArgs<double> a;
   auto in = [&](int i) { return static_cast<const double*>(p[i]); };
@@ -236,9 +282,11 @@ extern "C" void host_backpass(int staged, int n_x, int n_u, int reg,
   a.failed = static_cast<bool*>(p[24]);
   a.N = N;
   a.B = B;
-  if (n_x == 4 && n_u == 2) backpass_shape<4, 2>(staged, reg, full, a);
-  else if (n_x == 4 && n_u == 1) backpass_shape<4, 1>(staged, reg, full, a);
-  else backpass_shape<1, 1>(staged, reg, full, a);
+  b1_shape(n_x, n_u, [&](auto nx, auto nu) {
+    backpass_shape<decltype(nx)::value, decltype(nu)::value>(mode, reg,
+                                                             full, a);
+    return 0;
+  });
 }
 
 extern "C" void host_lanes(int model, int staged, int reg, int full, int N,
@@ -546,7 +594,11 @@ def _bundle_np(rng, n_x, n_u, full, N, B):
     """A random packed bundle ``[(C, N, B)] x 16`` in ``ddp_backpass``'s
     pointer order, ``us``, ``lam``, ``final_cx``, ``final_cxx``; lane 3's
     cuu is indefinite at step 2 (it fails there), lane 5 has a NaN in fx
-    at step 4."""
+    at step 4, and at step 6 lane 7's boxQP has two valid patterns: the
+    free optimum of input 0 lies on its lower bound (lam = 0.5, Quu =
+    0.5 I, Qu = cu: QuuF = I with regType 1, 0.5 I with 2), so the
+    all-free pattern wins over the one that clamps input 0 there, which a
+    group's ranks meet in either order."""
     def r(c, scale=1.0):
         return scale * rng.standard_normal((c, N, B))
 
@@ -569,15 +621,24 @@ def _bundle_np(rng, n_x, n_u, full, N, B):
     a = rng.standard_normal((B, n_x, n_x))
     fcxx = (np.einsum("bij,bkj->bik", a, a) + 3 * np.eye(n_x)).reshape(B, -1).T
     f = lambda c, sc: r(c, sc) if full else None
-    return [fx, r(n_x * n_u, 0.4), r(n_x), r(n_u), spd_packed(n_x), cuu,
-            r(n_x * n_u, 0.2), f(n_x * tx, 0.05), f(n_x * tu, 0.05),
-            f(n_x * n_x * n_u, 0.05), lower, upper, r(n_u * n_x, 0.3),
-            r(n_u * n_x, 0.3), -np.ones((n_u, N, B)), np.ones((n_u, N, B)),
-            r(n_u), np.abs(rng.standard_normal((1, B))) * 0.1,
-            r(n_x)[:, 0], fcxx]
+    ins = [fx, r(n_x * n_u, 0.4), r(n_x), r(n_u), spd_packed(n_x), cuu,
+           r(n_x * n_u, 0.2), f(n_x * tx, 0.05), f(n_x * tu, 0.05),
+           f(n_x * n_x * n_u, 0.05), lower, upper, r(n_u * n_x, 0.3),
+           r(n_u * n_x, 0.3), -np.ones((n_u, N, B)), np.ones((n_u, N, B)),
+           r(n_u), np.abs(rng.standard_normal((1, B))) * 0.1,
+           r(n_x)[:, 0], fcxx]
+    ins[17][0, 7] = 0.5  # lam
+    ins[1][:, 6, 7] = 0.0  # fu: Qu = cu, Quu = cuu
+    if full:
+        ins[8][:, 6, 7] = 0.0  # fuu
+    ins[5][:, 6, 7] = [0.5 if i == j else 0.0
+                       for i in range(n_u) for j in range(i, n_u)]
+    ins[3][:, 6, 7] = [0.5, -0.2, 0.1][:n_u]
+    lower[:, 6, 7], upper[:, 6, 7] = -2.0, 2.0
+    return ins
 
 
-def _host_backpass(lib, ins, n_x, n_u, reg, full, staged):
+def _host_backpass(lib, ins, n_x, n_u, reg, full, mode):
     N, B = ins[0].shape[1:]
     outs = [np.zeros((N, n_u, B)), np.zeros((N, n_u * n_x, B)),
             np.zeros((2, B)), np.zeros((1, B)), np.zeros((1, B), bool)]
@@ -585,26 +646,35 @@ def _host_backpass(lib, ins, n_x, n_u, reg, full, staged):
             for a in ins]
     q = (ctypes.c_void_p * 25)(*[None if a is None else a.ctypes.data
                                  for a in arrs + outs])
-    lib.host_backpass(int(staged), n_x, n_u, reg, int(full), N, B, q)
+    lib.host_backpass(mode, n_x, n_u, reg, int(full), N, B, q)
     return outs
 
 
+@pytest.mark.parametrize("order", [1, 2], ids=["ranks_up", "ranks_down"])
 @pytest.mark.parametrize("full", [True, False], ids=["full", "gn"])
 @pytest.mark.parametrize("reg", [1, 2])
-@pytest.mark.parametrize("n_x,n_u", [(4, 2), (4, 1), (1, 1)])
-def test_staged_backpass_equals_backpass_lane(lib, n_x, n_u, reg, full):
-    """B1's tile copies into slots, then the shared consumer, equal
-    ``backpass_lane`` bit for bit."""
+@pytest.mark.parametrize("n_x,n_u", [(4, 2), (4, 1), (1, 1), (2, 1),
+                                     (6, 3)])
+def test_staged_backpass_equals_backpass_lane(lib, n_x, n_u, reg, full,
+                                              order):
+    """B1's tile copies into slots, then each lane's group of threads
+    (backpass_coop.cuh), ranks run one after another in either order,
+    equal ``backpass_lane`` bit for bit."""
     _assert_ragged(lib, lib.host_tile_steps(-1, n_x, n_u, int(full)))
+    assert lib.host_lane_threads() == 4
     rng = np.random.default_rng(10 * n_x + n_u + 100 * reg)
     ins = _bundle_np(rng, n_x, n_u, full, N_STAGED, B_STAGED)
-    ref = _host_backpass(lib, ins, n_x, n_u, reg, full, staged=False)
-    out = _host_backpass(lib, ins, n_x, n_u, reg, full, staged=True)
+    free = np.array([-0.5, 0.2, -0.1][:n_u]) * (1.0 if reg == 1 else 2.0)
+    ins[10][0, 6, 7] = free[0]  # lower bound of input 0 at the optimum
+    ref = _host_backpass(lib, ins, n_x, n_u, reg, full, mode=0)
+    out = _host_backpass(lib, ins, n_x, n_u, reg, full, mode=order)
     for o, r in zip(out, ref):
         np.testing.assert_array_equal(o, r)
     failed = ref[4][0]
     assert failed[3] and not failed.all()
     assert np.isnan(ref[2][:, 5]).any()
+    # lane 7 at step 6 (live): the free solution won
+    np.testing.assert_array_equal(ref[0][6, :, 7], free)
 
 
 # Two lanes of the benchmark's brachistochrone_hli draw (N=500, float64,
