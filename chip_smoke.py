@@ -42,9 +42,12 @@ full width:
   (serial, float64), cut to max_iter=20 and its first lanes held against
   the CPU, and through B3 and B2 in float32 (max_iter=150, tolFun 1e-5,
   as the main path);
-* the main path's solve with per-lane params (``batch_params=True``,
-  ``limW`` from +-0.2 to +-0.5 over the lanes), cut to max_iter 40:
-  emission + B1 and the serial line search;
+* per-lane params at full width (phase 11): the emission kernel's and
+  B2's per-lane launches (sweep, selected rollouts, initial rollout) on
+  the benchmark's mixed fleet against their plain versions, then the main
+  path's solve with per-lane params (``batch_params=True``, ``limW`` from
+  +-0.2 to +-0.5 over the lanes): the emission kernel, B1 and B2 (line
+  search and initial rollout) reading each lane's params;
 * generated models (phase 12): CarParking and ``brachistochrone_hli``
   with their hand-written CUDA models stripped, so B2 and B3 run the
   models ``codegen.py`` generates from their torch functions -- their
@@ -178,11 +181,6 @@ T_POLE, MAX_ITER_POLE = 150, 150  # cartpole.default_setup's horizon
 # eager solve took 164-252 s on an H100; its first lanes are held against
 # the CPU's solve of per_lane_serial.
 MAX_ITER_POLE_SERIAL = 20
-# The full-width per-lane params solve (emission + B1 and the serial line
-# search) is cut from the main path's max_iter 200 to 40: the whole solve
-# took 157-293 s on an H100 when it ran eagerly; its lane checks (every
-# lane inside its own box, launches) hold at any depth.
-MAX_ITER_PER_LANE = 40
 # Per-lane params on the kernel path, graphed against the eager route
 # (graphs_routes_phase): the eager reference is cut to max_iter 10.
 MAX_ITER_GRAPHS_PER_LANE = 10
@@ -984,9 +982,9 @@ def batch_params_per_lane():
     """Phase 5d: per-lane params (``batch_params=True``), 16 lanes, float64,
     GPU against CPU: CarParking (T=100) with ``limW`` per lane and
     brachistochrone_hli (n=100, seed 14 as per_lane_brachi) with its floor
-    ``ymin`` shifted per lane, each through the kernel path (emission + B1,
-    the serial line search) and the fused path (which per-lane params send
-    down the serial path)."""
+    ``ymin`` shifted per lane, each through the kernel path (the emission
+    kernel, B1 and B2 reading each lane's params) and the fused path
+    (which per-lane params send down the serial path)."""
     import ddp_generator_tpu_torch as ddp
     from ddp_generator_tpu_torch.models import brachistochrone, car_parking
 
@@ -1011,20 +1009,111 @@ def batch_params_per_lane():
     return out
 
 
+def fleet_inputs(B):
+    """bench_inputs' CarParking inputs (T_MAIN, float32) with the
+    benchmark's mixed fleet as per-lane params
+    (scripts/make_fleet_params.py): vehicle ``b``'s ``d``, ``limW`` and
+    ``limA`` on lane ``b``; returns ``(params, x0s, u0s)``."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "scripts" / "make_fleet_params.py"
+    spec = importlib.util.spec_from_file_location("make_fleet_params", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    p, x0s, u0s = bench_inputs(B, T_MAIN, np.float32)
+    pb = per_lane_params(p, B)
+    d, w, a = np.asarray([mod.vehicle(b) for b in range(B)],
+                         pb["d"].dtype).T
+    pb["d"] = d
+    pb["limW"] = np.stack([-w, w], axis=1)
+    pb["limA"] = np.stack([-a, a], axis=1)
+    return pb, x0s, u0s
+
+
+def batch_params_kernels(problem, alphas):
+    """Phase 11, first: the per-lane instantiations of the emission kernel
+    and of B2 at the shapes the fleet's solve gives them (B=2048, T=500,
+    float32, the benchmark's fleet as ``LaneParams`` with the ``rows`` a
+    solver makes), against their plain versions on the same inputs:
+    B2's initial rollout against ``rollout_plain`` (``initial_rollout``
+    with its launch swapped for the plain version), the emission kernel
+    on that rollout against ``cm_emit`` (``TOL_EMIT``), then B2's sweep and
+    selected rollouts on B1's gains of that bundle against
+    ``rollout_plain`` (``check_rollout``, ``TOL_ROLLOUT``)."""
+    import unittest.mock
+
+    import torch
+
+    import ddp_generator_tpu_torch as ddp
+    from ddp_generator_tpu_torch.ops import cuda_backpass as cb
+    from ddp_generator_tpu_torch.ops import cuda_emit as ce
+    from ddp_generator_tpu_torch.ops import cuda_rollout as cr
+    from ddp_generator_tpu_torch.ops.cm_derivs import cm_emit
+
+    dev = torch.device("cuda")
+    pb, x0s, u0s = fleet_inputs(B_MAIN)
+    solver = ddp.StepwiseSolver(problem, main_options(), chunk=10,
+                                batch_params=True, device="cuda")
+    P = solver._cast_params(pb, B_MAIN, T_MAIN)
+    if P.rows is None or tuple(P.rows.shape[:1]) != (B_MAIN,):
+        fail("batch_params_kernels: the solver made no lane-major rows")
+    x0 = torch.as_tensor(x0s, device=dev)
+    u0 = torch.as_tensor(u0s, device=dev)
+    m = ddp.init_multipliers(problem, B_MAIN, T_MAIN, torch.float32, dev)
+    w = torch.ones(B_MAIN, dtype=torch.float32, device=dev)
+    tol = TOL_ROLLOUT["float32"]
+    r = cr.initial_rollout(problem, x0, u0, P, m, w, w)
+    with unittest.mock.patch.object(cr, "rollout_call", cr.rollout_plain):
+        r_plain = cr.initial_rollout(problem, x0, u0, P, m, w, w)
+    torch.cuda.synchronize()
+    if not torch.equal(r.ok, r_plain.ok):
+        fail("batch_params_kernels: initial rollout ok flags differ")
+    init_abs, init_rel = 0.0, 0.0
+    for name in ("xs", "us", "cost"):
+        e_abs, e_rel = max_rel_err(getattr(r, name), getattr(r_plain, name))
+        if not e_rel <= tol:
+            fail(f"batch_params_kernels: initial rollout {name} differs, "
+                 f"rel err {e_rel:.3g} > {tol}")
+        init_abs, init_rel = max(init_abs, e_abs), max(init_rel, e_rel)
+    args = emit_args(problem, P, r, m, w)
+    out = ce.emit(*args)
+    torch.cuda.synchronize()
+    emit_abs, emit_rel = emit_gap("batch_params_kernels: emit", out,
+                                  cm_emit(*args), TOL_EMIT["float32"])
+    sd, fcx, fcxx, us_cm, _ = out
+    lam = torch.as_tensor(
+        10.0 ** np.random.default_rng(2).uniform(-6, 2, size=B_MAIN),
+        dtype=torch.float32, device=dev)[None]
+    bp = cb.back_pass_cm(sd, fcx, fcxx, us_cm, lam, problem.n_x, 1, True)
+    ro, _ = check_rollout(problem, alphas, P, r, m, w, bp, tol, 3)
+    res = {"initial_rollout": dict(max_abs_err=init_abs,
+                                   max_rel_err=init_rel, tol=tol,
+                                   not_ok=int((~r_plain.ok).sum())),
+           "emit": dict(max_abs_err=emit_abs, max_rel_err=emit_rel,
+                        tol=TOL_EMIT["float32"],
+                        derivs_ok=int(out[4].sum()))}
+    for mode, d in ro.items():
+        res[f"rollout_{mode}"] = {k: d[k] for k in (
+            "max_abs_err", "max_rel_err", "tol", "ms", "not_ok")}
+    return {k: dict(B=B_MAIN, N=T_MAIN, dtype="float32", **d)
+            for k, d in res.items()}
+
+
 def batch_params_path(problem):
     """Phase 11: per-lane params at full width.  bench.py's CarParking
     solve (B=2048, T=500, float32, StepwiseSolver with chunk 10,
-    compact_levels 4, min_compact_batch 128), cut to max_iter 40, with
-    ``limW`` per lane from +-0.2 to +-0.5, ``backpass_method="kernel"`` and
-    ``linesearch_method="kernel"``: the torch emitter + B1, and the serial
-    line search, as per-lane params take it, every body call a graph
-    replay (each width captured at first use).  Every lane keeps its own
-    box limits; B1 runs, B2 and the emission kernel do not."""
+    compact_levels 4, min_compact_batch 128), with ``limW`` per lane from
+    +-0.2 to +-0.5, ``backpass_method="kernel"`` and
+    ``linesearch_method="kernel"``: the emission kernel, B1 and B2 (line
+    search and initial rollout), every emission and B2 launch reading the
+    lanes' own params, every body call a graph replay (each width captured
+    at first use).  Every lane keeps its own box limits; B3 does not
+    run."""
     import ddp_generator_tpu_torch as ddp
 
     p, x0s, u0s = bench_inputs(B_MAIN, T_MAIN, np.float32)
     pb, lim = car_limw_per_lane(p, B_MAIN)
-    opts = ddp.SolverOptions(max_iter=MAX_ITER_PER_LANE, dtype="float32",
+    opts = ddp.SolverOptions(max_iter=MAX_ITER_MAIN, dtype="float32",
                              tolFun=1e-5, debug_level=0,
                              backpass_method="kernel",
                              linesearch_method="kernel")
@@ -1033,13 +1122,16 @@ def batch_params_path(problem):
                                 device="cuda")
     s, wall, launches = timed_solve(solver, x0s, u0s, pb)
     loop = check_graphed("batch_params_path", solver)
-    if launches["backpass"] <= 0:
-        fail("batch_params_path: kernel backpass was never launched")
-    for name in ("fused", "emit", "rollout_multi", "rollout_selected",
-                 "init_rollout"):
-        if launches[name] != 0:
-            fail(f"batch_params_path: kernel {name} was launched "
-                 f"{launches[name]} times; per-lane params bypass it")
+    for name in ("backpass", "emit", "rollout_selected", "init_rollout"):
+        if launches[name] <= 0:
+            fail(f"batch_params_path: kernel {name} was never launched")
+    if launches["fused"] != 0:
+        fail(f"batch_params_path: B3 was launched {launches['fused']} times")
+    b2 = launches["rollout_multi"] + launches["rollout_selected"]
+    if (launches["emit_lane_params"] != launches["emit"]
+            or launches["rollout_lane_params"] != b2):
+        fail(f"batch_params_path: launches without the lanes' params: "
+             f"{launches}")
     if s.xs.shape != (B_MAIN, T_MAIN + 1, 4) or s.us.shape != (
             B_MAIN, T_MAIN, 2):
         fail(f"batch_params_path: shapes {s.xs.shape} {s.us.shape}")
@@ -1051,8 +1143,7 @@ def batch_params_path(problem):
         fail(f"batch_params_path: a lane leaves its box: max |w| - limW "
              f"{w_over:.3g}, max |a| - limA {a_over:.3g}")
     solved = np.isin(s.status, (1, 2))
-    return dict(B=B_MAIN, T=T_MAIN, max_iter=MAX_ITER_PER_LANE,
-                depth_cut=f"max_iter {MAX_ITER_MAIN}->{MAX_ITER_PER_LANE}",
+    return dict(B=B_MAIN, T=T_MAIN, max_iter=MAX_ITER_MAIN,
                 limW="linspace(0.2,0.5)", wall_s=wall,
                 s_per_body_call=wall / int(s.body_calls.max()),
                 solved_pct=100 * float(solved.mean()),
@@ -1177,7 +1268,7 @@ def graphed_busy_share(solver, x0s, u0s, p, calls=3) -> float:
 
     from ddp_generator_tpu_torch.solver import _copy_into, _params_map
 
-    P = solver._cast_params(p, len(u0s))
+    P = solver._cast_params(p, len(u0s), u0s.shape[1])
     c = solver._init(x0s, u0s, P)
     w = solver._widths[(len(u0s), u0s.shape[1])]
     _copy_into(w.carry, c)
@@ -1267,8 +1358,8 @@ def graphs_routes_phase(problem):
     each against the eager route (:func:`graphed_against_eager`) at full
     width: the serial path (``SolverOptions()``'s methods, float64) on
     bench.py's CarParking solve, cut to max_iter 3 as serial_vs_kernel;
-    per-lane params (``limW`` per lane) on the kernel path, emission + B1
-    and the serial line search, float32, cut to max_iter 10 for the eager
+    per-lane params (``limW`` per lane) on the kernel path, emission, B1
+    and B2, float32, cut to max_iter 10 for the eager
     reference; and the parallel backward pass with B2 on the
     Brachistochrone (n=500, float64) of parallel_solves, nothing cut (its
     solve takes about 14 body calls), with its busy shares.  The serial
@@ -2156,7 +2247,7 @@ def busy_share(solver, x0s, u0s, p, calls=3) -> float:
     from ddp_generator_tpu_torch.solver import _masked_steps
 
     o = solver.options
-    P = solver._cast_params(p, len(u0s))
+    P = solver._cast_params(p, len(u0s), u0s.shape[1])
     c = solver._init(x0s, u0s, P)
     c, _ = _masked_steps(solver._body, c, P, o.max_iter, 1)
     torch.cuda.synchronize()
@@ -2435,7 +2526,7 @@ def aux_api(problem):
     p, x0s, u0s = bench_inputs(B, 100, np.float64, seed=3)
     x0s = x0s + 0.05 * np.random.default_rng(4).standard_normal(x0s.shape)
     s = ddp.StepwiseSolver(problem, copts, chunk=5, device="cuda")
-    Ps = s._cast_params(p, B)
+    Ps = s._cast_params(p, B, u0s.shape[1])
     c = s._init(x0s, u0s, Ps)
     c, _ = _masked_steps(s._body, c, Ps, copts.max_iter, 5)
     ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke"
@@ -3200,7 +3291,11 @@ def main() -> int:
              **cstats, **{f"launches_{k}": v for k, v in claunches.items()})
     seconds("cartpole_path")
 
-    # 11. per-lane params at full width: emission + B1, serial line search
+    # 11. per-lane params at full width: the emission kernel's and B2's
+    # per-lane launches against their plain versions, then the solve
+    # (emission, B1 and B2, every launch with the lanes' params)
+    for what, d in batch_params_kernels(problem, alphas).items():
+        line("batch_params_kernels", part=what, **d)
     pstats = batch_params_path(problem)
     plaunches = pstats.pop("launches")
     line("batch_params_path", **pstats, **{f"launches_{k}": v

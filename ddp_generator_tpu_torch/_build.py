@@ -216,16 +216,16 @@ def open_library(path: Path) -> ctypes.CDLL:
     ``argtypes``/``restype`` declared.  An entry point the library lacks is
     passed over (``scripts/tile_sweep.py`` loads other trees' builds)."""
     lib = ctypes.CDLL(str(path))
-    i, p = ctypes.c_int, ctypes.c_void_p
+    i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
     ip, pp, name = ctypes.POINTER(i), ctypes.POINTER(p), ctypes.c_char_p
     for fn, argtypes in (
             ("ddp_backpass", [i, i, i, i, i, i, i, pp, p]),
             ("ddp_backpass_info", [i, i, i, i, i, ip]),
             ("ddp_fused", [i, name, i, i, i, i, pp, p]),
             ("ddp_fused_info", [i, name, i, i, ip]),
-            ("ddp_emit", [i, name, i, i, i, i, pp, p]),
+            ("ddp_emit", [i, name, i, i, i, i, ll, pp, p]),
             ("ddp_emit_info", [i, name, i, ip]),
-            ("ddp_rollout", [i, name, i, i, i, i, i, i, pp, p]),
+            ("ddp_rollout", [i, name, i, i, i, i, i, i, ll, pp, p]),
             ("ddp_rollout_info", [i, name, i, i, ip]),
             ("ddp_loop_versions", [ip]),
             ("ddp_stream_create", [i, pp]),

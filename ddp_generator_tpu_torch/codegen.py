@@ -52,7 +52,8 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from .problem import Problem, ProblemValidationError
+from .problem import (LaneParams, Problem, ProblemValidationError,
+                      lane_count)
 
 Tensor = torch.Tensor
 aten = torch.ops.aten
@@ -596,33 +597,41 @@ class GeneratedModel:
                     N: Optional[int] = None) -> Tensor:
         """The flat parameter array the model reads: fixed leaves, then one
         row of every step-indexed leaf per step (``N + 1`` rows are
-        needed)."""
+        needed); for :class:`~.problem.LaneParams` the lane-major ``(B,
+        P)`` matrix whose row ``b`` is lane ``b``'s."""
+        lanes = lane_count(p)
+        n_lanes = 1 if lanes is None else lanes
+
+        def leaf(key):  # (lanes, *shape of the shared leaf)
+            v = torch.as_tensor(p[key], dtype=dtype, device=device)
+            return v[None] if lanes is None else v.movedim(-1, 0)
+
         parts = []
         for key, shape in self.fixed:
-            v = torch.as_tensor(p[key], dtype=dtype, device=device)
-            if tuple(v.shape) != tuple(shape):
+            v = leaf(key)
+            if tuple(v.shape[1:]) != tuple(shape):
                 raise ProblemValidationError(
                     f"CUDA model {self.name}: param {key!r} has shape "
-                    f"{tuple(v.shape)}, the model reads {tuple(shape)}")
-            parts.append(v.reshape(-1))
+                    f"{tuple(v.shape[1:])}, the model reads {tuple(shape)}")
+            parts.append(v.reshape(n_lanes, -1))
         if self.tail:
             if N is None:
                 raise ValueError(f"CUDA model {self.name}: params indexed by "
                                  "the step need N")
             rows = []
             for key, shape in self.tail:
-                v = torch.as_tensor(p[key], dtype=dtype, device=device)
-                if v.dim() < 1 or tuple(v.shape[1:]) != tuple(shape) or (
-                        v.shape[0] < N + 1):
+                v = leaf(key)
+                if v.dim() < 2 or tuple(v.shape[2:]) != tuple(shape) or (
+                        v.shape[1] < N + 1):
                     raise ProblemValidationError(
                         f"CUDA model {self.name}: param {key!r} has shape "
-                        f"{tuple(v.shape)}; the model reads [k] for k <= "
-                        f"N = {N}, rows of shape {tuple(shape)}")
-                rows.append(v[:N + 1].reshape(N + 1, -1))
-            parts.append(torch.cat(rows, 1).reshape(-1))
-        if not parts:
-            return torch.zeros(1, dtype=dtype, device=device)
-        return torch.cat(parts).contiguous()
+                        f"{tuple(v.shape[1:])}; the model reads [k] for k "
+                        f"<= N = {N}, rows of shape {tuple(shape)}")
+                rows.append(v[:, :N + 1].reshape(n_lanes, N + 1, -1))
+            parts.append(torch.cat(rows, 2).reshape(n_lanes, -1))
+        out = (torch.cat(parts, 1) if parts else
+               torch.zeros((n_lanes, 1), dtype=dtype, device=device))
+        return (out[0] if lanes is None else out).contiguous()
 
     def library(self):
         """The kernel library of B2, B3 and emission on this model, built
@@ -941,9 +950,12 @@ def kernel_model(problem: Problem, params: Any):
     """The CUDA model kernels B2, B3 and emission run for ``problem`` and
     the library that holds them: its hand-written model (one of
     :data:`KERNEL_MODELS`, in the main library), or, when it names none, the
-    model generated from its functions (built at first use)."""
+    model generated from its functions (built at first use; per-lane params
+    generate it from one lane's)."""
     from . import _build
 
+    if isinstance(params, LaneParams):  # one lane's have the structure
+        params = {k: v[..., 0] for k, v in params.items()}
     model = problem.cuda_model
     if isinstance(model, GeneratedModel):  # restored with an AOT artifact
         _BY_NAME.setdefault(model.name, model)

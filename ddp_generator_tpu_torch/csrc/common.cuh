@@ -126,6 +126,36 @@ __host__ __device__ __forceinline__ void with_params(const T* params, F f) {
   }
 }
 
+// Per-lane parameters: lane b's are row b of a lane-major (B, ld) matrix,
+// each row the flat parameter array of one lane in model order (a
+// [k]-indexed tail included).
+template <typename T>
+struct LaneRows {
+  const T* rows;
+  long long ld;
+};
+
+// Lane b's parameters: shared ones as they are (where the kernel's
+// with_params placed them), per-lane ones from the lane's row, copied into
+// buf as with_params copies them, or (M::TAIL) read where they lie.  buf:
+// arr(M::NP) values of the caller's (registers, or shared memory).
+template <class M, typename T>
+__host__ __device__ __forceinline__ const T* params_for(const T* p,
+                                                        int /*b*/,
+                                                        T* /*buf*/) {
+  return p;
+}
+
+template <class M, typename T>
+__host__ __device__ __forceinline__ const T* params_for(
+    const LaneRows<T>& r, int b, T* buf) {
+  const T* row = r.rows + static_cast<size_t>(b) * r.ld;
+  if (M::TAIL) return row;
+#pragma unroll
+  for (int i = 0; i < M::NP; ++i) buf[i] = row[i];
+  return buf;
+}
+
 inline unsigned grid_for(long long threads, int block) {
   return static_cast<unsigned>((threads + block - 1) / block);
 }

@@ -31,12 +31,13 @@ struct EmitArgs {
   const T* mu_fi;   // (B, NHFI)
   const T* wpl;     // (B,)  derivative-time penalty weights
   const T* wpf;     // (B,)
-  const T* params;  // flat, model order (models/*.cuh)
+  const T* params;  // flat, model order (models/*.cuh); per lane: (B, ld)
   T* bundle;        // (NT, N, B)
   T* final_cx;      // (NX, B)
   T* final_cxx;     // (NX*NX, B), both halves
   bool* ok;         // (B,)
   int N, B;
+  long long params_ld;  // per-lane launches: a lane's row; unread otherwise
 };
 
 // Lane b's final terms: Fx and the mirrored Fxx of the AL-augmented final

@@ -17,7 +17,10 @@
 // thread load its operands once (ops/cuda_emit.py chooses by width).
 //
 // The model is a template parameter dispatched by name, as in
-// rollout_launch.cuh.
+// rollout_launch.cuh.  So are the params: shared by every lane (LANE
+// false: one flat array), or per lane (LANE true: a thread reads its
+// lane's row of a lane-major (B, params_ld) matrix); the shared launch
+// runs the code it ran before per-lane params existed.
 #pragma once
 
 #include <string.h>
@@ -30,18 +33,48 @@ namespace {
 
 constexpr int kEmitThreads = 128;
 
+// A lane's final terms with per-lane params read them from a copy of the
+// lane's row in shared memory: a copy in registers, or the row's pointer,
+// would stay live across the float64 trig slow path's call and spill
+// (Cartpole).  Static shared memory is capped at 48 KB a block, so a row
+// too long for kFinalRowsBytes is copied to registers instead, and a model
+// with a [k]-indexed tail (every generated model of more than 32 fixed
+// params) reads its row where it lies (params_for).  The shared launch
+// copies the one array as before.
+constexpr int kFinalRowsBytes = 32 * 1024;
+
 template <class M, typename T>
+__host__ __device__ constexpr bool final_rows_in_smem() {
+  return !M::TAIL &&
+         kEmitThreads * arr(M::NP) * static_cast<int>(sizeof(T)) <=
+             kFinalRowsBytes;
+}
+
+template <class M, typename T, bool LANE>
 __global__ void __launch_bounds__(kEmitThreads)
     emit_final_lanes(const EmitArgs<T> A) {
   const int b = blockIdx.x * kEmitThreads + threadIdx.x;
   if (b >= A.B) return;
-  with_params<M>(A.params, [&](const T* p) { emit_final<M>(A, p, b); });
+  if constexpr (!LANE) {
+    with_params<M>(A.params, [&](const T* p) { emit_final<M>(A, p, b); });
+  } else if constexpr (final_rows_in_smem<M, T>()) {
+    __shared__ T rows[kEmitThreads * arr(M::NP)];
+    emit_final<M>(A,
+                  params_for<M>(LaneRows<T>{A.params, A.params_ld}, b,
+                                rows + threadIdx.x * arr(M::NP)),
+                  b);
+  } else {
+    T buf[arr(M::NP)];
+    emit_final<M>(A, params_for<M>(LaneRows<T>{A.params, A.params_ld}, b,
+                                   buf),
+                  b);
+  }
 }
 
 // Thread i: point i % (N*B), work items g*per .. (g+1)*per-1 of it (those
 // that exist), g = i / (N*B); item-group outermost, so a warp's threads run
 // one kind of item on consecutive points.
-template <class M, typename T, bool FULL>
+template <class M, typename T, bool FULL, bool LANE>
 __global__ void __launch_bounds__(kEmitThreads)
     emit_steps(const EmitArgs<T> A, int per) {
   constexpr int K = items_per_point<M, FULL>();
@@ -51,12 +84,22 @@ __global__ void __launch_bounds__(kEmitThreads)
   const int first = static_cast<int>(i / np) * per;
   if (first >= K) return;
   const int last = first + per < K ? first + per : K;
-  with_params<M>(A.params, [&](const T* p) {
-    emit_point<M, FULL>(A, p, i % np, first, last);
-  });
+  const size_t pt = i % np;
+  if constexpr (LANE) {
+    T buf[arr(M::NP)];
+    emit_point<M, FULL>(
+        A,
+        params_for<M>(LaneRows<T>{A.params, A.params_ld},
+                      static_cast<int>(pt % A.B), buf),
+        pt, first, last);
+  } else {
+    with_params<M>(A.params, [&](const T* p) {
+      emit_point<M, FULL>(A, p, pt, first, last);
+    });
+  }
 }
 
-template <class M, typename T, bool FULL>
+template <class M, typename T, bool FULL, bool LANE>
 struct Variant {
   static constexpr int K = items_per_point<M, FULL>();
 
@@ -65,10 +108,10 @@ struct Variant {
                          (M::NHFE && !a.mu_fe) || (M::NHFI && !a.mu_fi);
     if (need_al) return kNullPointer;
     if (per < 1 || per > K) return kBadShape;
-    emit_final_lanes<M, T>
+    emit_final_lanes<M, T, LANE>
         <<<grid_for(a.B, kEmitThreads), kEmitThreads, 0, stream>>>(a);
     const long long groups = (K + per - 1) / per;
-    emit_steps<M, T, FULL>
+    emit_steps<M, T, FULL, LANE>
         <<<grid_for(groups * a.N * a.B, kEmitThreads), kEmitThreads, 0,
            stream>>>(a, per);
     return static_cast<int>(cudaGetLastError());
@@ -78,9 +121,9 @@ struct Variant {
   // of emit_final_lanes
   static int info(int* out) {
     cudaFuncAttributes fs, ff;
-    cudaError_t e = cudaFuncGetAttributes(&fs, emit_steps<M, T, FULL>);
+    cudaError_t e = cudaFuncGetAttributes(&fs, emit_steps<M, T, FULL, LANE>);
     if (e == cudaSuccess)
-      e = cudaFuncGetAttributes(&ff, emit_final_lanes<M, T>);
+      e = cudaFuncGetAttributes(&ff, emit_final_lanes<M, T, LANE>);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int v[6] = {kEmitThreads, K, fs.numRegs,
                       static_cast<int>(fs.localSizeBytes), ff.numRegs,
@@ -91,16 +134,21 @@ struct Variant {
 };
 
 template <typename T, class Models, class F>
-int visit(const char* model, bool full_ddp, F f) {
+int visit(const char* model, bool full_ddp, bool lane, F f) {
   return Models::with(model, [&](auto m) -> int {
     using M = decltype(m);
-    return full_ddp ? f(Variant<M, T, true>()) : f(Variant<M, T, false>());
+    if (lane)
+      return full_ddp ? f(Variant<M, T, true, true>())
+                      : f(Variant<M, T, false, true>());
+    return full_ddp ? f(Variant<M, T, true, false>())
+                    : f(Variant<M, T, false, false>());
   });
 }
 
+// ld: 0 for shared params, else the row length of per-lane ones.
 template <typename T, class Models>
 int launch(const char* model, bool full_ddp, int per, int N, int B,
-           void* const* p, cudaStream_t stream) {
+           long long ld, void* const* p, cudaStream_t stream) {
   EmitArgs<T> a;
   auto in = [&](int i) { return static_cast<const T*>(p[i]); };
   auto out = [&](int i) { return static_cast<T*>(p[i]); };
@@ -111,9 +159,10 @@ int launch(const char* model, bool full_ddp, int per, int N, int B,
   a.ok = static_cast<bool*>(p[12]);
   a.N = N;
   a.B = B;
+  a.params_ld = ld;
   for (int i : {0, 1, 6, 7, 8, 9, 10, 11, 12})
     if (p[i] == nullptr) return kNullPointer;
-  return visit<T, Models>(model, full_ddp, [&](auto v) {
+  return visit<T, Models>(model, full_ddp, ld > 0, [&](auto v) {
     return decltype(v)::launch(a, per, stream);
   });
 }
@@ -121,21 +170,24 @@ int launch(const char* model, bool full_ddp, int per, int N, int B,
 // The bodies of the C entry points (see emit.cu for their contract).
 template <class Models>
 int emit_entry(int dtype, const char* model, int full_ddp, int per, int N,
-               int B, void* const* ptrs, void* stream) {
-  if (N < 1 || B < 1) return kBadShape;
+               int B, long long ld, void* const* ptrs, void* stream) {
+  if (N < 1 || B < 1 || ld < 0) return kBadShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool full = full_ddp != 0;
   if (dtype == 0)
-    return launch<float, Models>(model, full_ddp != 0, per, N, B, ptrs, s);
+    return launch<float, Models>(model, full, per, N, B, ld, ptrs, s);
   if (dtype == 1)
-    return launch<double, Models>(model, full_ddp != 0, per, N, B, ptrs, s);
+    return launch<double, Models>(model, full, per, N, B, ld, ptrs, s);
   return kBadDtype;
 }
 
+// The shared-params instantiation's.
 template <class Models>
 int emit_info_entry(int dtype, const char* model, int full_ddp, int* out) {
   auto info = [&](auto v) { return decltype(v)::info(out); };
-  if (dtype == 0) return visit<float, Models>(model, full_ddp != 0, info);
-  if (dtype == 1) return visit<double, Models>(model, full_ddp != 0, info);
+  const bool full = full_ddp != 0;
+  if (dtype == 0) return visit<float, Models>(model, full, false, info);
+  if (dtype == 1) return visit<double, Models>(model, full, false, info);
   return kBadDtype;
 }
 

@@ -6,9 +6,10 @@
 #include "one_model.cuh"
 
 extern "C" int ddp_emit(int dtype, const char* model, int full_ddp, int per,
-                        int N, int B, void* const* ptrs, void* stream) {
-  return ddp::emit_entry<ddp::Models>(dtype, model, full_ddp, per, N, B, ptrs,
-                                      stream);
+                        int N, int B, long long params_ld, void* const* ptrs,
+                        void* stream) {
+  return ddp::emit_entry<ddp::Models>(dtype, model, full_ddp, per, N, B,
+                                      params_ld, ptrs, stream);
 }
 
 extern "C" int ddp_emit_info(int dtype, const char* model, int full_ddp,

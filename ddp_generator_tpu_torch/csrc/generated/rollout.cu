@@ -7,9 +7,10 @@
 
 extern "C" int ddp_rollout(int dtype, const char* model, int multi,
                            int want_cost, int N, int B, int A, int block,
-                           void* const* ptrs, void* stream) {
+                           long long params_ld, void* const* ptrs,
+                           void* stream) {
   return ddp::rollout_entry<ddp::Models>(dtype, model, multi, want_cost, N, B,
-                                         A, block, ptrs, stream);
+                                         A, block, params_ld, ptrs, stream);
 }
 
 extern "C" int ddp_rollout_info(int dtype, const char* model, int multi,

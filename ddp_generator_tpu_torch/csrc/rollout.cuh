@@ -43,7 +43,7 @@ struct RolloutArgs {
   const T* mu_fe;  // (NHFE, B)
   const T* mu_fi;  // (NHFI, B)
   const T* alpha;  // MULTI: the (A,) schedule; selected: (1, B) per lane
-  const T* params; // flat, model order (models/*.cuh)
+  const T* params; // flat, model order (models/*.cuh); per lane: (B, ld)
   T* cost;         // MULTI: (A, B); selected + WANT_COST: (1, B)
   bool* ok;        // same shape as cost
   T* xs;           // (N, NX, B)   selected only
@@ -53,6 +53,9 @@ struct RolloutArgs {
   // device int that is 0 when no live lane needs this rollout.
   const int* run;
   int N, B, A;
+  // per-lane launches (rollout_kernel<..., LANE = true, ...>): the length
+  // of a lane's row of params (common.cuh: LaneRows); unread otherwise
+  long long params_ld;
 };
 
 // A rollout whose stage flag is 0 reads and writes nothing: every block
@@ -333,9 +336,11 @@ __host__ __device__ __forceinline__ Chain chain_of(int c, int b0, int a0,
 // The cost warps' work items of one finished tile: one per (step, chain),
 // this caller taking items first, first + stride, ...: the running cost
 // c_k and its finiteness with x_{k+1}'s, into cbuf/okbuf [step][chain].
-template <class M, typename T, int S, int NCH>
+// pp: the shared params (const T*) or the per-lane rows (LaneRows<T>), an
+// item reading its chain's lane's (params_for).
+template <class M, typename T, int S, int NCH, class PP>
 __host__ __device__ __forceinline__ void cost_items(
-    const RolloutArgs<T>& A, const T* p, const T* out, int n, int k0, int b0,
+    const RolloutArgs<T>& A, PP pp, const T* out, int n, int k0, int b0,
     int a0, int na, T* cbuf, bool* okbuf, int first, int stride) {
   using O = OutSlot<M, S, NCH>;
   const int nch = kRolloutLanes * na;
@@ -346,7 +351,8 @@ __host__ __device__ __forceinline__ void cost_items(
   while (s < n) {
     const Chain ch = chain_of(c, b0, a0, na, A.B);
     if (ch.live) {
-      T x[M::NX], xn[M::NX], u[M::NU], ck;
+      T x[M::NX], xn[M::NX], u[M::NU], ck, buf[arr(M::NP)];
+      const T* p = params_for<M>(pp, ch.b, buf);
 #pragma unroll
       for (int a = 0; a < M::NX; ++a) {
         x[a] = out[O::x(a, s, c)];

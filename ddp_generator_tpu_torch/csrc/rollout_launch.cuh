@@ -40,6 +40,13 @@
 //    alphas, all reading one copy of the lane's tile.
 // After the last tile the chain thread adds the final cost.
 //
+// Parameters: shared by every lane (LANE false: one flat array, copied to
+// each thread's registers once), or per lane (LANE true: row b of a
+// lane-major (B, params_ld) matrix, common.cuh's LaneRows): a chain thread
+// copies its lane's row once, a cost item and the final cost read their
+// chain's lane's.  The two are separate instantiations, so the shared
+// launch runs the code it ran before per-lane params existed.
+//
 // Semantics (pallas_rollout.py:_make_rollout_kernel, ops/forward.py):
 // u = u_nom + alpha*l + L*dx, exactly u_nom when alpha == 0; sequential
 // clamping in constraint order, every limit from the unclamped u; the
@@ -85,9 +92,10 @@ struct Shape {
       32 * block_warps(MULTI ? kAlphaChunk : 1);
 };
 
-template <class M, typename T, bool MULTI, bool WANT_COST>
+// pp: the shared params (const T*) or the per-lane rows (LaneRows<T>).
+template <class M, typename T, bool MULTI, bool WANT_COST, class PP>
 __device__ __forceinline__ void rollout_block(const RolloutArgs<T>& A,
-                                              const T* p) {
+                                              PP pp) {
   using Sh = Shape<M, T, MULTI, WANT_COST>;
   constexpr int S = Sh::S, NCH = Sh::NCH, G = kRolloutLanes;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -119,6 +127,10 @@ __device__ __forceinline__ void rollout_block(const RolloutArgs<T>& A,
   const Chain ch = chain_of(c, b0, a0, na, A.B);
   const bool mine = warp < cw && ch.live;
   T x[M::NX];
+  // a chain's lane's params (a chain past the batch's edge reads the
+  // block's first lane's)
+  T buf[arr(M::NP)];
+  const T* p = params_for<M>(pp, mine ? ch.b : b0, buf);
   if (warp < cw) {
     T alpha = T(0);
     if (mine) {
@@ -142,8 +154,8 @@ __device__ __forceinline__ void rollout_block(const RolloutArgs<T>& A,
       const int n = tile_len(A.N, S, j), k0 = tile_k0(S, j);
       if (!MULTI) store_tile<M, T, S, NCH>(A, o, n, k0, b0, t, cost_threads);
       if (Sh::COST) {
-        cost_items<M, T, S, NCH>(A, p, o, n, k0, b0, a0, na, cbuf, okbuf, t,
-                                 cost_threads);
+        cost_items<M, T, S, NCH>(A, pp, o, n, k0, b0, a0, na, cbuf, okbuf,
+                                 t, cost_threads);
         __syncwarp();
         bar_sync(kCostBarrier, cost_threads);
         cost_sum<T, NCH>(cbuf, okbuf, n, nch, c_acc, ok_acc, t,
@@ -163,24 +175,32 @@ __device__ __forceinline__ void rollout_block(const RolloutArgs<T>& A,
                                            ok_acc[c]);
 }
 
-template <class M, typename T, bool MULTI, bool WANT_COST>
+// LANE: per-lane params (A.params lane-major, A.params_ld a row); MULTI and
+// WANT_COST stay the last two template arguments (the benchmark's trace
+// reader tells the modes apart by them).
+template <class M, typename T, bool LANE, bool MULTI, bool WANT_COST>
 __global__ void __launch_bounds__(Shape<M, T, MULTI, WANT_COST>::kMaxThreads,
                                   1)
     rollout_kernel(const RolloutArgs<T> A) {
   if (rollout_skipped(A)) return;  // the whole block: before any barrier
-  with_params<M>(A.params, [&](const T* p) {
-    rollout_block<M, T, MULTI, WANT_COST>(A, p);
-  });
+  if constexpr (LANE) {
+    rollout_block<M, T, MULTI, WANT_COST>(A,
+                                          LaneRows<T>{A.params, A.params_ld});
+  } else {
+    with_params<M>(A.params, [&](const T* p) {
+      rollout_block<M, T, MULTI, WANT_COST>(A, p);
+    });
+  }
 }
 
 // One instantiation: its launch and its attributes.
-template <class M, typename T, bool MULTI, bool WANT_COST>
+template <class M, typename T, bool LANE, bool MULTI, bool WANT_COST>
 struct Variant {
   using Model = M;
   using Sh = Shape<M, T, MULTI, WANT_COST>;
 
   static int launch(const RolloutArgs<T>& a, cudaStream_t stream) {
-    const auto kernel = rollout_kernel<M, T, MULTI, WANT_COST>;
+    const auto kernel = rollout_kernel<M, T, LANE, MULTI, WANT_COST>;
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -193,8 +213,8 @@ struct Variant {
 
   static int info(int* out) {
     cudaFuncAttributes fa;
-    const cudaError_t e =
-        cudaFuncGetAttributes(&fa, rollout_kernel<M, T, MULTI, WANT_COST>);
+    const cudaError_t e = cudaFuncGetAttributes(
+        &fa, rollout_kernel<M, T, LANE, MULTI, WANT_COST>);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int v[6] = {kRolloutLanes, Sh::S, Sh::kMaxThreads / 32, Sh::kSmem,
                       fa.numRegs, static_cast<int>(fa.localSizeBytes)};
@@ -204,26 +224,29 @@ struct Variant {
 };
 
 // f(Variant<...>()) for model M in the given mode.
-template <class M, typename T, class F>
+template <class M, typename T, bool LANE, class F>
 int modes(bool multi, bool want_cost, F f) {
-  if (multi) return f(Variant<M, T, true, true>());
-  if (want_cost) return f(Variant<M, T, false, true>());
-  return f(Variant<M, T, false, false>());
+  if (multi) return f(Variant<M, T, LANE, true, true>());
+  if (want_cost) return f(Variant<M, T, LANE, false, true>());
+  return f(Variant<M, T, LANE, false, false>());
 }
 
-// f(Variant<...>()) for the instantiated model and mode: Models::with(name,
-// g) calls g(M()) for the model of that name and returns kBadVariant for
-// any other.
+// f(Variant<...>()) for the instantiated model, params and mode:
+// Models::with(name, g) calls g(M()) for the model of that name and
+// returns kBadVariant for any other.
 template <typename T, class Models, class F>
-int visit(const char* model, bool multi, bool want_cost, F f) {
+int visit(const char* model, bool lane, bool multi, bool want_cost, F f) {
   return Models::with(model, [&](auto m) -> int {
-    return modes<decltype(m), T>(multi, want_cost, f);
+    using M = decltype(m);
+    return lane ? modes<M, T, true>(multi, want_cost, f)
+                : modes<M, T, false>(multi, want_cost, f);
   });
 }
 
+// ld: 0 for shared params, else the row length of per-lane ones.
 template <typename T, class Models>
 int launch(const char* model, bool multi, bool want_cost, int N, int B,
-           int A, void* const* p, cudaStream_t stream) {
+           int A, long long ld, void* const* p, cudaStream_t stream) {
   RolloutArgs<T> a;
   auto in = [&](int i) { return static_cast<const T*>(p[i]); };
   auto out = [&](int i) { return static_cast<T*>(p[i]); };
@@ -238,11 +261,12 @@ int launch(const char* model, bool multi, bool want_cost, int N, int B,
   a.N = N;
   a.B = B;
   a.A = A;
+  a.params_ld = ld;
   for (int i : {0, 1, 2, 3, 6, 7, 8, 11, 12})
     if (p[i] == nullptr) return kNullPointer;
   if ((multi || want_cost) && (!a.cost || !a.ok)) return kNullPointer;
   if (!multi && (!a.xs || !a.xf || !a.us)) return kNullPointer;
-  return visit<T, Models>(model, multi, want_cost, [&](auto v) {
+  return visit<T, Models>(model, ld > 0, multi, want_cost, [&](auto v) {
     using M = typename decltype(v)::Model;
     const bool need_al = (M::NHLE && !a.mu_le) || (M::NHLI && !a.mu_li) ||
                          (M::NHFE && !a.mu_fe) || (M::NHFI && !a.mu_fi);
@@ -251,30 +275,32 @@ int launch(const char* model, bool multi, bool want_cost, int N, int B,
   });
 }
 
-// The bodies of the C entry points (see rollout.cu for their contract).
+// The bodies of the C entry points (see rollout.cu for their contract);
+// ld: 0 for shared params, else the row length of per-lane ones.
 template <class Models>
 int rollout_entry(int dtype, const char* model, int multi, int want_cost,
-                  int N, int B, int A, int block, void* const* ptrs,
-                  void* stream) {
-  if (N < 1 || B < 1 || A < 1 || block < 1 || block > 1024) return kBadShape;
+                  int N, int B, int A, int block, long long ld,
+                  void* const* ptrs, void* stream) {
+  if (N < 1 || B < 1 || A < 1 || block < 1 || block > 1024 || ld < 0)
+    return kBadShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float, Models>(model, multi != 0, want_cost != 0, N, B, A,
-                                 ptrs, s);
+                                 ld, ptrs, s);
   if (dtype == 1)
     return launch<double, Models>(model, multi != 0, want_cost != 0, N, B, A,
-                                  ptrs, s);
+                                  ld, ptrs, s);
   return kBadDtype;
 }
 
+// The shared-params instantiation's.
 template <class Models>
 int rollout_info_entry(int dtype, const char* model, int multi,
                        int want_cost, int* out) {
   auto info = [&](auto v) { return decltype(v)::info(out); };
-  if (dtype == 0)
-    return visit<float, Models>(model, multi != 0, want_cost != 0, info);
-  if (dtype == 1)
-    return visit<double, Models>(model, multi != 0, want_cost != 0, info);
+  const bool m = multi != 0, c = want_cost != 0;
+  if (dtype == 0) return visit<float, Models>(model, false, m, c, info);
+  if (dtype == 1) return visit<double, Models>(model, false, m, c, info);
   return kBadDtype;
 }
 

@@ -8,6 +8,9 @@ nothing): ``cuda_backpass.back_pass_cm`` (B1),
 kernel path's emission, its two launches counted as one).
 ``cuda_rollout.initial_rollout`` counts ``init_rollout``, the solver's
 initial rollout run as one of B2's selected rollouts (also counted there).
+A launch of the emission kernel or of B2 that reads per-lane params
+(:class:`~.problem.LaneParams`) counts once more, as ``emit_lane_params`` or
+``rollout_lane_params``, under the same rule as its own count.
 This module holds every count and imports no wrapper; :func:`read_launches`
 is the one reader.
 
@@ -56,7 +59,7 @@ import contextlib
 import torch
 
 KERNELS = ("backpass", "fused", "rollout_multi", "rollout_selected", "emit",
-           "init_rollout")
+           "init_rollout", "emit_lane_params", "rollout_lane_params")
 _DEVICE: dict = {}  # torch.device -> int64 (len(KERNELS),) counts
 _ON_HOST = dict.fromkeys(KERNELS, 0)  # eager unconditional launches
 
@@ -246,8 +249,9 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     """``{"backpass", "fused", "rollout_multi", "rollout_selected",
-    "emit", "init_rollout"}``: launches since the last
-    :func:`reset_launches`, host and device counts together."""
+    "emit", "init_rollout", "emit_lane_params", "rollout_lane_params"}``:
+    launches since the last :func:`reset_launches`, host and device counts
+    together."""
     out = dict(_ON_HOST)
     for t in _DEVICE.values():
         for k, v in zip(KERNELS, t.tolist()):

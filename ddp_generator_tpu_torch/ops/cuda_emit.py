@@ -20,9 +20,11 @@ The bundle is one ``(NT, N, B)`` allocation (``staged.cuh``'s ``Terms``
 order, ``u`` last) whose keys are views.
 
 :func:`emit` takes :func:`.cm_derivs.cm_emit` (the plain version) for CPU
-tensors and launches the kernel, or raises, for CUDA tensors.  Shared params
-only: the model headers read one flat param vector, so per-lane params
-(:class:`~..problem.LaneParams`) keep the torch emitter.
+tensors and launches the kernel, or raises, for CUDA tensors.  Params are
+shared, one flat array every thread copies, or per lane
+(:class:`~..problem.LaneParams`): a lane-major matrix, each thread copying
+its lane's row (:func:`lane_operand`), in an instantiation of its own, so
+the shared launch is unchanged.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from typing import Any
 import torch
 
 from .. import _build, codegen, launches
-from ..problem import LaneParams, Problem
+from ..problem import Problem
 from .cm_derivs import cm_emit
 from .cuda_backpass import _BUNDLE_KEYS, _bundle_shapes
 
@@ -59,6 +61,19 @@ def items_per_thread(N: int, B: int, items: int) -> int:
     return items if N * B >= WHOLE_POINT_FROM else 1
 
 
+def lane_operand(model, params, dtype, device, N: int):
+    """The params operand of a launch and its row length: the flat array
+    and 0 for shared params, the lane-major ``(B, P)`` matrix and ``P`` for
+    per-lane ones (:attr:`~..problem.LaneParams.rows`).  A solver makes the
+    rows once and refuses per-lane params without them; only a direct
+    caller of the wrappers may leave them out, and then every launch makes
+    them from the leaves (a few more kernels each)."""
+    rows = getattr(params, "rows", None)
+    if rows is None:
+        rows = model.flat_params(params, dtype, device, N)
+    return rows, (rows.shape[1] if rows.dim() == 2 else 0)
+
+
 def emit(problem: Problem, xs, us, mu_le, mu_li, mu_fe, mu_fi, w_pen_l,
          w_pen_f, params: Any, full_ddp: bool, shared: bool = False,
          when: Tensor | None = None, per: int | None = None):
@@ -68,18 +83,16 @@ def emit(problem: Problem, xs, us, mu_le, mu_li, mu_fe, mu_fi, w_pen_l,
     CPU tensors run :func:`.cm_derivs.cm_emit` (``shared`` picks its torch
     emitter there, and only there).  CUDA tensors launch the emission
     kernel on the problem's CUDA model and count it as B1's wrapper does
-    (``when`` the same predicate); ``per`` overrides
-    :func:`items_per_thread`.  Per-lane params, another device, a dtype
-    other than float32/64 or operands of the wrong shape raise."""
+    (``when`` the same predicate), with per-lane params also as
+    ``emit_lane_params``; ``per`` overrides :func:`items_per_thread`.
+    Another device, a dtype other than float32/64 or operands of the wrong
+    shape raise."""
     dev = us.device
     if dev.type == "cpu":
         return cm_emit(problem, xs, us, mu_le, mu_li, mu_fe, mu_fi, w_pen_l,
                        w_pen_f, params, full_ddp, shared)
     if dev.type != "cuda":
         raise ValueError(f"emit: unsupported device {dev}")
-    if isinstance(params, LaneParams):
-        raise ValueError("emit: per-lane params take cm_emit (the CUDA "
-                         "models read one shared param vector)")
     dtype = us.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"emit: dtype {dtype} is not float32/64")
@@ -109,19 +122,24 @@ def emit(problem: Problem, xs, us, mu_le, mu_li, mu_fe, mu_fi, w_pen_l,
     final_cx = torch.empty((n_x, B), dtype=dtype, device=dev)
     final_cxx = torch.empty((n_x * n_x, B), dtype=dtype, device=dev)
     ok = torch.empty((B,), dtype=torch.bool, device=dev)
+    p_op, ld = lane_operand(model, params, dtype, dev, N)
+    if ld and tuple(p_op.shape[:1]) != (B,):
+        raise ValueError(f"emit: per-lane params of {p_op.shape[0]} lanes "
+                         f"for {B}")
     inputs = [xs.contiguous(), us.contiguous()] + [
         a.contiguous() if n else None
         for a, n in zip((mu_le, mu_li, mu_fe, mu_fi), fam)] + [
-        w_pen_l.contiguous(), w_pen_f.contiguous(),
-        model.flat_params(params, dtype, dev, N)]
+        w_pen_l.contiguous(), w_pen_f.contiguous(), p_op]
     ptrs = _build.pointer_array(inputs + [bundle, final_cx, final_cxx, ok])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ddp_emit(0 if dtype == torch.float32 else 1,
-                          model.name.encode(), int(full_ddp), per, N, B,
+                          model.name.encode(), int(full_ddp), per, N, B, ld,
                           ptrs, stream)
     _build.check(lib, rc, "emit")
     launches.count("emit", dev, when)
+    if ld:
+        launches.count("emit_lane_params", dev, when)
     *parts, us_cm = bundle.split(sizes)
     return dict(zip(_BUNDLE_KEYS, parts)), final_cx, final_cxx, us_cm, ok
 
@@ -129,7 +147,7 @@ def emit(problem: Problem, xs, us, mu_le, mu_li, mu_fe, mu_fi, w_pen_l,
 def kernel_info(model: str, full_ddp: bool, dtype: torch.dtype) -> dict:
     """Threads a block, work items a point, and the registers and local
     bytes a thread of the step kernel (``steps_*``) and of the final kernel
-    (``final_*``) of one instantiation; ``model`` a name of
+    (``final_*``) of one instantiation (shared params); ``model`` a name of
     :data:`..codegen.KERNEL_MODELS` or of a generated model.  Builds the
     library; needs a CUDA device."""
     lib = codegen.library_of(model)

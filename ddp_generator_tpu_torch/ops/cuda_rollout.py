@@ -41,6 +41,12 @@ expression is the one-thread reference's (``rollout.cuh: rollout_lane``),
 in its order; ``tests/test_torch_rollout_host.py`` holds the staged
 schedule against it on the host, bit for bit.
 
+Params are shared, one flat array every thread copies, or per lane
+(:class:`~..problem.LaneParams`): a lane-major matrix whose row ``b`` a
+chain of lane ``b`` copies and its cost items and final cost read, in an
+instantiation of its own (``rollout_kernel<M, T, true, MULTI,
+WANT_COST>``), so the shared launch is unchanged.
+
 The plain PyTorch version is :func:`rollout_plain`; :func:`rollout_call`
 takes it for CPU tensors only.
 
@@ -62,6 +68,7 @@ import torch
 from .. import _build, codegen, launches
 from ..al import _eq_penalty, _ineq_penalty
 from ..problem import Problem
+from .cuda_emit import lane_operand
 from .forward import Rollout
 from .linesearch import LineSearchResult, first_accept
 
@@ -183,7 +190,8 @@ def rollout_call(problem: Problem, alphas, xnom_cm, unom_cm, l_cm, L_cm,
     ``unom_cm (N, n_u, B)``, ``l_cm (N, n_u, B)``, ``L_cm (N, n_u*n_x, B)``,
     ``mu_le_cm (N, n_hle, B)``, ``x0_cm (n_x, B)``, ``w_pen_* (1, B)``,
     ``mu_fe_cm (n_hfe, B)``, ``alpha_vec (1, B)`` (selected mode only);
-    ``params`` a dict of tensors.
+    ``params`` a dict of tensors, shared, or per lane a
+    :class:`~..problem.LaneParams` of ``B`` lanes.
 
     Returns ``(costs (A, B), ok (A, B) bool)`` when ``multi``, else
     ``(xs (N, n_x, B), xf (n_x, B), us (N, n_u, B))`` plus
@@ -191,7 +199,8 @@ def rollout_call(problem: Problem, alphas, xnom_cm, unom_cm, l_cm, L_cm,
 
     CPU tensors run :func:`rollout_plain`; CUDA tensors launch kernel B2 and
     count it (:func:`..launches.count`: on the host, or on the device, the
-    flag's value, with ``run`` or inside a capture)."""
+    flag's value, with ``run`` or inside a capture), with per-lane params
+    also as ``rollout_lane_params``."""
     dev = xnom_cm.device
     if dev.type == "cpu":
         return rollout_plain(problem, alphas, xnom_cm, unom_cm, l_cm, L_cm,
@@ -238,7 +247,10 @@ def rollout_call(problem: Problem, alphas, xnom_cm, unom_cm, l_cm, L_cm,
         raise TypeError(f"run: {run.numel()} {run.dtype} on {run.device}, "
                         f"want one int32 on {dev}")
     model, lib = codegen.kernel_model(problem, params)
-    p_flat = model.flat_params(params, dtype, dev, N)
+    p_op, ld = lane_operand(model, params, dtype, dev, N)
+    if ld and tuple(p_op.shape[:1]) != (B,):
+        raise ValueError(f"rollout_call: per-lane params of "
+                         f"{p_op.shape[0]} lanes for {B}")
 
     def opt_t(t, n):
         return t if n else None
@@ -258,16 +270,18 @@ def rollout_call(problem: Problem, alphas, xnom_cm, unom_cm, l_cm, L_cm,
         xnom_cm, unom_cm, l_cm, L_cm, opt_t(mu_le_cm, problem.n_hle),
         opt_t(mu_li_cm, problem.n_hli), x0_cm, w_pen_l, w_pen_f,
         opt_t(mu_fe_cm, problem.n_hfe), opt_t(mu_fi_cm, problem.n_hfi),
-        alpha_t, p_flat, cost, ok, xs, xf, us, run,
+        alpha_t, p_op, cost, ok, xs, xf, us, run,
     ])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ddp_rollout(
             0 if dtype == torch.float32 else 1, model.name.encode(),
-            int(multi), int(want_cost), N, B, A, BLOCK, ptrs, stream)
+            int(multi), int(want_cost), N, B, A, BLOCK, ld, ptrs, stream)
     _build.check(lib, rc, "rollout")
     launches.count("rollout_multi" if multi else "rollout_selected", dev,
                    run)
+    if ld:
+        launches.count("rollout_lane_params", dev, run)
     if multi:
         return cost, ok
     if want_cost:
@@ -277,12 +291,12 @@ def rollout_call(problem: Problem, alphas, xnom_cm, unom_cm, l_cm, L_cm,
 
 def kernel_info(model: str, dtype: torch.dtype, multi: bool,
                 want_cost: bool = False) -> dict:
-    """Tile shape and resources of one instantiation of kernel B2, as
-    :func:`.cuda_backpass.kernel_info`: lanes per block ``G``, steps per
-    tile ``S``, warps of a block ``W`` (chain, producer and cost warps
-    together), dynamic shared memory per block, registers and local memory
-    per thread; ``model`` a CUDA model name (hand-written or generated).
-    Builds the library; needs a CUDA device."""
+    """Tile shape and resources of one instantiation of kernel B2 (shared
+    params), as :func:`.cuda_backpass.kernel_info`: lanes per block ``G``,
+    steps per tile ``S``, warps of a block ``W`` (chain, producer and cost
+    warps together), dynamic shared memory per block, registers and local
+    memory per thread; ``model`` a CUDA model name (hand-written or
+    generated).  Builds the library; needs a CUDA device."""
     lib = codegen.library_of(model)
     out = (ctypes.c_int * 6)()
     rc = lib.ddp_rollout_info(0 if dtype == torch.float32 else 1,
@@ -357,8 +371,9 @@ def initial_rollout(problem, x0, u0, params, mult, w_pen_l,
     bit).  ``x0 (B, n_x)``, ``u0 (B, N, n_u)``, ``mult`` the
     :class:`~..al.Multipliers`, ``w_pen_* (B,)``.  At alpha 0 the kernel
     reads ``x_nom``, ``l`` and ``L`` but uses none of them: they are views
-    of one zero buffer.  Counted as ``init_rollout`` (:mod:`..launches`)
-    beside the launch's own ``rollout_selected``."""
+    of one zero buffer.  ``params`` shared, or per lane as
+    :func:`rollout_call` takes them.  Counted as ``init_rollout``
+    (:mod:`..launches`) beside the launch's own ``rollout_selected``."""
     B, N, n_u = u0.shape
     n_x = x0.shape[1]
     dev = u0.device

@@ -84,11 +84,11 @@ class SolverOptions:
     # ops/backpass.py (boxQP ops/boxqp.py, MOD_CHOL ops/chol.py), on either
     # device.  "kernel": derivative emission, then the whole backward pass
     # as one hand-written CUDA kernel (B1, ops/cuda_backpass.py) on a CUDA
-    # device, its plain PyTorch version on the CPU.  On a CUDA device with
-    # shared params the emission is a CUDA kernel on the problem's CUDA
-    # model (ops/cuda_emit.py), hand-written or generated (codegen.py), so
-    # a problem the generator cannot write raises NotImplementedError
-    # there, as with "fused".  "fused": derivatives
+    # device, its plain PyTorch version on the CPU.  On a CUDA device the
+    # emission is a CUDA kernel on the problem's CUDA model
+    # (ops/cuda_emit.py), hand-written or generated (codegen.py), with
+    # shared or per-lane params, so a problem the generator cannot write
+    # raises NotImplementedError there, as with "fused".  "fused": derivatives
     # and backward pass in one CUDA kernel (B3, ops/cuda_fused.py).
     # "parallel": the associative-scan backward pass of
     # ops/parallel_riccati.py on the step-major derivatives (unconstrained
@@ -96,7 +96,9 @@ class SolverOptions:
     backpass_method: str = "serial"
     # "serial": every alpha rolled out by ops/forward.py at once
     # (ops/linesearch.py).  "kernel": the multi-alpha line search as the two
-    # rollout modes of the hand-written CUDA kernel (B2, ops/cuda_rollout.py).
+    # rollout modes of the hand-written CUDA kernel (B2, ops/cuda_rollout.py),
+    # with shared or per-lane params (per-lane params on the "fused" path
+    # take "serial").
     linesearch_method: str = "serial"
     # Staged kernel line search: roll alpha[0] first, the full sweep only
     # when some live lane rejects it.  Per-lane results are identical.
@@ -108,9 +110,9 @@ class SolverOptions:
     # The torch emitter of the "kernel" path's bundle (ops/cm_derivs.py):
     # "per-family" (one reverse pass per output) or "shared" (one trace of
     # f and L).  It selects among the torch emitters only, so it acts on
-    # the CPU with shared params: on a CUDA device with shared params the
-    # bundle comes from the emission kernel (ops/cuda_emit.py), and per-lane
-    # params always take "per-family".
+    # the CPU with shared params: on a CUDA device the bundle comes from the
+    # emission kernel (ops/cuda_emit.py), and per-lane params on the CPU
+    # always take "per-family".
     derivs_emitter: str = "per-family"
     scan_unroll: int = 1
     use_mod_chol: bool = False

@@ -23,7 +23,10 @@ Per-lane parameters (``batch_params=True``) reach the functions as a
 axis of ``x[0]`` exactly as the shared 0-d value does.  On the ``(N, B)``
 plane the step ``k`` is an ``(N, 1)`` tensor in both layouts
 (:func:`step_index`); indexing a per-lane leaf with it, ``p["ymin"][k]``,
-gives ``(N, B)``, as the shared ``(N + 1,)`` leaf gives ``(N, 1)``.
+gives ``(N, B)``, as the shared ``(N + 1,)`` leaf gives ``(N, 1)``.  The
+kernels read per-lane params as one lane-major matrix, each row a lane's
+flat parameter array (:meth:`CudaModel.flat_params`), which a solver makes
+once and carries beside the leaves (:attr:`LaneParams.rows`).
 
 A problem may name the hand-written CUDA model that mirrors its functions
 (:class:`CudaModel`): the kernels cannot trace Python, so on a CUDA device
@@ -67,12 +70,24 @@ class BoxConstraint:
 class LaneParams(dict):
     """Per-lane parameters: every leaf lanes-last, ``(*leaf_shape, B)``
     (the solver casts the JAX convention's batch-major ``(B, *leaf_shape)``
-    leaves once, :func:`lanes_last`)."""
+    leaves once, :func:`lanes_last`).
+
+    ``rows``: the same params as the kernels read them, the lane-major
+    ``(B, P)`` matrix of the problem's CUDA model
+    (:meth:`CudaModel.flat_params`), where a solver made it (None: a kernel
+    launch makes it from the leaves).  Whoever changes the leaves in place
+    changes ``rows`` with them; :meth:`take` and the solver's copies carry
+    it along."""
+
+    rows: Optional[Tensor] = None
 
     def take(self, idx: Tensor) -> "LaneParams":
         """The lanes ``idx`` of every leaf (a working set, or the alpha-major
-        replication of the line search)."""
-        return LaneParams({k: v[..., idx] for k, v in self.items()})
+        replication of the line search), and of ``rows``."""
+        out = LaneParams({k: v[..., idx] for k, v in self.items()})
+        if self.rows is not None:
+            out.rows = self.rows[idx]
+        return out
 
 
 def lanes_last(params: dict, B: int) -> LaneParams:
@@ -143,21 +158,33 @@ class CudaModel:
     def flat_params(self, p: dict, dtype: torch.dtype,
                     device: torch.device, N: Optional[int] = None) -> Tensor:
         """The flat parameter array for a horizon of ``N`` steps (``N`` is
-        needed only by a :data:`PER_STEP` entry)."""
+        needed only by a :data:`PER_STEP` entry); for :class:`LaneParams`
+        the lane-major ``(B, P)`` matrix whose row ``b`` is lane ``b``'s."""
+        lanes = lane_count(p)
         parts = []
         for key, n in self.param_order:
             if n == PER_STEP and N is None:
                 raise ValueError(f"CUDA model {self.name}: param {key!r} "
                                  "has one entry per step; pass N")
             want = N + 1 if n == PER_STEP else n
-            v = torch.as_tensor(p[key], dtype=dtype, device=device).reshape(-1)
-            if v.numel() != want:
+            v = torch.as_tensor(p[key], dtype=dtype, device=device)
+            v = v.reshape(-1) if lanes is None else v.reshape(-1, lanes).T
+            if v.shape[-1] != want:
                 raise ProblemValidationError(
-                    f"CUDA model {self.name}: param {key!r} has {v.numel()} "
-                    f"entries, the model reads {want}"
+                    f"CUDA model {self.name}: param {key!r} has "
+                    f"{v.shape[-1]} entries{'' if lanes is None else ' a lane'}"
+                    f", the model reads {want}"
                 )
             parts.append(v)
-        return torch.cat(parts).contiguous()
+        return torch.cat(parts, -1).contiguous()
+
+
+def lane_count(p) -> Optional[int]:
+    """The lanes of per-lane params (:class:`LaneParams`), None for shared
+    ones (or per-lane ones without a leaf)."""
+    if not isinstance(p, LaneParams) or not p:
+        return None
+    return next(iter(p.values())).shape[-1]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -32,11 +32,12 @@ graphed or eager (:func:`.ops.device_loop.eager_loops`).
 
 ``batch_params=True`` gives every lane its own params (the JAX convention:
 each leaf ``(B, *leaf_shape)``), cast once to lanes-last
-:class:`~.problem.LaneParams`.  As in the JAX package, the kernels that read
-one flat shared param vector are then bypassed: ``"fused"`` takes the serial
-derivatives and backward pass, the kernel line search the serial one;
-``"kernel"`` keeps B1 (it reads no params) after the torch emitter
-(``ops/cm_derivs.py``) in the emission kernel's place.
+:class:`~.problem.LaneParams`.  The emission kernel and kernel B2 read them
+as a lane-major matrix (:attr:`~.problem.LaneParams.rows`, made once a
+solve on a card and gathered with each compaction), so ``"kernel"`` keeps
+emission, B1 and B2 (line search and initial rollout), as with shared
+params.  B3 reads one shared param vector: ``"fused"`` takes the serial
+derivatives, backward pass and line search, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ from .derivs import batched_calc_derivs
 from .ops.backpass import back_pass
 from .ops.boxqp import BoxQPHyper
 from .ops import cuda_backpass, cuda_emit, device_loop
-from .ops.cm_derivs import cm_back_pass_from_bundle, cm_emit
+from .ops.cm_derivs import cm_back_pass_from_bundle
 from .ops.cuda_fused import fused_derivs_back_pass
 from .ops.cuda_rollout import (
     initial_rollout,
@@ -147,18 +148,33 @@ def _graphable(problem: Problem, o: SolverOptions) -> bool:
 
 
 def _line_search_of(o: SolverOptions, batch_params: bool) -> str:
-    """The line search a solve runs: kernel B2 reads one flat shared param
-    vector, so per-lane params take the serial one
+    """The line search a solve runs: the options', but per-lane params on
+    the fused path, which fall back to the serial derivatives and backward
+    pass (B3 reads one shared param vector), take the serial one too
     (jax:solver.py:458-462)."""
-    return "serial" if batch_params else o.linesearch_method
+    if batch_params and o.backpass_method == "fused":
+        return "serial"
+    return o.linesearch_method
+
+
+def _check_kernels(device, o: SolverOptions, batch_params: bool) -> None:
+    """``require_kernels``: on a CUDA device, raise where a torch route
+    would run in place of a kernel the options name.  Today that is
+    per-lane params on the fused path (see :func:`_line_search_of`)."""
+    if (torch.device(device).type == "cuda" and batch_params
+            and o.backpass_method == "fused"):
+        raise NotImplementedError(
+            "require_kernels: per-lane params on the fused path run the "
+            "serial derivatives, backward pass and line search (B3 reads "
+            "one shared param vector)")
 
 
 def _init_on_b2(device, o: SolverOptions, batch_params: bool) -> bool:
     """Does ``init_fn`` roll the initial trajectory on kernel B2
     (:func:`.ops.cuda_rollout.initial_rollout`)?  Where B2 rolls the line
-    search: a CUDA device, the kernel line search and shared params, so
-    that a solve builds every trajectory it holds with one piece of code.
-    Elsewhere :func:`.ops.forward.forward_pass`."""
+    search: a CUDA device and the kernel line search, shared or per-lane
+    params, so that a solve builds every trajectory it holds with one piece
+    of code.  Elsewhere :func:`.ops.forward.forward_pass`."""
     return (torch.device(device).type == "cuda"
             and _line_search_of(o, batch_params) == "kernel")
 
@@ -253,8 +269,11 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
     * ``body_fn(carry, params) -> _Carry``: one outer iteration of every
       lane (the caller keeps the carry of lanes whose loop is over);
     * ``finalize_fn(carry) -> Solution``;
-    * ``cast_params(params, B)``: the params in the solve's dtype and
-      layout (:class:`~.problem.LaneParams` with ``batch_params``).
+    * ``cast_params(params, B, N)``: the params of ``B`` lanes over ``N``
+      steps in the solve's dtype and layout (:class:`~.problem.LaneParams`
+      with ``batch_params``; on a card whose kernels read them, with their
+      :attr:`~.problem.LaneParams.rows`, which ``init_fn`` and ``body_fn``
+      then require).
     """
     o = options
     _check_supported(problem, o)
@@ -271,12 +290,15 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
               + problem.n_hfi) > 0
     hyper = _boxqp_hyper(o)
     inline = o.lam_retry == "inline"
-    # B3 and B2 read one flat shared param vector: per-lane params take the
+    # B3 reads one flat shared param vector: per-lane params take the
     # serial methods there (jax:solver.py:366-371, :458-462)
     backpass = ("serial" if batch_params and o.backpass_method == "fused"
                 else o.backpass_method)
     linesearch = _line_search_of(o, batch_params)
     init_on_b2 = _init_on_b2(device, o, batch_params)
+    # the kernels that read params on a card: the emission kernel, B2, B3
+    kernels_read_params = device.type == "cuda" and (
+        backpass in ("kernel", "fused") or linesearch == "kernel")
     # the serial and fused paths compute their derivatives themselves, and
     # per-lane params emit per family (JAX: the batch-major fallback)
     shared = o.derivs_emitter == "shared" and not batch_params
@@ -307,13 +329,11 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
             bp, d_ok = bp_call(c.lam)
             return lambda lam: bp_call(lam)[0], bp, d_ok
         if backpass == "kernel":
-            # emission once (the emission kernel on a card unless params
-            # are per lane); a retry re-runs B1 on the same bundle
-            args = (problem, c.xs, c.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi,
-                    w_pen_l_d, w_pen_f_d, params, o.full_ddp, shared)
-            sd_cm, fcx, fcxx, us_cm, d_ok = (
-                cm_emit(*args) if batch_params
-                else cuda_emit.emit(*args, when=runs))
+            # emission once (the emission kernel on a card); a retry
+            # re-runs B1 on the same bundle
+            sd_cm, fcx, fcxx, us_cm, d_ok = cuda_emit.emit(
+                problem, c.xs, c.us, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi,
+                w_pen_l_d, w_pen_f_d, params, o.full_ddp, shared, when=runs)
             launches.stamp("derivs", device)
 
             def bp_call(lam):
@@ -335,18 +355,27 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
                                      hyper)
         return bp_call, bp_call(c.lam), d_ok
 
+    def need_rows(params) -> None:
+        """Per-lane params reach the kernels with the lane-major rows
+        ``cast_params`` made: a launch that made them from the leaves would
+        add nodes to every graph replay."""
+        if (kernels_read_params and batch_params
+                and getattr(params, "rows", None) is None):
+            raise ValueError("per-lane params without the kernels' rows: "
+                             "pass them through cast_params")
+
     def prepare_kernels(params) -> None:
         """Generate and build the kernels this solve launches on a CUDA
         device before any body call, so before any graph capture (an
         ``nvcc`` run cannot be captured): B1 at the problem's shape, and
         B2, B3 and the emission kernel on its CUDA model, hand-written or
         generated."""
+        need_rows(params)
         if device.type != "cuda":
             return
         if backpass == "kernel":
             cuda_backpass.library(problem.n_x, problem.n_u)
-        if (backpass == "fused" or linesearch == "kernel"
-                or (backpass == "kernel" and not batch_params)):
+        if kernels_read_params:
             codegen.kernel_model(problem, params)
 
     def init_fn(x0s, u0s, params) -> _Carry:
@@ -405,6 +434,7 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
         return torch.where(alive[:, None], new, log)
 
     def body_fn(c: _Carry, params) -> _Carry:
+        need_rows(params)
         launches.stamp("body", device)
         where = torch.where
         lf = o.lambdaFactor
@@ -571,11 +601,18 @@ def _make_parts(problem: Problem, options: SolverOptions, device,
             bp_retry_calls=final.bp_retry_calls,
         )
 
-    def cast_params(params, B: int):
+    def cast_params(params, B: int, N: int):
         # All floating params in the solve dtype, on the solve device.
         _check_device(params, device, "params")
         p = to_torch(dict(params), dtype, device)
-        return lanes_last(p, B) if batch_params else p
+        if not batch_params:
+            return p
+        p = lanes_last(p, B)
+        if kernels_read_params:
+            # the kernels' lane-major operand, made once here
+            model = codegen.kernel_model(problem, p)[0]
+            p.rows = model.flat_params(p, dtype, device, N)
+        return p
 
     return init_fn, body_fn, finalize_fn, cast_params
 
@@ -765,7 +802,7 @@ class _BatchedSolver:
 
     def __call__(self, x0s, u0s, params) -> Solution:
         o = self.options
-        p = self._cast(params, len(u0s))
+        p = self._cast(params, len(u0s), _horizon(u0s))
         init_fn, body_fn, finalize_fn = self._parts
         if not self.graphed():
             c = _solve_loop(body_fn, init_fn(x0s, u0s, p), p, o)
@@ -890,11 +927,23 @@ def _params_key(p):
 
 def _params_map(fn, *trees):
     """``fn`` over the tensors of cast params (dicts of tensors), keeping
-    each dict's type (:class:`~.problem.LaneParams` stays one)."""
+    each dict's type (:class:`~.problem.LaneParams` stays one, and its
+    ``rows`` go with its leaves)."""
     if isinstance(trees[0], dict):
-        return type(trees[0])({k: _params_map(fn, *(t[k] for t in trees))
-                               for k in trees[0]})
+        out = type(trees[0])({k: _params_map(fn, *(t[k] for t in trees))
+                              for k in trees[0]})
+        rows = [getattr(t, "rows", None) for t in trees]
+        if rows[0] is not None:
+            if any(r is None for r in rows):
+                raise ValueError("per-lane params without the kernels' rows")
+            out.rows = fn(*rows)
+        return out
     return fn(*trees)
+
+
+def _horizon(u0s) -> int:
+    """``N`` of batched initial inputs ``(B, N, n_u)``."""
+    return int(u0s.shape[1]) if hasattr(u0s, "shape") else len(u0s[0])
 
 
 # eager calls before a capture, as torch.cuda.graph's documentation does
@@ -1046,6 +1095,12 @@ class StepwiseSolver:
     ``batch_params``: every params leaf carries a leading lane axis; each
     compaction gathers the working set's params with the carry's index.
 
+    ``require_kernels`` (keyword only): on a CUDA device, raise
+    ``NotImplementedError`` here rather than run a torch route in place of
+    a kernel that ``backpass_method`` or ``linesearch_method`` names
+    (:func:`_check_kernels`), for a caller sized on the kernels' speed.
+    On the CPU the plain versions stand in for the kernels, as always.
+
     ``pipeline_depth``: on the static route the active count of a chunk of
     replays is read ``pipeline_depth - 1`` chunks late (:class:`_LaggedCounts`),
     so the host's read overlaps the replays queued behind it.  The count
@@ -1099,7 +1154,10 @@ class StepwiseSolver:
         inline_below: int = 0,
         *,
         device,
+        require_kernels: bool = False,
     ):
+        if require_kernels:
+            _check_kernels(device, options, batch_params)
         self.options = options
         self.chunk = chunk
         self.compact_levels = compact_levels
@@ -1149,7 +1207,7 @@ class StepwiseSolver:
         if self.device.type == "cuda":
             _build.load_library()
         x0s, u0s, params = self._local(x0s, u0s, params)
-        p = self._cast_params(params, len(u0s))
+        p = self._cast_params(params, len(u0s), _horizon(u0s))
         full = self._init(x0s, u0s, p)
         B, N = int(full.cost.shape[0]), int(full.us.shape[1])
         if self._static_ok:
@@ -1333,7 +1391,7 @@ class StepwiseSolver:
         o = self.options
         with self._span("ddp.stepwise.init"):
             x0s, u0s, params = self._local(x0s, u0s, params)
-            p_full = p = self._cast_params(params, len(u0s))
+            p_full = p = self._cast_params(params, len(u0s), _horizon(u0s))
             full = self._init(x0s, u0s, p)
             B, N = int(full.cost.shape[0]), int(full.us.shape[1])
             small, idx, size = full, None, B
@@ -1406,7 +1464,8 @@ class StepwiseSolver:
                         full, small, idx = self._compact(full, small, idx,
                                                          size)
                     if self.batch_params:
-                        p = p_full.take(idx)
+                        with self._span("ddp.stepwise.lane_params"):
+                            p = p_full.take(idx)
                 if self._on_static(size):
                     w, small, p = self._enter(size, N, small, p)
         self._clear_counts()

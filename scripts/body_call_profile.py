@@ -9,8 +9,8 @@ For each path (``"kernel"``: emission + kernel B1; ``"fused"``: kernel
 B3; ``"serial"``: the step-major bundle and the backward pass of
 ``ops/backpass.py``, with the serial line search; ``"per_lane"``:
 per-lane params, ``limW`` from +-0.2 to +-0.5 over the lanes as
-``chip_smoke.py``'s, on the kernel path, so emission + B1 and the serial
-line search) it builds the solver's parts for ``bench.py``'s workload
+``chip_smoke.py``'s, on the kernel path, so emission, B1 and B2 read each
+lane's params) it builds the solver's parts for ``bench.py``'s workload
 (CarParking, B=2048, T=500, ``chip_smoke.py``'s inputs and options,
 float32 unless ``--dtype``), runs the initial rollout and 3 warm-up body
 calls, then
@@ -89,7 +89,7 @@ def profile_path(path: str, calls: int, dtype: str) -> dict:
     per_lane = path == "per_lane"
     backpass = "kernel" if per_lane else path
     serial = backpass == "serial"
-    serial_ls = serial or per_lane
+    serial_ls = serial
     o = ddp.SolverOptions(max_iter=cs.MAX_ITER_MAIN, dtype=dtype,
                           tolFun=1e-5 if dtype == "float32" else 1e-7,
                           debug_level=0, backpass_method=backpass,
@@ -100,7 +100,7 @@ def profile_path(path: str, calls: int, dtype: str) -> dict:
     if per_lane:
         p_np, _ = cs.car_limw_per_lane(p_np, cs.B_MAIN)
     p = cast(ddp.params_from_jax(p_np, getattr(torch, dtype), "cuda"),
-             cs.B_MAIN)
+             cs.B_MAIN, cs.T_MAIN)
     c = init_fn(torch.as_tensor(x0s, device="cuda"),
                 torch.as_tensor(u0s, device="cuda"), p)
     alphas = tuple(float(a) for a in o.alpha)

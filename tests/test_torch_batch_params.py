@@ -2,11 +2,12 @@
 on the CPU, against the JAX package.
 
 Every params leaf carries a leading lane axis, as in the JAX package.  The
-port follows the JAX package's fallbacks: the kernel path keeps emission +
-B1 (its plain version here), the fused path takes the serial derivatives
-and backward pass, the kernel line search the serial one.  Held here, per
-lane: status, iterations, body, stale and retry calls exactly, cost,
-``xs`` and ``us`` to 1e-10, for
+port's kernel path keeps emission, B1 and B2 (their plain versions here)
+with per-lane params; the fused path takes the serial derivatives, backward
+pass and line search, as the JAX package does.  The JAX package's kernel
+path takes its serial line search instead of B2.  Held here, per lane:
+status, iterations, body, stale and retry calls exactly, cost, ``xs`` and
+``us`` to 1e-10, for
 
 * ``tests/test_batched.py:215-230``: ``limW`` varied per lane, each lane
   within its own limit, on the serial, kernel and fused paths;
@@ -14,13 +15,15 @@ lane: status, iterations, body, stale and retry calls exactly, cost,
   bit-identical to no compaction;
 * ``tests/test_pallas_fused.py:105-121``: fused falls back to serial,
   bit-identical;
-* ``tests/test_pallas_rollout.py:228-248``: the kernel line search falls
-  back to serial, bit-identical;
+* ``tests/test_pallas_rollout.py:228-248``: the kernel line search with
+  per-lane params (B2's plain version) against the serial one, to 1e-10
+  (the JAX package falls back to serial there);
 * ``brachistochrone_hli`` with a different ``ymin`` floor per lane (a
   ``[k]``-indexed param) on the kernel path against JAX's
   ``"pallas"``/``"pallas"``;
-* each lane equal to its solve alone with its own shared params, and the
-  serial line search reading lane ``b``'s params for every alpha.
+* each lane equal to its solve alone with its own shared params, through
+  the methods the per-lane path runs, and the serial line search reading
+  lane ``b``'s params for every alpha.
 """
 
 import jax
@@ -147,16 +150,18 @@ def test_fused_falls_back_to_serial(car_port):
     _assert_identical(car_port["fused"], car_port["serial"])
 
 
-def test_kernel_line_search_falls_back_to_serial(car_port):
-    """Serial backward pass + kernel line search equals serial + serial
-    exactly (``jax:solver.py:458-462``); the wrappers launch nothing."""
+def test_kernel_line_search_per_lane_matches_serial(car_port):
+    """Serial backward pass + kernel line search with per-lane params runs
+    B2 (its plain version here), where the JAX package falls back to its
+    serial line search (``jax:solver.py:458-462``): every lane as serial +
+    serial, counts exactly, cost, ``xs`` and ``us`` to 1e-10."""
     pb, x0s, u0s, _ = _car_inputs()
     opts = td.SolverOptions(debug_level=0, max_iter=MAX_ITER,
                             linesearch_method="kernel")
     out = td.to_numpy(td.make_batched_solver(
         tcar.car_parking(), opts, batch_params=True, device="cpu")(
             x0s, u0s, pb))
-    _assert_identical(out, car_port["serial"])
+    _assert_lanes_match(out, car_port["serial"])
 
 
 @pytest.mark.parametrize("path", list(PATHS))
@@ -164,10 +169,11 @@ def test_each_lane_equals_its_solve_alone(car_port, path):
     """Lane b of the per-lane solve against lane b solved alone with lane
     b's params, shared, through the methods the per-lane path runs."""
     pb, x0s, u0s, _ = _car_inputs()
-    alone = {"serial": "serial", "kernel": "kernel", "fused": "serial"}
+    alone = {"serial": PATHS["serial"], "kernel": PATHS["kernel"],
+             "fused": PATHS["serial"]}
     opts = td.SolverOptions(debug_level=0, max_iter=MAX_ITER,
-                            backpass_method=alone[path],
-                            linesearch_method="serial")
+                            backpass_method=alone[path][0],
+                            linesearch_method=alone[path][1])
     for b in (0, B - 1):
         one = td.to_numpy(td.make_batched_solver(
             tcar.car_parking(), opts, device="cpu")(

@@ -12,6 +12,14 @@ on a CUDA card.
   solve through the torch emitter: the solved share within 1 point, the
   median iterations within 5%.
 * In a graphed solve the emission counts one launch per B1 launch.
+* Per-lane params (``LaneParams``, lanes on four rows; the
+  Brachistochrone's ``[k]``-indexed floor per lane) at widths 1, 2, 128 and
+  2,048: each lane bit for bit a shared launch on its row, both thread
+  mappings alike, against ``cm_emit`` to the tolerances above, counted as
+  ``emit_lane_params``.
+* A generated model with more fixed params than 48 KB of static shared
+  memory holds for a block's rows (51 float64 entries): its library builds,
+  and its shared and per-lane launches match ``cm_emit``.
 * A problem with no CUDA model that the generator cannot write raises,
   naming the op: the kernel path on a card does not fall back to the torch
   emitter.
@@ -37,7 +45,8 @@ from ddp_generator_tpu_torch.models import car_parking
 from ddp_generator_tpu_torch.ops import cuda_emit as ce
 from ddp_generator_tpu_torch.ops.cm_derivs import cm_emit
 from ddp_generator_tpu_torch.ops.cuda_backpass import _BUNDLE_KEYS
-from ddp_generator_tpu_torch.problem import LaneParams
+from ddp_generator_tpu_torch.problem import LaneParams, lanes_last
+from test_torch_graphs import fleet
 
 pytestmark = pytest.mark.cuda
 
@@ -140,9 +149,115 @@ def test_emit_kernel_matches_cm_emit(cuda, model, full_ddp, dtype):
         assert not bool(ok[1]) and bool(ok[0]) and bool(ok[2:].all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("B", [1, 2, 128, 2048])
+@pytest.mark.parametrize("model", ["car_parking", "brachistochrone_hli"])
+def test_emit_kernel_per_lane_params(cuda, model, B, dtype):
+    N = 20
+    _, args = _operands(model, dtype, cuda, N=N, B=B)
+    full_ddp = model == "car_parking"
+    lanes_np, rows_np = fleet({k: v.cpu().double().numpy()
+                               for k, v in args[-1].items()}, B, model)
+    lanes = lanes_last(ddp.to_torch(lanes_np, dtype, cuda), B)
+    items = ce.items_per_point(args[0].n_x, args[0].n_u, full_ddp)
+    before = launches.read_launches()
+    outs = [ce.emit(*args[:-1], lanes, full_ddp, per=per)
+            for per in (1, items)]
+    after = launches.read_launches()
+    assert after["emit_lane_params"] - before["emit_lane_params"] == 2
+    assert after["emit"] - before["emit"] == 2
+    flat = lambda o: list(o[0].values()) + list(o[1:])  # lanes last
+    for a, b in zip(flat(outs[0]), flat(outs[1])):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    out = flat(outs[0])
+    for r in range(min(4, B)):
+        ref = flat(ce.emit(*args[:-1], ddp.to_torch(rows_np[r], dtype, cuda),
+                           full_ddp))
+        sel = torch.arange(r, B, 4, device=cuda)
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a.index_select(-1, sel),
+                                       b.index_select(-1, sel), rtol=0,
+                                       atol=0, equal_nan=True)
+    plain = cm_emit(*args[:-1], lanes, full_ddp)
+    for key in _BUNDLE_KEYS:
+        _close(outs[0][0][key], plain[0][key], TOL[dtype], key)
+    for a, b, key in zip(outs[0][1:], plain[1:],
+                         ("final_cx", "final_cxx", "us_cm", "ok")):
+        _close(a, b, TOL[dtype], key)
+
+
+def _many_params_problem():
+    """A generated model with 51 fixed params (a 7x7 cost matrix ``Q``,
+    ``dt`` and ``r``): more float64 entries than 128 threads' rows fit in
+    48 KB of static shared memory, and more than the generator copies to
+    registers (its header reads them where they lie, ``TAIL``)."""
+
+    def f(x, u, p, k):
+        return torch.stack([
+            x[i] + p["dt"] * (x[(i + 1) % 7] + u[i % 2] - p["Q"][i, i] * x[i])
+            for i in range(7)])
+
+    def xqx(x, p):
+        return sum(p["Q"][i, j] * x[i] * x[j]
+                   for i in range(7) for j in range(7))
+
+    def L(x, u, p, k):
+        return xqx(x, p) + p["r"] * (u * u).sum(0)
+
+    def F(x, p, k):
+        return 10.0 * xqx(x, p)
+
+    a = np.random.default_rng(0).standard_normal((7, 7))
+    p = dict(dt=0.05, r=0.1, Q=a @ a.T / 7 + np.eye(7))
+    return ddp.make_problem(n_x=7, n_u=2, f=f, L=L, F=F,
+                            name="many_params", example_params=p), p
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_emit_generated_model_with_many_params(cuda, dtype):
+    """Its library builds; the shared launch and a per-lane one (four rows,
+    ``Q`` scaled per row) against ``cm_emit``, and each lane of the
+    per-lane launch bit for bit a shared launch on its row."""
+    prob, p = _many_params_problem()
+    assert codegen.model_for(prob, p).n_params == 51
+    B, N = 37, 13
+    rng = np.random.default_rng(3)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    xs, us = t(rng.standard_normal((B, N + 1, 7))), t(
+        rng.standard_normal((B, N, 2)))
+    empty = t(np.zeros((B, N, 0)))
+    none = t(np.zeros((B, 0)))
+    w = t(rng.uniform(0.5, 40.0, B))
+    ops = (prob, xs, us, empty, empty, none, none, w, w)
+    rows = [dict(p, Q=p["Q"] * (1.0 + 0.25 * r)) for r in range(4)]
+    shared = [ddp.to_torch(q, dtype, cuda) for q in rows]
+    lanes = lanes_last(ddp.to_torch(
+        {k: np.stack([rows[b % 4][k] for b in range(B)]) for k in p},
+        dtype, cuda), B)
+    flat = lambda o: list(o[0].values()) + list(o[1:])  # lanes last
+    for params in (shared[0], lanes):
+        out, ref = ce.emit(*ops, params, True), cm_emit(*ops, params, True)
+        for key in _BUNDLE_KEYS:
+            _close(out[0][key], ref[0][key], TOL[dtype], key)
+        for a, b, key in zip(out[1:], ref[1:],
+                             ("final_cx", "final_cxx", "us_cm", "ok")):
+            _close(a, b, TOL[dtype], key)
+    out = flat(ce.emit(*ops, lanes, True))
+    for r in range(4):
+        ref = flat(ce.emit(*ops, shared[r], True))
+        sel = torch.arange(r, B, 4, device=cuda)
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a.index_select(-1, sel),
+                                       b.index_select(-1, sel), rtol=0,
+                                       atol=0, equal_nan=True)
+
+
 def test_emit_wrapper_raises(cuda):
     prob, args = _operands("car_parking", torch.float32, cuda, N=5, B=4)
-    lane = LaneParams({k: v[..., None].expand(*v.shape, 4)
+    # per-lane params of another width than the operands'
+    lane = LaneParams({k: v[..., None].expand(*v.shape, 3)
                        for k, v in args[-1].items()})
     with pytest.raises(ValueError, match="per-lane"):
         ce.emit(*args[:-1], lane, True)

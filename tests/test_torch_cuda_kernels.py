@@ -55,7 +55,8 @@ from ddp_generator_tpu_torch.ops import cuda_rollout as cr
 from ddp_generator_tpu_torch.ops import device_loop as dl
 from ddp_generator_tpu_torch.ops.device_loop import eager_loops
 from ddp_generator_tpu_torch.ops.forward import forward_pass
-from test_torch_graphs import ROUTES, route_case
+from ddp_generator_tpu_torch.problem import lanes_last
+from test_torch_graphs import ROUTES, fleet, route_case
 
 pytestmark = pytest.mark.cuda
 
@@ -200,14 +201,19 @@ def _rollout_operands(dtype, dev, N=N, B=B, model="car_parking"):
         u0s = 0.1 * rng.standard_normal((B, N, 2))
         if B > 5:  # lane 5: the rollout turns NaN
             x0s[5, 3], u0s[5, :, 0] = 1e4, 0.3
-    else:
+    elif model == "cartpole":
         problem = cartpole.cartpole()
         p_np, x0, _ = cartpole.default_setup(T=N, seed=0)
         x0s = np.tile(x0, (B, 1)) + 0.05 * rng.standard_normal((B, 4))
         u0s = 10.0 * rng.standard_normal((B, N, 1))  # some past +-15
         if B > 5:
             x0s[5, 1] = np.inf  # lane 5: sin(inf), the rollout turns NaN
-    n_u = problem.n_u
+    else:  # brachistochrone_hli: a [k]-indexed floor and AL terms
+        problem = brachistochrone.brachistochrone_hli()
+        p_np, x0, _ = brachistochrone.default_setup_hli(N)
+        x0s = np.tile(x0, (B, 1)) - 0.05 * rng.random((B, 1))
+        u0s = -rng.uniform(0.5, 1.5, (B, N, 1))
+    n_x, n_u = problem.n_x, problem.n_u
     p = ddp.params_from_jax(p_np, dtype, dev)
     t = lambda v: torch.as_tensor(v, dtype=dtype, device=dev)
     m = ddp.init_multipliers(problem, B, N, dtype, dev)
@@ -215,7 +221,7 @@ def _rollout_operands(dtype, dev, N=N, B=B, model="car_parking"):
     nom = forward_pass(problem, t(x0s), None, t(u0s), None, None, 0.0, p,
                        m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, w, w)
     l = t(0.1 * rng.standard_normal((B, N, n_u)))
-    L = t(0.05 * rng.standard_normal((B, N, n_u, 4)))
+    L = t(0.05 * rng.standard_normal((B, N, n_u, n_x)))
     ctx = cr._LSCtx(problem, nom.xs[:, 0], nom.xs, nom.us, l, L, None, None,
                     m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, w, w)
     alphas = tuple(ddp.SolverOptions().alpha)
@@ -293,6 +299,80 @@ def _same(a, b):
         return a.shape == b.shape and bool(
             ((a == b) | (a.isnan() & b.isnan())).all())
     return torch.equal(a, b)
+
+
+def _lane_call(mode, ops, alpha_vec, dev):
+    """``params -> outputs, lanes last`` of one B2 launch in ``mode``: the
+    sweep, the selected rollout without and with cost, or the solver's
+    initial rollout (``cr.initial_rollout``)."""
+    problem = ops[0]
+    if mode == "initial":
+        B = ops[2].shape[2]
+        N = ops[2].shape[0]
+        x0 = ops[8].T.contiguous()
+        u0 = ops[3].permute(2, 0, 1).contiguous()
+        m = ddp.init_multipliers(problem, B, N, x0.dtype, dev)
+        w = torch.ones(B, dtype=x0.dtype, device=dev)
+
+        def call(params):
+            r = cr.initial_rollout(problem, x0, u0, params, m, w, w)
+            return tuple(t.movedim(0, -1) for t in r)
+        return call
+    kw = dict(multi=mode == "multi", want_cost=mode == "selected_cost")
+    av = None if mode == "multi" else alpha_vec
+    return lambda params: cr.rollout_call(*ops, av, params, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("mode",
+                         ["multi", "selected", "selected_cost", "initial"])
+@pytest.mark.parametrize("B", [1, 2, 128, 2048])
+@pytest.mark.parametrize("model", ["car_parking", "brachistochrone_hli"])
+def test_rollout_kernel_per_lane_params(cuda, model, B, mode, dtype):
+    """B2 with per-lane params (``LaneParams``, lanes on four rows; the
+    Brachistochrone's ``[k]``-indexed floor per lane): the sweep, the
+    selected rollouts and the initial rollout.  Each lane equals, bit for
+    bit, a shared launch on its row; the launch equals its plain version
+    within B2's tolerances and counts ``rollout_lane_params``; with the
+    solver's ``rows`` made beforehand it gives the same bits."""
+    from ddp_generator_tpu_torch.launches import read_launches as counts
+
+    ops, alpha_vec, p = _rollout_operands(dtype, cuda, N=N, B=B, model=model)
+    lanes_np, rows_np = fleet({k: v.cpu().double().numpy()
+                               for k, v in p.items()}, B, model)
+    lanes = lanes_last(ddp.to_torch(lanes_np, dtype, cuda), B)
+    call = _lane_call(mode, ops, alpha_vec, cuda)
+    before = counts()
+    out = call(lanes)
+    torch.cuda.synchronize()
+    after = counts()
+    assert after["rollout_lane_params"] == before["rollout_lane_params"] + 1
+    assert (after["init_rollout"] - before["init_rollout"]
+            == int(mode == "initial"))
+    for r in range(min(4, B)):
+        ref = call(ddp.to_torch(rows_np[r], dtype, cuda))
+        sel = torch.arange(r, B, 4, device=cuda)
+        for i, (o, q) in enumerate(zip(out, ref)):
+            assert _same(o.index_select(-1, sel), q.index_select(-1, sel)), (
+                f"{mode} output {i}, row {r}")
+    if mode == "initial":
+        m = ddp.init_multipliers(ops[0], B, N, dtype, cuda)
+        w = torch.ones(B, dtype=dtype, device=cuda)
+        plain = forward_pass(ops[0], ops[8].T, None,
+                             ops[3].permute(2, 0, 1), None, None, 0.0,
+                             lanes, m.mu_le, m.mu_li, m.mu_fe, m.mu_fi, w, w)
+        plain = tuple(t.movedim(0, -1) for t in plain)
+    else:
+        kw = dict(multi=mode == "multi", want_cost=mode == "selected_cost")
+        plain = cr.rollout_plain(*ops, None if mode == "multi"
+                                 else alpha_vec, lanes, **kw)
+    for i, (o, q) in enumerate(zip(out, plain)):
+        _close(o, q, TOL[dtype], f"{mode} output {i} against plain")
+    model_ = codegen.kernel_model(ops[0], lanes)[0]
+    lanes.rows = model_.flat_params(lanes, dtype, cuda, N)
+    again = call(lanes)
+    assert all(_same(a, b) for a, b in zip(again, out))
 
 
 def _unsupported(problem):
@@ -463,7 +543,7 @@ def test_rollout_stage_flag_skips_the_kernel(cuda, multi):
             problem.cuda_model.flat_params(p, xnom.dtype, cuda, N_)]
             + outs + [run])
         rc = lib.ddp_rollout(1, b"car_parking", int(multi), 1, N_, B_, A,
-                             cr.BLOCK, ptrs,
+                             cr.BLOCK, 0, ptrs,
                              ctypes.c_void_p(torch.cuda.current_stream()
                                              .cuda_stream))
         _build.check(lib, rc, "rollout")
@@ -818,7 +898,7 @@ def test_init_fn_on_b2_equals_forward_pass(cuda, monkeypatch, model, B):
         monkeypatch.setattr(slv, "_init_on_b2",
                             lambda *a, _v=on_b2: _v)
         init, _, _, cast = slv._make_parts(problem, opts, cuda)
-        pc = cast(p, B)
+        pc = cast(p, B, u0s.shape[1])
         init(x0, u0, pc)  # builds the kernels
         launches.reset_launches()
         carries[on_b2] = init(x0, u0, pc)
@@ -837,6 +917,87 @@ def test_init_fn_on_b2_equals_forward_pass(cuda, monkeypatch, model, B):
     for a, b in zip(out.mult, ref.mult):
         if b.numel():  # CarParking has no AL family
             _close(a, b, B2_LIMIT[dtype], "mult")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_stepwise_per_lane_params_on_the_kernels(cuda, monkeypatch, dtype):
+    """``batch_params=True`` on the kernel path: the emission kernel, B1
+    and B2 (line search and initial rollout) read each lane's params, every
+    body call a replay, with compaction; ``cm_emit``, the serial line
+    search and ``forward_pass`` never run.  Each lane equals, field by
+    field and bit for bit, its row's shared-params solve."""
+    from ddp_generator_tpu_torch import launches
+    from ddp_generator_tpu_torch import solver as slv
+    from ddp_generator_tpu_torch.ops import cuda_emit as ce
+
+    B, T = 256, 60
+    rng = np.random.default_rng(23)
+    p, x0, _ = car_parking.default_setup(T=T)
+    x0s = np.tile(x0, (B, 1)) + 0.05 * rng.standard_normal((B, 4))
+    u0s = 0.1 * rng.standard_normal((B, T, 2))
+    lanes, rows = fleet(p, B)
+    opts = ddp.SolverOptions(max_iter=100, dtype=dtype, debug_level=0,
+                             tolFun=1e-5 if dtype == "float32" else 1e-7,
+                             backpass_method="kernel",
+                             linesearch_method="kernel")
+
+    def refuse(what):
+        def f(*a, **kw):
+            raise AssertionError(f"{what} ran")
+        return f
+
+    kw = dict(chunk=5, compact_levels=2, min_compact_batch=64, device=cuda)
+    solver = ddp.StepwiseSolver(car_parking.car_parking(), opts,
+                                batch_params=True, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(ce, "cm_emit", refuse("cm_emit"))
+        m.setattr(slv, "line_search", refuse("the serial line search"))
+        m.setattr(slv, "forward_pass", refuse("forward_pass"))
+        solver.precompile(x0s, u0s, lanes)
+        launches.reset_launches()
+        sol = solver(x0s, u0s, lanes)
+        n = launches.read_launches()
+    st = solver.last_stats
+    assert st.eager == () and st.replays == st.body_calls > 0
+    assert len(st.graphed) > 1  # it compacted
+    assert n["emit_lane_params"] == n["emit"] > 0
+    assert n["init_rollout"] == 1
+    assert (n["rollout_lane_params"]
+            == n["rollout_multi"] + n["rollout_selected"] > 1)
+    for r in range(4):
+        ref = ddp.StepwiseSolver(car_parking.car_parking(), opts, **kw)(
+            x0s, u0s, rows[r])
+        sel = torch.arange(r, B, 4, device=cuda)
+        for name, a, b in zip(sol._fields, sol, ref):
+            assert _same(a[sel], b[sel]), (name, r)
+    assert len(set(sol.iterations.tolist())) > 1
+
+
+def test_solver_refuses_per_lane_params_without_rows(cuda):
+    """On a card the solver's kernels take per-lane params with the rows
+    ``cast_params`` made; the same leaves without them raise in
+    ``init_fn`` and ``body_fn`` rather than make the rows at every
+    launch."""
+    from ddp_generator_tpu_torch.problem import LaneParams
+
+    B, T = 8, 20
+    p, x0, _ = car_parking.default_setup(T=T)
+    x0s = np.tile(x0, (B, 1))
+    u0s = 0.1 * np.random.default_rng(0).standard_normal((B, T, 2))
+    lanes, _ = fleet(p, B)
+    opts = ddp.SolverOptions(max_iter=5, dtype="float64", debug_level=0,
+                             backpass_method="kernel",
+                             linesearch_method="kernel")
+    s = ddp.StepwiseSolver(car_parking.car_parking(), opts,
+                           batch_params=True, device=cuda)
+    P = s._cast_params(lanes, B, T)
+    assert P.rows is not None and tuple(P.rows.shape) == (B, 20)
+    bare = LaneParams(P)
+    with pytest.raises(ValueError, match="rows"):
+        s._init(x0s, u0s, bare)
+    c = s._init(x0s, u0s, P)
+    with pytest.raises(ValueError, match="rows"):
+        s._body(c, bare)
 
 
 @pytest.mark.parametrize("model", ["car_parking", "brachistochrone_hli"])

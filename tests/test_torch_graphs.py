@@ -110,6 +110,27 @@ def per_lane(p, B):
             for k, v in p.items()}
 
 
+def fleet(p, B, model="car_parking"):
+    """Per-lane params of ``B`` lanes on four distinct rows, lane ``b`` on
+    row ``b % 4``: CarParking's ``d``, ``limW`` and ``limA`` (the fleet of
+    the benchmark's per-lane configuration, coarser), or
+    ``brachistochrone_hli``'s floor ``ymin`` shifted.  Returns ``(params,
+    rows)``: every leaf with a leading lane axis, and each row's params as
+    shared ones."""
+    rows = []
+    for r in range(4):
+        q = {k: np.array(v, np.float64) for k, v in p.items()}
+        if model == "car_parking":
+            q["d"] = q["d"] * (1.0 + 0.25 * r)
+            q["limW"] = q["limW"] * (1.0 - 0.15 * r)
+            q["limA"] = q["limA"] * (1.0 - 0.2 * r)
+        else:
+            q["ymin"] = q["ymin"] - 0.1 * r
+        rows.append(q)
+    return {k: np.stack([rows[b % 4][k] for b in range(B)])
+            for k in p}, rows
+
+
 def route_case(route, B, T):
     """``(problem, options, x0s, u0s, params, batch_params)`` of a graphed
     route: ``(backpass, linesearch, per_lane)``.  Per-lane CarParking params
@@ -166,7 +187,7 @@ def test_body_call_reads_nothing_on_the_host(route):
     problem, o, x0s, u0s, p, lanes = route_case(ROUTES[route], 8, 20)
     assert slv._graphable(problem, o)
     init, body, _, cast = slv._make_parts(problem, o, "cpu", lanes)
-    params = cast(p, 8)
+    params = cast(p, 8, 20)
     c = init(x0s, u0s, params)
     w = slv._WidthBody(slv._masked(body, o.max_iter), c, params,
                        o.max_iter, graph=False)

@@ -122,7 +122,7 @@ def test_routes_that_read_the_host_stay_eager(case, capsys):
     assert s._static_ok is not eager
     assert all(s._on_static(w) is not eager for w in s._compact_sizes(4))
     init, body, _, cast = slv._make_parts(problem, o, "cpu", lanes)
-    params = cast(p, 4)
+    params = cast(p, 4, u0s.shape[1])
     c = init(x0s, u0s, params)
     with pytest.raises(AssertionError, match="host read"):
         with host_reads():

@@ -10,9 +10,10 @@
 * ``init_fn``'s whole carry through the helper equals the carry through
   ``forward_pass``, a lane whose ``u0`` drives the state non-finite
   included (``ok`` False, ``STATUS_INIT_FAILED``, ``xs[:, 0] == x0``);
-* the route: the kernel line search on a CUDA device with shared params
-  takes the helper; the serial line search, per-lane params and the CPU
-  take ``forward_pass``.
+* the route: the kernel line search on a CUDA device, with shared or
+  per-lane params, takes the helper; the serial line search, the fused
+  path with per-lane params (whose line search is serial) and the CPU take
+  ``forward_pass``.
 
 The file imports no JAX.
 """
@@ -117,7 +118,7 @@ def _carry(monkeypatch, name, dt, on_b2, x0s, u0s, p, problem):
                         counted(cr.initial_rollout, "initial_rollout"))
     monkeypatch.setattr(slv, "_init_on_b2", lambda *a: on_b2)
     init, _, _, cast = slv._make_parts(problem, _options(name, dt), "cpu")
-    c = init(x0s, u0s, cast(p, len(u0s)))
+    c = init(x0s, u0s, cast(p, len(u0s), u0s.shape[1]))
     monkeypatch.undo()
     return c, calls
 
@@ -150,22 +151,26 @@ def test_init_fn_carry_through_the_helper(monkeypatch, name, dt):
     assert torch.equal(out.xs[:, 0], x0)
 
 
-@pytest.mark.parametrize("device,linesearch,batch_params,on_b2", [
-    ("cuda", "kernel", False, True),
-    ("cuda:0", "kernel", False, True),
-    ("cuda", "serial", False, False),
-    ("cuda", "kernel", True, False),
-    ("cpu", "kernel", False, False),
-    ("cpu", "serial", False, False),
+@pytest.mark.parametrize("device,linesearch,batch_params,on_b2,backpass", [
+    ("cuda", "kernel", False, True, "kernel"),
+    ("cuda:0", "kernel", False, True, "kernel"),
+    ("cuda", "serial", False, False, "kernel"),
+    ("cuda", "kernel", True, True, "kernel"),
+    ("cuda", "kernel", True, False, "fused"),
+    ("cpu", "kernel", False, False, "kernel"),
+    ("cpu", "serial", False, False, "kernel"),
 ])
-def test_route_rule(device, linesearch, batch_params, on_b2):
-    """The helper exactly where B2 rolls the line search: a CUDA device,
-    the kernel line search and shared params."""
+def test_route_rule(device, linesearch, batch_params, on_b2, backpass):
+    """The helper exactly where B2 rolls the line search: a CUDA device and
+    the kernel line search, shared or per-lane params, but not the fused
+    path with per-lane params (serial derivatives, backward pass and line
+    search)."""
     o = td.SolverOptions(linesearch_method=linesearch,
-                         backpass_method="kernel")
+                         backpass_method=backpass)
     assert slv._init_on_b2(torch.device(device), o, batch_params) is on_b2
     assert (slv._line_search_of(o, batch_params) == "kernel") == (
-        linesearch == "kernel" and not batch_params)
+        linesearch == "kernel"
+        and not (batch_params and backpass == "fused"))
 
 
 @pytest.mark.parametrize("linesearch,batch_params", [
@@ -186,6 +191,6 @@ def test_cpu_init_fn_calls_forward_pass(monkeypatch, linesearch,
     if batch_params:  # every leaf gets a lane axis
         p = {k: np.stack([np.asarray(v)] * 2) for k, v in p.items()}
     init, _, _, cast = slv._make_parts(problem, o, "cpu", batch_params)
-    c = init(x0s, u0s, cast(p, 2))
+    c = init(x0s, u0s, cast(p, 2, u0s.shape[1]))
     assert calls == ["fp"]
     assert c.xs.shape == (2, 8, 4)

@@ -128,7 +128,7 @@ def test_solver_carry_checkpoint_resume(tmp_path):
                             linesearch_method="kernel")
     s = td.StepwiseSolver(tcar.car_parking(), opts, chunk=5, device="cpu")
 
-    P = s._cast_params(p, B)
+    P = s._cast_params(p, B, u0s.shape[1])
     carry = s._init(x0s, u0s, P)
     carry, _ = _masked_steps(s._body, carry, P, opts.max_iter, 5)
     ckpt = str(tmp_path / "carry.ddpt")
